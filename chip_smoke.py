@@ -13,7 +13,10 @@ In order, failing (exit code != 0, no result line) at the first fault:
      each kernel is then held against its plain PyTorch twin on those
      inputs (floats: rtol 2e-4, atol 2e-4 * max(1, max|plain|), K3's
      Hessians also on their diagonal-normalized form; states, masks and
-     `good`: exact);
+     `good`: exact); K3 and K4 also at ragged shapes on seeded synthetic
+     inputs (P, N that fill no block, F = 1..16, an empty pmask, an
+     all-OOB window, NaN taps in dead frames), each launched twice and
+     required to repeat bit for bit;
   4. the slice: the full bench main scene (48 frames, twist
      (0.03, 0.012, 0.02, 0.002, 0.004, 0.001), plane_z 2.0) through the
      port's FullSystem on the card, with every launch counter set to 0
@@ -22,11 +25,17 @@ In order, failing (exit code != 0, no result line) at the first fault:
   5. the breakdown: 8 more frames through the same FullSystem under
      torch.profiler (the card's busy share and its top device ops);
   6. kernel times on the inputs of step 3 (after the slice, so that the
-     profiler cannot slow the slice): the card's time per call from
-     torch.profiler over 30 calls after warm-up, and the CUDA-event wall
-     time, beside the plain twin's and the bound worked out from the
-     bytes and operations; then the launch counts and the kernels line
-     (one JSON object);
+     profiler cannot slow the slice), three measures of each kernel: one
+     pair of CUDA events around 200 back-to-back launches queued behind a
+     sleeping kernel (device time a launch with the queue full, no
+     profiler; three times, SM and memory clocks before and after: the
+     `ms` of the kernels line is their median), the card's time per call
+     from torch.profiler over 30 calls, and the CUDA-event wall time of a
+     single call; beside them the plain twin's times and the bound worked
+     out from the bytes and operations. For K3 also each launch's device
+     time by kernel name, and for the whole K3 and K4 wrappers the device
+     ops a call and the host-device copies among them (K3: none allowed);
+     then the launch counts and the kernels line (one JSON object);
   7. last line: {"ok": true, "device": {...}}.
 
 Needs one card; exits with code 2 when CUDA is unavailable or the port is
@@ -51,6 +60,11 @@ PROF_FRAMES = 8   # frames after the slice run under the profiler
 TWIST = (0.03, 0.012, 0.02, 0.002, 0.004, 0.001)
 TOL = 2e-4
 REPS = 30
+QUEUED = 200      # back-to-back launches under one pair of events
+# device ops a call of the whole K3 wrapper in the first Hopper design
+# (five launches, float copies of the masks; scripts/torch_kernel_times.py
+# on that commit, NVIDIA H100 80GB HBM3)
+K3_WRAPPER_OPS_FIRST_DESIGN = 150
 JAX_REFERENCE = "JAX package on the same scene: 22 keyframes, ATE 0.0103 m " \
                 "over 1.786 m (BENCH_r05.json, not asserted)"
 
@@ -147,13 +161,51 @@ def worse(a, b):
     return max(a[0], b[0]), max(a[1], b[1])
 
 
+def gpu_clocks() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def queued_ms(torch, fn, n=QUEUED, repeats=3):
+    """Device ms a call of `fn` with the queue full, `repeats` times: one
+    pair of CUDA events around `n` back-to-back calls that were enqueued
+    while a sleeping kernel held the stream, so the host's launch cost is
+    hidden and the card runs them without a gap. No profiler. Returns
+    (the ms of each repeat, clocks before, clocks after)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host_s = time.perf_counter() - t0       # the host's time to enqueue n
+    torch.cuda.synchronize()
+    khz = torch.cuda.get_device_properties(0).clock_rate
+    cycles = int((1.5 * host_s + 0.005) * khz * 1e3)
+    before = gpu_clocks()
+    out = []
+    for _ in range(repeats):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b) / n)
+    return out, before, gpu_clocks()
+
+
 def time_ms(torch, fn):
     """(device ms, wall ms) of one call of `fn`: the device time is the sum
     of the card's kernel time over REPS calls (torch.profiler, CUPTI) per
     call; the wall time is the median of CUDA events around each call,
     host launch overhead included (the card idles while tiny kernels are
     enqueued)."""
-    from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -166,15 +218,31 @@ def time_ms(torch, fn):
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
+    ev = profiled(torch, fn)
+    dev_us = sum(e.self_device_time_total for e in ev)
+    if dev_us <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    return dev_us / REPS / 1e3, float(np.median(times))
+
+
+def profiled(torch, fn):
+    """The device events of REPS calls of `fn` under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(REPS):
             fn()
         torch.cuda.synchronize()
-    dev_us = sum(e.self_device_time_total for e in device_events(prof))
-    if dev_us <= 0:
-        raise AssertionError("the profiler recorded no device time")
-    return dev_us / REPS / 1e3, float(np.median(times))
+    return device_events(prof)
+
+
+def device_ops(torch, fn):
+    """(device ops a call of `fn`, the names of the copies among them that
+    cross between host and device)."""
+    ev = profiled(torch, fn)
+    crossing = sorted({e.key for e in ev if "Memcpy" in e.key
+                       and "DtoD" not in e.key})
+    return sum(e.count for e in ev) / REPS, crossing
 
 
 def device_events(prof):
@@ -219,21 +287,22 @@ def k3_flops(P, F, D):
     """Floating-point operations K3 must do at P points, F frames, in GN
     mode, counted from csrc/ba_fused.cu (a multiply, add, divide or square
     root is one; each distinct entry of a symmetric sum is counted once).
-    Pass A, per (point, frame): projection 18; 1/z, pixel, idepth 8;
+    The residual pass, per (point, frame): projection 18; 1/z, pixel, idepth 8;
     d(pixel)/d(idepth) 8; the four FEJ coefficients 16; the 2x10 X rows 34;
     per tap 30 (residual 3, d/dA 1, |g|^2 3, gradient weight 3, weight 2,
     Huber 2, energy 7, weighted rows 6, |J|^2 3) x 8 = 240; the 9 tap sums
     (2 each) x 8 = 144; Hdd, bd, Hcd, JpJd 54; the gram rows Y (10 x 3)
     x 8 = 240; the adjoint stitch of v 272 (host 8x8x2, target 8x8x2, sum
-    16): 1034. Pass B2, per (point, frame): 8 taps x the 91 distinct (a, b)
-    of a symmetric 13x13 cell x 2 = 1456. Pass B1, per point: v_i HdiF for
+    16): 1034. The cell sums, per (point, frame): 8 taps x the 91 distinct
+    (a, b) of a symmetric 13x13 cell x 2 = 1456. The Schur sums, per point:
+    v_i HdiF for
     each of D rows, 2 for each of the D(D+1)/2 distinct H_sc entries and
     the D of b_sc, and 6 for the prior and HdiF."""
     return P * F * (1034 + 1456) + P * (D + 2 * (D * (D + 1) // 2 + D) + 6)
 
 
 def checked(kernels, timings, name, source, replaces, err, kernel_fn,
-            plain_fn, nbytes, flops, what, wrapper_fn=None):
+            plain_fn, nbytes, flops, what, wrapper_fn=None, by_name=False):
     """Record a kernel that matched its plain twin: log its error now,
     queue its timing (run after the slice, so the profiler cannot slow the
     slice down)."""
@@ -243,23 +312,44 @@ def checked(kernels, timings, name, source, replaces, err, kernel_fn,
     kernels.append(dict(name=name, route="cuda", source=source,
                         replaces=replaces, max_abs_err=err[0], bound_ms=b_ms,
                         bound_by=b_by, library_ms=None))
-    timings.append((kernel_fn, plain_fn, nbytes, flops, wrapper_fn))
+    timings.append((kernel_fn, plain_fn, nbytes, flops, wrapper_fn, by_name))
 
 
 def time_kernels(torch, kernels, timings):
-    for k, (kernel_fn, plain_fn, nbytes, flops, wrapper_fn) in zip(
+    """Times every checked kernel; returns, per kernel tag that has a whole
+    wrapper, (its device ops a call, its host-device copies)."""
+    wrappers = {}
+    for k, (kernel_fn, plain_fn, nbytes, flops, wrapper_fn, by_name) in zip(
             kernels, timings):
-        ms, wall = time_ms(torch, kernel_fn)
+        tag = f"[{k['name'].split()[0]}]"
+        q, before, after = queued_ms(torch, kernel_fn)
+        prof_ms, wall = time_ms(torch, kernel_fn)
         pms, pwall = time_ms(torch, plain_fn)
-        k.update(ms=ms, plain_ms=pms)
-        log(f"[{k['name'].split()[0]}] device ms kernel {ms:.4f} plain "
-            f"{pms:.4f}; wall ms kernel {wall:.4f} plain {pwall:.4f}; bound "
-            f"{k['bound_ms']:.4f} ms ({k['bound_by']}: {nbytes / 1e6:.2f} MB, "
-            f"{flops / 1e6:.2f} MFLOP)")
+        k.update(ms=float(np.median(q)), plain_ms=pms)
+        log(f"{tag} device ms a call, {QUEUED} queued launches under one "
+            f"pair of events, three times: "
+            + ", ".join(f"{x:.5f}" for x in q)
+            + f" (clocks sm, mem before {before}; after {after})")
+        log(f"{tag} device ms kernel {k['ms']:.5f} (profiler {prof_ms:.5f}) "
+            f"plain {pms:.4f}; wall ms of a single call kernel {wall:.4f} "
+            f"plain {pwall:.4f}; bound {k['bound_ms']:.5f} ms "
+            f"({k['bound_by']}: {nbytes / 1e6:.2f} MB, {flops / 1e6:.2f} "
+            f"MFLOP), {100 * k['bound_ms'] / k['ms']:.2f}% of the bound")
+        if by_name:
+            log(f"{tag} its launches by kernel name, device ms a call "
+                "(launches a call): " + "; ".join(
+                    f"{e.key.split('(')[0][:40]} "
+                    f"{e.self_device_time_total / 1e3 / REPS:.5f} "
+                    f"({e.count / REPS:.0f})"
+                    for e in profiled(torch, kernel_fn)))
         if wrapper_fn is not None:
             wms, wwall = time_ms(torch, wrapper_fn)
-            log(f"[{k['name'].split()[0]}] whole wrapper (PyTorch side "
-                f"included): device ms {wms:.4f}, wall ms {wwall:.4f}")
+            n_ops, crossing = device_ops(torch, wrapper_fn)
+            log(f"{tag} whole wrapper (PyTorch side included): device ms "
+                f"{wms:.4f}, wall ms {wwall:.4f}, {n_ops:.1f} device ops a "
+                f"call, host-device copies: {crossing or 'none'}")
+            wrappers[tag] = (n_ops, crossing)
+    return wrappers
 
 
 def profile_frames(torch, fs, imgs, first, n):
@@ -288,6 +378,136 @@ def profile_frames(torch, fs, imgs, first, n):
     log("[profile] top device ops, ms/frame (count/frame): " + "; ".join(
         f"{e.key[:48]} {e.self_device_time_total / 1e3 / n:.3f} "
         f"({e.count / n:.0f})" for e in top))
+
+
+def k3_against_plain(BP, a, kw):
+    """K3 on the call (a, kw) against its plain twin: every float output,
+    the Hessians and the kernel's own cells also Gram-normalized, states,
+    masks and has_res exact; and a second launch must repeat every bit."""
+    fk = BP.fused_iteration(*a, **kw)
+    fp = BP.fused_iteration_plain(*a, **kw)
+    prep = BP.k3_prepare(*a, **kw)
+    BP.k3_launch(prep)
+    cH, cb = BP.fused_cells_plain(*a[:6], pmask=kw.get("pmask"),
+                                  use_rz=kw.get("use_rz", False))
+    acc = prep["out"]["acc"]
+    err = compare(
+        "K3", [(fk.H_top, fp.H_top), (fk.b_top, fp.b_top),
+               (fk.H_sc, fp.H_sc), (fk.b_sc, fp.b_sc),
+               (fk.sc.Hdd, fp.sc.Hdd), (fk.sc.HdiF, fp.sc.HdiF),
+               (fk.sc.bd, fp.sc.bd), (fk.sc.vcross, fp.sc.vcross),
+               (fk.energy, fp.energy), (fk.energy_raw, fp.energy_raw),
+               (acc[..., :12, 12], cb)],
+        [(fk.new_state, fp.new_state), (fk.active, fp.active),
+         (fk.sc.has_res, fp.sc.has_res)],
+        [(fk.H_top, fp.H_top), (fk.H_sc, fp.H_sc),
+         (acc[..., :12, :12], cH)])
+    again = BP.fused_iteration(*a, **kw)
+    same_bits("K3", fk[:4] + tuple(fk.sc) + fk[5:],
+              again[:4] + tuple(again.sc) + again[5:])
+    return err
+
+
+def same_bits(name, first, second):
+    import torch
+    for i, (x, y) in enumerate(zip(first, second)):
+        if not torch.equal(x.contiguous().view(torch.uint8),
+                           y.contiguous().view(torch.uint8)):
+            raise AssertionError(f"{name}: output {i} of a second launch on "
+                                 "the same inputs differs in its bits")
+
+
+def ragged_cases(torch, dev, settings):
+    """K3 and K4 against their plain twins where no block is full: the
+    shapes of utils/synthetic.py on seeded windows (GN mode and a
+    marginalization of every third point), an empty pmask, a window whose
+    residuals are all OOB, and activation passes with NaN taps in dead
+    frames, clamp off and on."""
+    from sos_slam_tpu_torch.ops import ba as B
+    from sos_slam_tpu_torch.ops import ba_p as BP
+    from sos_slam_tpu_torch.utils import convert, synthetic
+    marg = dict(use_rz=True, shift_prior_to_zero=False,
+                prior_fac=settings.idepth_fix_prior_marg_fac)
+
+    def window(P, F, **override):
+        fields, dI = synthetic.make_window(P, F, seed=3)
+        fields.update(override)
+        ba = convert.from_numpy(B.BAState, fields, dev)
+        dI = torch.as_tensor(dI, device=dev)
+        return (ba, B.make_precalc(ba), dI, settings, dI.shape[2],
+                dI.shape[1])
+
+    err = (0.0, 0.0)
+    for P, F in synthetic.K3_RAGGED_SHAPES:
+        a = window(P, F)
+        third = a[0].pt_valid & (torch.arange(P, device=dev) % 3 == 0)
+        for kw in ({}, dict(marg, pmask=third)):
+            err = worse(err, k3_against_plain(BP, a, kw))
+    a = window(512, 5)
+    err = worse(err, k3_against_plain(BP, a, dict(
+        marg, pmask=torch.zeros(512, dtype=torch.bool, device=dev))))
+    a = window(100, 3, res_state=np.full((100, 3), B.RES_OOB, np.int8))
+    err = worse(err, k3_against_plain(BP, a, {}))
+    if bool(BP.fused_iteration(*a).active.any()):
+        raise AssertionError("K3: an all-OOB window has active residuals")
+    log(f"[K3] {len(synthetic.K3_RAGGED_SHAPES)} ragged shapes x (GN, marg), "
+        f"an empty pmask and an all-OOB window: matches its plain twin, "
+        f"max_abs_err {err[0]:.3e} ({err[1]:.3f} of the tolerance), every "
+        "second launch bitwise equal")
+
+    err4 = (0.0, 0.0)
+    for N, F in synthetic.K4_RAGGED_SHAPES:
+        ins = [torch.as_tensor(x, device=dev)
+               for x in synthetic.make_act_inputs(N, F, seed=5)]
+        for clamp in (False, True):
+            err4 = worse(err4, k4_against_plain(BP, ins, dict(
+                clamp=clamp, huber_th=settings.huber_th)))
+    log(f"[K4] {len(synthetic.K4_RAGGED_SHAPES)} ragged shapes x clamp off "
+        f"and on, NaN taps in dead frames: matches its plain twin, "
+        f"max_abs_err {err4[0]:.3e} ({err4[1]:.3f} of the tolerance), every "
+        "second launch bitwise equal")
+    return err, err4
+
+
+def k4_against_plain(BP, a, kw):
+    """K4 against its plain twin: OOB flags exact, the energies (NaN in
+    both where a dead frame's taps are NaN) and the live-masked sums within
+    the tolerance, the sums finite, and a second launch repeats every
+    bit."""
+    ok_ = BP.act_pass(*a, **kw)
+    op_ = BP.act_pass_plain(*a, **kw)
+    err = compare("K4", [(ok_[0], op_[0])] + list(zip(ok_[2:], op_[2:])),
+                  [(ok_[1], op_[1])])
+    for x in ok_[2:]:
+        if not bool(x.isfinite().all()):
+            raise AssertionError("K4: a live-masked sum is not finite")
+    same_bits("K4", ok_, BP.act_pass(*a, **kw))
+    return err
+
+
+def capture(torch, calib, settings, imgs, dev):
+    """Runs the scene through a FullSystem until the main path has
+    marginalized a point (so that K3's use_rz mode is met on the main
+    path's own inputs) with recorders on K2, K3 and K4. Returns (the
+    recorders by kernel, the frames it took)."""
+    from sos_slam_tpu_torch.models import window as WIN
+    from sos_slam_tpu_torch.models.full_system import FullSystem
+    from sos_slam_tpu_torch.ops import ba_p as BP
+    recs = dict(k2=Recorder(WIN, "template_level", 4),
+                k3=Recorder(BP, "fused_iteration", 1, kind=k3_kind),
+                k4=Recorder(BP, "act_pass", 8))
+    fs = FullSystem(calib, settings, device=dev)
+    n_pre = 0
+    while n_pre < N_FRAMES and "rz" not in recs["k3"].last_of:
+        fs.add_active_frame(imgs[n_pre], timestamp=n_pre * 0.05,
+                            frame_id=n_pre)
+        n_pre += 1
+    for r in recs.values():
+        r.restore()
+    if not fs.initialized or fs.is_lost or fs.init_failed:
+        raise AssertionError("the capture run did not initialize")
+    log(f"[capture] {n_pre} frames, {fs.stats['n_kf']} keyframes")
+    return recs, n_pre
 
 
 def ate_of(fs, poses):
@@ -323,9 +543,10 @@ def run(torch):
     report = cuda_build.build_all()
     log(f"[build] {len(report)} kernels in {time.perf_counter() - t0:.2f} s")
     for name, r in report.items():
-        regs = [ln.strip() for ln in r["ptxas"].splitlines()
-                if "registers" in ln or "spill" in ln]
-        log(f"[build] {name}.cu {r['seconds']:.2f} s " + " | ".join(regs[:6]))
+        regs = [ln.strip().replace("ptxas info    : ", "")
+                for ln in r["ptxas"].splitlines()
+                if "registers" in ln or "spill" in ln or "entry" in ln]
+        log(f"[build] {name}.cu {r['seconds']:.2f} s " + " | ".join(regs[:9]))
 
     calib = synthetic.default_calib(W, H)
     settings = default_settings()
@@ -334,22 +555,7 @@ def run(torch):
     poses = poses_t.cpu().numpy().astype(np.float64)
 
     # ---- 3. kernels against their plain twins ----
-    recs = dict(k2=Recorder(WIN, "template_level", 4),
-                k3=Recorder(BP, "fused_iteration", 1, kind=k3_kind),
-                k4=Recorder(BP, "act_pass", 8))
-    # the capture runs until the main path has marginalized a point, so
-    # that K3's use_rz mode is checked on the main path's own inputs
-    fs = FullSystem(calib, settings, device=dev)
-    n_pre = 0
-    while n_pre < N_FRAMES and "rz" not in recs["k3"].last_of:
-        fs.add_active_frame(imgs[n_pre], timestamp=n_pre * 0.05,
-                            frame_id=n_pre)
-        n_pre += 1
-    for r in recs.values():
-        r.restore()
-    if not fs.initialized or fs.is_lost or fs.init_failed:
-        raise AssertionError("the capture run did not initialize")
-    log(f"[capture] {n_pre} frames, {fs.stats['n_kf']} keyframes")
+    recs, n_pre = capture(torch, calib, settings, imgs, dev)
     kernels, timings = [], []
 
     # K1: all 4 levels of one 640x480 frame
@@ -398,24 +604,7 @@ def run(torch):
             "mode has no main-path input")
     err = (0.0, 0.0)
     for a, kw in (last["gn"], last["rz"]):
-        fk = BP.fused_iteration(*a, **kw)
-        fp = BP.fused_iteration_plain(*a, **kw)
-        prep = BP.k3_prepare(*a, **kw)
-        BP.k3_launch(prep)
-        cH, cb = BP.fused_cells_plain(*a[:6], pmask=kw.get("pmask"),
-                                      use_rz=kw.get("use_rz", False))
-        acc = prep["out"]["acc"]
-        err = worse(err, compare(
-            "K3", [(fk.H_top, fp.H_top), (fk.b_top, fp.b_top),
-                   (fk.H_sc, fp.H_sc), (fk.b_sc, fp.b_sc),
-                   (fk.sc.Hdd, fp.sc.Hdd), (fk.sc.HdiF, fp.sc.HdiF),
-                   (fk.sc.bd, fp.sc.bd), (fk.sc.vcross, fp.sc.vcross),
-                   (fk.energy, fp.energy), (fk.energy_raw, fp.energy_raw),
-                   (acc[..., :12, 12], cb)],
-            [(fk.new_state, fp.new_state), (fk.active, fp.active),
-             (fk.sc.has_res, fp.sc.has_res)],
-            [(fk.H_top, fp.H_top), (fk.H_sc, fp.H_sc),
-             (acc[..., :12, :12], cH)]))
+        err = worse(err, k3_against_plain(BP, a, kw))
     a, kw = last["gn"]
     ba = a[0]
     P, F = ba.P, ba.F
@@ -430,17 +619,14 @@ def run(torch):
             f"P={P} F={F} D={D} ({int(ba.pt_valid.sum())} live points), "
             f"GN mode and use_rz mode ({int(last['rz'][1]['pmask'].sum())} "
             "marginalized points) checked, GN mode timed",
-            wrapper_fn=lambda a=a, kw=kw: BP.fused_iteration(*a, **kw))
+            wrapper_fn=lambda a=a, kw=kw: BP.fused_iteration(*a, **kw),
+            by_name=True)
 
     # K4: one activation pass, clamp off and on
     a4, kw4 = recs["k4"].calls[-1]
     err = (0.0, 0.0)
     for clamp in (False, True):
-        kw = dict(kw4, clamp=clamp)
-        ok_ = BP.act_pass(*a4, **kw)
-        op_ = BP.act_pass_plain(*a4, **kw)
-        err = worse(err, compare("K4", [(ok_[0], op_[0])] + list(
-            zip(ok_[2:], op_[2:])), [(ok_[1], op_[1])]))
+        err = worse(err, k4_against_plain(BP, a4, dict(kw4, clamp=clamp)))
     N4, F4 = a4[0].shape[0], a4[0].shape[1]
     nbytes = 4 * (N4 * F4 * 8 * 6 + N4 * 16 + N4 * F4 * 3 + N4) \
         + 4 * (2 * N4 * F4 + 3 * N4)
@@ -449,8 +635,12 @@ def run(torch):
             "sos_slam_tpu/ops/ba_p.py:541", err,
             lambda: BP.act_pass(*a4, **kw4),
             lambda: BP.act_pass_plain(*a4, **kw4), nbytes,
-            N4 * F4 * (8 * 20 + 6), f"N={N4} F={F4}, clamp off + on")
-    del fs, recs
+            N4 * F4 * (8 * 20 + 6), f"N={N4} F={F4}, clamp off + on",
+            wrapper_fn=lambda: BP.act_pass(*a4, **kw4))
+    ragged = ragged_cases(torch, dev, settings)
+    kernels[2]["max_abs_err"] = max(kernels[2]["max_abs_err"], ragged[0][0])
+    kernels[3]["max_abs_err"] = max(kernels[3]["max_abs_err"], ragged[1][0])
+    del recs
     torch.cuda.synchronize()
 
     # ---- 4. the slice, every launch counter from 0 ----
@@ -502,7 +692,16 @@ def run(torch):
     for k, c in zip(kernels, counts):
         k["launches"] = c
     profile_frames(torch, fs, imgs, N_FRAMES, PROF_FRAMES)
-    time_kernels(torch, kernels, timings)
+    wrapper_stats = time_kernels(torch, kernels, timings)
+    n_ops, crossing = wrapper_stats["[K3]"]
+    log(f"[K3] whole wrapper: {n_ops:.1f} device ops a call; the first "
+        f"Hopper design ran {K3_WRAPPER_OPS_FIRST_DESIGN}")
+    if crossing:
+        raise AssertionError("K3's wrapper copies between host and device: "
+                             f"{crossing}")
+    if not n_ops < K3_WRAPPER_OPS_FIRST_DESIGN:
+        raise AssertionError("K3's wrapper runs no fewer device ops than "
+                             "the first design")
     log("kernels: " + ", ".join(f"K{i + 1}={c}" for i, c in enumerate(counts)))
     log(json.dumps({"kernels": kernels}))
     log(f"{card}")

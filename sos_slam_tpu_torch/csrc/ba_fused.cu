@@ -5,149 +5,358 @@
 // (`_kernel`). That kernel walked point tiles IN ORDER on one core and
 // accumulated H_sc, b_sc and the (host,target) 13x13 cells in output refs
 // across grid steps. Hopper runs blocks in parallel and in no order, so
-// the reductions are split out into fixed-order passes with no float
-// atomics (the sums, and so the outlier and keyframe decisions that
-// follow, are the same on every run):
+// every block sums its own points and a second launch adds the blocks'
+// partial sums in block order. No float atomics anywhere: the sums, and so
+// the outlier and keyframe decisions that follow, repeat bit for bit.
 //
-//   pass A (one thread per point): FEJ geometry, the 10-column X rows,
-//     residuals from the pre-gathered [I,dx,dy] taps, Huber and gradient
-//     weights, energy / energy_raw, the OOB/outlier state machine, the
-//     optional res_toZero FEJ shift (marginalization), the per-point Schur
-//     pieces (Hdd, bd, HdiF, Hcd, JpJd) and the absolute cross column v.
-//     It also writes each residual's gram row Y = [X^T JI (10) | Jab (2) |
-//     resA (1)] to scratch, (P,F,8,13) f32.
-//   pass B1 (block = one H_sc row x one range of SPLIT points, thread =
-//     one column, b_sc as column D): sums HdiF * v_i * v_j over its points
-//     in index order through shared-memory tiles of v; a final pass adds
-//     the ranges' partial sums in range order.
-//   pass B2 (block = one target frame x one range of SPLIT points, thread
-//     = one (a, b) of the 13x13 cell): stages the ranges' gram rows in
-//     shared memory and sums Y_a * Y_b into a per-host accumulator, points
-//     in index order, taps in order; a final pass adds the ranges' partial
-//     cells in range order.
-// Splitting the point axis into ranges gives ~P/SPLIT-fold more blocks
-// than one block per output row or cell (the first design, measured at
-// 1.2 ms for B2 and 0.39 ms for B1 on the H100 at P=2048, F=8), and the
-// fixed range order keeps every sum the same from run to run.
+// Bound on the card: bytes. At P=2048, F=8 (D=68) the inputs and outputs
+// are ~3.3 MB (taps dominate, ~1 us at 3.35 TB/s) against ~51 MFLOP
+// (~0.76 us at 67 TFLOP/s fp32; both counted in chip_smoke.py:k3_bytes /
+// k3_flops). What the kernel really fights is latency: the work is a
+// chain of short dependent phases. So the design moves each input once,
+// keeps every intermediate on the SM, never waits on device memory after
+// the first barrier, and spreads the residuals over the card:
 //
-// Bound on the card: bytes and launch latency. At P=2048, F=8 (D=68) the
-// inputs and outputs are ~3.3 MB (taps dominate, ~1 us at 3.35 TB/s) and
-// the three passes do ~51 MFLOP (~0.76 us at 67 TFLOP/s fp32; the count
-// is derived in chip_smoke.py:k3_flops); the
-// scratch round trip adds 2 x 6.8 MB. The TPU design avoided HBM for the
-// gram rows; this Hopper design spends that traffic (L2-resident at this
-// size) to keep the reductions deterministic and simple. The projection
-// and tap gather stay in PyTorch before the kernel, as they stayed in XLA
-// in the JAX package.
+//   launch 1, ba_block_kernel: block = PB consecutive points x F frames
+//     (PB = 32 up to F = 8, else 8: at most 256 pairs; 64 blocks at
+//     P=2048, F=8), 512 threads: one thread per (point, frame) RESIDUAL,
+//     the rest help in the phases that are not per residual.
+//       stage   cp.async, all in flight at once: the block's taps, one
+//               contiguous range of hit (P,F,8,3) and okf (P,F,8), its
+//               colors and pattern weights, 16 bytes a copy into rows
+//               padded against bank conflicts; and every (host, target)
+//               table whole (adHost, adTarget, R0, t0, affine, adHTdelta,
+//               b0, energy_th): a read from L2 later in the kernel costs
+//               ~700 cycles each time it is waited for. Meanwhile two
+//               warps order the block's points by host with shuffles.
+//       pairs   each pair thread: FEJ geometry, the 10-column X rows, its
+//               8 taps SERIALLY in tap order (residual, Huber and gradient
+//               weights, energy_raw and wJI2: the sums that decide the
+//               state), the OOB/outlier state, the optional res_toZero
+//               shift, its Schur terms, and its term of its (host, target)
+//               cell: the 91 distinct entries of Y^T Y for the gram rows
+//               Y = [X^T JI (10) | Jab (2) | resA (1)] x 8 taps, formed
+//               from the tap sums (X^T (JI JI^T) X, X^T (JI Jab^T), ...)
+//               as the plain form does. The 8 x 13 gram rows themselves
+//               are never formed, in device memory or anywhere else; the
+//               91 floats stay in shared memory (over the dead staging).
+//       points  Hdd, bd, Hcd, has_res over the F frames of a point in
+//               frame order f = 0..F-1 through shared memory; the adjoint
+//               stitch of the cross column v: the pair threads take the
+//               target part while 256 other threads take the host part.
+//       write   v (D,P), srows, energy, energy_raw, state, active and
+//               has_res leave through shared-memory tiles, a row of PB
+//               consecutive points at a time.
+//       cells   one thread per two (target, entry) items: the pairs' terms
+//               summed over the block's points, grouped by host, in point
+//               order -> partial cells (block, host, target, 91).
+//       schur   one thread per 2 x 4 tile of H_sc on or above the diagonal
+//               (6 rows of v read for 8 entries), then b_sc: sums of
+//               v_i HdiF v_j over the block's points in point order ->
+//               partial (block, D(D+1)/2 + D).
+//   launch 2, block_sum_kernel: one thread per entry of acc (F,F,13,13),
+//     [H_sc | b_sc] (D,D+1) and b_sc (D,): adds the blocks' partials in
+//     block order and mirrors the symmetric halves.
 //
-// Every per-residual quantity is multiplied by its 0/1 mask (not
-// branched on), exactly like the plain form, so non-finite values of
-// masked residuals propagate the same way in both.
+// Between the launches only the partials cross device memory: 64 blocks x
+// (64 x 91 + 2414) f32 = 2.1 MB at P=2048, F=8 (L2-resident).
+//
+// Against the first Hopper design (one thread per point, gram rows through
+// a 6.8 MB scratch, ranges of 128 points, five launches): the per-residual
+// arithmetic up to the state, and the per-point sums over frames in frame
+// order, are unchanged operation for operation, so states, masks, has_res,
+// energy, Hdd, bd and v are bit-identical. What changed its rounding: a
+// cell entry is now summed from the pairs' factored terms (not from 8
+// products a tap), the cells and H_sc / b_sc over ranges of PB points (was
+// 128) before the range sum, and a mirrored H_sc entry (j, i) is the
+// (i, j) product (v_i HdiF) v_j instead of (v_j HdiF) v_i. All are held to
+// the plain form at 2e-4, the Hessians also on H_ij / sqrt(H_ii H_jj).
+//
+// Every per-residual quantity is multiplied by its 0/1 mask (not branched
+// on), exactly like the plain form, so non-finite values of masked
+// residuals propagate the same way in both. `host` is clamped for table
+// reads and a host outside [0, F) owns no cell. The projection and tap
+// gather stay in PyTorch before the kernel, as they stayed in XLA in the
+// JAX package.
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #define MAXF 16
-#define TILE 32     // points per shared-memory tile of v (pass B1)
-#define SPLIT 128   // points per range of the split reductions
-#define STAGE 16    // points per shared-memory stage of gram rows (B2)
-#define YROW 104    // 8 taps x 13 gram-row entries of one (point, frame)
+#define MAXPAIRS 256  // (point, frame) pairs of a block
+#define NT 512        // threads of a block: the pairs, and helpers
+#define NTAP 8
+#define NG 13         // rows of a (host, target) cell
+#define NE 91         // distinct entries of a symmetric 13x13 cell
+#define HSTR 28       // staged [I,dx,dy] taps of a pair: 24 floats + 4
+#define OSTR 12       // staged ok flags of a pair: 8 floats + 4
+#define NCS 7         // per-pair Schur terms: Hdd, bd, Hcd[4], mask
+#define ADS 68        // staged 8x8 adjoint cell: 64 floats + 4
 
-struct Scal {
-  float fx, fy, cx, cy, prior_fac, shift_flag, huber, oc, wlim, hlim;
-  float dc[4];
+struct K3Args {
+  // inputs
+  const float *hit, *okf, *u, *v, *idep, *idz, *ptprior;
+  const unsigned char *ptvalid, *pmask;  // pmask may be null: all points
+  const float *color, *wpat;
+  const int* host;
+  const unsigned char* res_exist;
+  const signed char* res_state;
+  const float *R0, *t0, *aff, *c, *c_zero, *b0, *eth;
+  const unsigned char* fvalid;
+  const float *dpt, *adH, *adT;
+  int P, F, use_rz, shift_flag;
+  float prior_fac, huber, oc, wlim, hlim;
+  // partial sums and outputs
+  float *part_top, *part_sc;
+  float *vout, *srows, *energy, *energy_raw;
+  signed char* state;
+  unsigned char *active, *has_res;
 };
 
-__device__ __forceinline__ Scal load_scal(const float* s) {
-  Scal r;
-  r.fx = s[0]; r.fy = s[1]; r.cx = s[2]; r.cy = s[3];
-  r.prior_fac = s[4]; r.shift_flag = s[5]; r.huber = s[6]; r.oc = s[7];
-  r.wlim = s[8]; r.hlim = s[9];
-  for (int c = 0; c < 4; ++c) r.dc[c] = s[12 + c];
-  return r;
+// Points of a block: 32 up to F = 8 (256 pairs); 8 beyond, where the
+// (host, target) tables take most of the shared memory.
+__host__ __device__ inline int points_per_block(int F) {
+  return F <= 8 ? 32 : 8;
 }
 
-__global__ void ba_point_kernel(
-    const float* __restrict__ hit, const float* __restrict__ okf,
-    const float* __restrict__ u, const float* __restrict__ v,
-    const float* __restrict__ idep, const float* __restrict__ idz,
-    const float* __restrict__ ptprior, const float* __restrict__ ptvalid,
-    const float* __restrict__ pmask, const float* __restrict__ color,
-    const float* __restrict__ wpat, const int* __restrict__ host,
-    const float* __restrict__ res_exist, const float* __restrict__ prev_oob,
-    const float* __restrict__ R0t, const float* __restrict__ t0t,
-    const float* __restrict__ afft, const float* __restrict__ scal,
-    int P, int F, int use_rz, const float* __restrict__ b0t,
-    const float* __restrict__ etht, const float* __restrict__ fvalid,
-    const float* __restrict__ dpt, const float* __restrict__ adH,
-    const float* __restrict__ adT, float* __restrict__ yscr,
-    float* __restrict__ vout, float* __restrict__ srows,
-    float* __restrict__ energy, float* __restrict__ energy_raw,
-    signed char* __restrict__ state) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= P) return;
-  const Scal S = load_scal(scal);
-  const int hst = host[p];
-  const float up = u[p], vp = v[p], id = idep[p], iz = idz[p];
-  const float pr = ptprior[p], ptv = ptvalid[p], pm = pmask[p];
-  float col[8], wp[8];
-  for (int k = 0; k < 8; ++k) {
-    col[k] = color[p * 8 + k];
-    wp[k] = wpat[p * 8 + k];
+// Index of entry (i, j), j >= i, in the row-major upper triangle of a
+// matrix with `ncols` columns.
+__host__ __device__ inline int tri(int i, int j, int ncols) {
+  return i * ncols - i * (i - 1) / 2 + (j - i);
+}
+
+// The block's shared memory, in floats (every array starts on 16 bytes).
+struct Smem {
+  int gs, vt, jp, cs, vh, col, wp, sr, en, er, adh, adt, tab, ints,
+      bytes_at, total;
+};
+
+__host__ __device__ inline Smem smem_layout(int F) {
+  const int PB = points_per_block(F), NP = PB * F, D = 4 + 8 * F;
+  Smem s;
+  int o = 0;
+  s.gs = o; o += NP * NE;              // cell terms; first the staged taps
+  s.vt = o; o += (D * (PB + 1) + 3) / 4 * 4;  // v tile, row stride PB + 1
+  s.jp = o; o += NP * 8;               // JpJd of each pair
+  s.cs = o; o += NP * NCS;             // Schur terms of each pair
+  s.vh = o; o += PB * 8;               // host part of v of each point
+  s.col = o; o += PB * 8;
+  s.wp = o; o += PB * 8;
+  s.sr = o; o += PB * 4;               // Hdd_full, HdiF, bd_full, has_res
+  s.en = o; o += NP;                   // energy, (F, PB)
+  s.er = o; o += NP;                   // energy_raw, (F, PB)
+  s.adh = o; o += F * F * ADS;         // adHost, every (host, target) cell
+  s.adt = o; o += F * F * ADS;         // adTarget
+  s.tab = o; o += (F * F * 22 + 2 * F + 3) / 4 * 4;  // R0, t0, aff, dpt, b0, eth
+  s.ints = o; o += 2 * PB + MAXF + 4;  // host clamped, order, seg
+  s.bytes_at = o; o += (2 * NP + PB + 3) / 4;  // state, active, has_res
+  s.total = o;
+  return s;
+}
+
+__global__ void __launch_bounds__(NT) ba_block_kernel(const K3Args A) {
+  extern __shared__ __align__(16) float sm[];
+  const int P = A.P, F = A.F;
+  const int PB = points_per_block(F), NP = PB * F, D = 4 + 8 * F;
+  const int VS = PB + 1;
+  const Smem L = smem_layout(F);
+  float* gs = sm + L.gs;             // (NP, NE) cell terms of each pair
+  float* tap_h = gs;                 // (NP, HSTR), dead once gs is written
+  float* tap_o = gs + NP * HSTR;     // (NP, OSTR)
+  float* vt = sm + L.vt;
+  float* jp = sm + L.jp;
+  float* cs = sm + L.cs;
+  float* vh = sm + L.vh;
+  float* cols = sm + L.col;
+  float* wps = sm + L.wp;
+  float* sr = sm + L.sr;
+  float* en = sm + L.en;
+  float* er = sm + L.er;
+  float* adh_s = sm + L.adh;         // (F*F, ADS)
+  float* adt_s = sm + L.adt;
+  float* R0_s = sm + L.tab;          // (F*F, 9)
+  float* t0_s = R0_s + F * F * 9;    // (F*F, 3)
+  float* aff_s = t0_s + F * F * 3;   // (F*F, 2)
+  float* dpt_s = aff_s + F * F * 2;  // (F*F, 8)
+  float* b0_s = dpt_s + F * F * 8;   // (F)
+  float* eth_s = b0_s + F;           // (F)
+  int* h_tab = (int*)(sm + L.ints);  // host clamped to [0, F): table reads
+  int* order = h_tab + PB;           // in-range points, stable by host
+  int* seg = order + PB;             // (F + 1) starts of each host's run
+  signed char* st_s = (signed char*)(sm + L.bytes_at);
+  unsigned char* act_s = (unsigned char*)st_s + NP;
+  unsigned char* has_s = act_s + NP;
+
+  const int t = threadIdx.x;
+  const int p0 = blockIdx.x * PB;
+  const int n = min(PB, P - p0);     // points of this block
+  const int npairs = n * F;
+  // threads [0, NP) own one (point, frame) pair each
+  const int pl = t / F, f = t - pl * F;
+  const bool valid = t < NP && pl < n;
+  const int p = p0 + pl;
+
+  // ---- stage: asynchronous copies (cp.async) of the block's contiguous
+  // input ranges and of the (host, target) tables, which every block reads
+  // whole; all in flight at once, no register in between. Taps, ok flags,
+  // colors, weights and the two adjoints go 16 bytes a copy into padded
+  // rows, the small tables 4 bytes a copy ----
+  {
+    const float* hsrc = A.hit + (size_t)p0 * F * 24;
+    for (int q = t; q < npairs * 6; q += NT)
+      __pipeline_memcpy_async(tap_h + (q / 6) * HSTR + (q % 6) * 4,
+                              hsrc + q * 4, 16);
+    const float* osrc = A.okf + (size_t)p0 * F * 8;
+    for (int q = t; q < npairs * 2; q += NT)
+      __pipeline_memcpy_async(tap_o + (q >> 1) * OSTR + (q & 1) * 4,
+                              osrc + q * 4, 16);
+    if (t < n * 2) {
+      __pipeline_memcpy_async(cols + t * 4, A.color + (size_t)p0 * 8 + t * 4,
+                              16);
+      __pipeline_memcpy_async(wps + t * 4, A.wpat + (size_t)p0 * 8 + t * 4,
+                              16);
+    }
+    for (int q = t; q < F * F * 16; q += NT) {
+      const int dst = (q >> 4) * ADS + (q & 15) * 4;
+      __pipeline_memcpy_async(adh_s + dst, A.adH + q * 4, 16);
+      __pipeline_memcpy_async(adt_s + dst, A.adT + q * 4, 16);
+    }
+    for (int q = t; q < F * F * 9; q += NT)
+      __pipeline_memcpy_async(R0_s + q, A.R0 + q, 4);
+    for (int q = t; q < F * F * 8; q += NT)
+      __pipeline_memcpy_async(dpt_s + q, A.dpt + q, 4);
+    for (int q = t; q < F * F * 3; q += NT)
+      __pipeline_memcpy_async(t0_s + q, A.t0 + q, 4);
+    for (int q = t; q < F * F * 2; q += NT)
+      __pipeline_memcpy_async(aff_s + q, A.aff + q, 4);
+    if (t < F) {
+      __pipeline_memcpy_async(b0_s + t, A.b0 + t, 4);
+      __pipeline_memcpy_async(eth_s + t, A.eth + t, 4);
+    }
+    __pipeline_commit();
   }
-  const float k0 = (up - S.cx) / S.fx;
-  const float k1 = (vp - S.cy) / S.fy;
-  const float b0h = b0t[hst];
-  const float thh = etht[hst];
 
-  float Hdd = 0.f, bd = 0.f, hasr = 0.f;
-  float Hcd[4] = {0.f, 0.f, 0.f, 0.f};
-  float JpJd[MAXF][8];
+  // the pair's own point and masks: only loaded here, used after the
+  // barrier, so that their latency overlaps the staging
+  int hraw = 0;
+  float up = 0.f, vp = 0.f, id = 0.f, iz = 0.f;
+  float c4[4] = {0.f, 0.f, 0.f, 0.f};
+  unsigned char m_exist = 0, m_pt = 0, m_fr = 0, m_in = 1;
+  signed char prev_state = 0;
+  if (valid) {
+    hraw = A.host[p];
+    up = A.u[p]; vp = A.v[p]; id = A.idep[p]; iz = A.idz[p];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) c4[i] = A.c[i];
+    m_exist = A.res_exist[p * F + f];
+    m_pt = A.ptvalid[p];
+    m_fr = A.fvalid[f];
+    if (A.pmask != nullptr) m_in = A.pmask[p];
+    prev_state = A.res_state[p * F + f];
+  }
 
-  for (int f = 0; f < F; ++f) {
+  // the block's points grouped by host (stable: point order inside a
+  // host), for the cell sums; a host outside [0, F) owns no cell. Each
+  // lane of warps 0 and 1 holds one point's host and the warp passes them
+  // round by shuffles: lane q of warp 0 places point q, lane h <= F of
+  // warp 1 counts the start of host h's run.
+  if (t < 64) {
+    const int lane = t & 31;
+    const int mine = lane < n ? A.host[p0 + lane] : -1;
+    const bool in_range = mine >= 0 && mine < F;
+    int count = 0;
+    for (int q = 0; q < n; ++q) {
+      const int hq = __shfl_sync(0xffffffffu, mine, q);
+      const bool counts = hq >= 0 && hq < F;
+      if (t < 32)
+        count += (counts && (hq < mine || (hq == mine && q < lane))) ? 1 : 0;
+      else
+        count += (counts && hq < lane) ? 1 : 0;
+    }
+    if (t < 32) {
+      if (lane < n) {
+        h_tab[lane] = min(max(mine, 0), F - 1);
+        if (in_range) order[count] = lane;
+      }
+    } else if (lane <= F) {
+      seg[lane] = count;
+    }
+  }
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  const int hst = min(max(hraw, 0), F - 1);   // table reads stay in range
+
+  float tap[24], okv[8];
+  if (valid) {
+    for (int q = 0; q < 6; ++q) {
+      const float4 x = *(const float4*)(tap_h + t * HSTR + q * 4);
+      tap[q * 4] = x.x; tap[q * 4 + 1] = x.y;
+      tap[q * 4 + 2] = x.z; tap[q * 4 + 3] = x.w;
+    }
+    for (int q = 0; q < 2; ++q) {
+      const float4 x = *(const float4*)(tap_o + t * OSTR + q * 4);
+      okv[q * 4] = x.x; okv[q * 4 + 1] = x.y;
+      okv[q * 4 + 2] = x.z; okv[q * 4 + 3] = x.w;
+    }
+  }
+  __syncthreads();   // the staged taps are in registers: gs may overwrite
+
+  // ---- pairs: one (point, frame) residual per thread ----
+  float JpJd[8];
+  if (valid) {
+    const float fx = c4[0] * 50.f, fy = c4[1] * 50.f;
+    const float cx = c4[2] * 50.f, cy = c4[3] * 50.f;
+    const float* col = cols + pl * 8;
+    const float* wp = wps + pl * 8;
+    const float k0 = (up - cx) / fx;
+    const float k1 = (vp - cy) / fy;
     const int hf = hst * F + f;
-    const float* R = R0t + hf * 9;
-    const float* t = t0t + hf * 3;
-    const float* aff = afft + hf * 2;
+    const float* R = R0_s + hf * 9;
+    const float* tt = t0_s + hf * 3;
+    const float aff0 = aff_s[hf * 2], aff1 = aff_s[hf * 2 + 1];
+    const float b0h = b0_s[hst];
+    const float th = fmaxf(eth_s[hst], eth_s[f]);
     float ptp[3];
     for (int i = 0; i < 3; ++i)
       ptp[i] = ((R[3 * i] * k0 + R[3 * i + 1] * k1) + R[3 * i + 2])
-               + t[i] * iz;
+               + tt[i] * iz;
     const float drescale = 1.f / ptp[2];
     const float u_ = ptp[0] * drescale;
     const float v_ = ptp[1] * drescale;
-    const float Ku = u_ * S.fx + S.cx;
-    const float Kv = v_ * S.fy + S.cy;
+    const float Ku = u_ * fx + cx;
+    const float Kv = v_ * fy + cy;
     const bool geo_ok = (drescale > 0.f) && (Ku > 1.1f) && (Kv > 1.1f) &&
-                        (Ku < S.wlim) && (Kv < S.hlim);
+                        (Ku < A.wlim) && (Kv < A.hlim);
     const float nid = iz * drescale;
-    float Jpdd0 = drescale * (t[0] - t[2] * u_) * S.fx;
-    float Jpdd1 = drescale * (t[1] - t[2] * v_) * S.fy;
-    const float A = drescale * (R[6] * u_ - R[0]);
-    const float Bc = S.fx * drescale * (R[7] * u_ - R[1]) / S.fy;
-    const float C = S.fy * drescale * (R[6] * v_ - R[3]) / S.fx;
+    float Jpdd0 = drescale * (tt[0] - tt[2] * u_) * fx;
+    float Jpdd1 = drescale * (tt[1] - tt[2] * v_) * fy;
+    const float Ac = drescale * (R[6] * u_ - R[0]);
+    const float Bc = fx * drescale * (R[7] * u_ - R[1]) / fy;
+    const float Cc = fy * drescale * (R[6] * v_ - R[3]) / fx;
     const float Dv = drescale * (R[7] * v_ - R[4]);
-    float Xx[10] = {(k0 * A + u_) * 50.f, k1 * Bc * 50.f, (A + 1.f) * 50.f,
-                    Bc * 50.f, nid * S.fx, 0.f, -nid * u_ * S.fx,
-                    -u_ * v_ * S.fx, (1.f + u_ * u_) * S.fx, -v_ * S.fx};
-    float Xy[10] = {k0 * C * 50.f, (k1 * Dv + v_) * 50.f, C * 50.f,
-                    (Dv + 1.f) * 50.f, 0.f, nid * S.fy, -nid * v_ * S.fy,
-                    -(1.f + v_ * v_) * S.fy, u_ * v_ * S.fy, u_ * S.fy};
+    float Xx[10] = {(k0 * Ac + u_) * 50.f, k1 * Bc * 50.f, (Ac + 1.f) * 50.f,
+                    Bc * 50.f, nid * fx, 0.f, -nid * u_ * fx,
+                    -u_ * v_ * fx, (1.f + u_ * u_) * fx, -v_ * fx};
+    float Xy[10] = {k0 * Cc * 50.f, (k1 * Dv + v_) * 50.f, Cc * 50.f,
+                    (Dv + 1.f) * 50.f, 0.f, nid * fy, -nid * v_ * fy,
+                    -(1.f + v_ * v_) * fy, u_ * v_ * fy, u_ * fy};
 
+    // the 8 taps serially in tap order: eraw and wJI2 decide the state
     float JIx[8], JIy[8], resF[8], Jab0[8], Jab1[8];
     float eraw = 0.f, wJI2 = 0.f;
     bool allok = geo_ok;
-    const int base = (p * F + f) * 8;
-    for (int k = 0; k < 8; ++k) {
-      const float hi = hit[(base + k) * 3];
-      const float gx = hit[(base + k) * 3 + 1];
-      const float gy = hit[(base + k) * 3 + 2];
-      allok = allok && (okf[base + k] > 0.5f);
-      const float r = hi - (aff[0] * col[k] + aff[1]);
+#pragma unroll
+    for (int k = 0; k < NTAP; ++k) {
+      const float hi = tap[k * 3];
+      const float gx = tap[k * 3 + 1];
+      const float gy = tap[k * 3 + 2];
+      allok = allok && (okv[k] > 0.5f);
+      const float r = hi - (aff0 * col[k] + aff1);
       const float drdA = col[k] - b0h;
       const float g2 = gx * gx + gy * gy;
-      const float wgrad = sqrtf(S.oc / (S.oc + g2));
+      const float wgrad = sqrtf(A.oc / (A.oc + g2));
       const float wgt = 0.5f * (wgrad + wp[k]);
       const float ar = fabsf(r);
-      const float hw = ar < S.huber ? 1.f : S.huber / fmaxf(ar, 1e-9f);
+      const float hw = ar < A.huber ? 1.f : A.huber / fmaxf(ar, 1e-9f);
       eraw += wgt * wgt * hw * r * r * (2.f - hw);
       const float hw2 = (hw < 1.f ? sqrtf(hw) : hw) * wgt;
       JIx[k] = gx * hw2;
@@ -157,31 +366,34 @@ __global__ void ba_point_kernel(
       Jab1[k] = hw2;
       wJI2 += hw2 * hw2 * g2;
     }
-    const float th = fmaxf(thh, etht[f]);
     const bool outlier = (eraw > th) || (wJI2 < 2.f);
-    const bool oob = !allok || (prev_oob[p * F + f] > 0.5f);
+    const bool oob = !allok || (prev_state == 1);   // RES_OOB
     const int st = oob ? 1 : (outlier ? 2 : 0);
-    energy[f * P + p] = outlier ? th : eraw;
-    energy_raw[f * P + p] = eraw;
-    state[f * P + p] = (signed char)st;
-    const bool active = (res_exist[p * F + f] > 0.5f) && (ptv > 0.5f) &&
-                        (fvalid[f] > 0.5f) && (st == 0);
-    const float m = (active && pm > 0.5f) ? 1.f : 0.f;
-    for (int k = 0; k < 8; ++k) {
+    en[f * PB + pl] = outlier ? th : eraw;
+    er[f * PB + pl] = eraw;
+    st_s[f * PB + pl] = (signed char)st;
+    const bool active = (m_exist != 0) && (m_pt != 0) && (m_fr != 0) &&
+                        (st == 0);
+    act_s[f * PB + pl] = active ? 1 : 0;
+    const float m = (active && m_in != 0) ? 1.f : 0.f;
+#pragma unroll
+    for (int k = 0; k < NTAP; ++k) {
       JIx[k] *= m; JIy[k] *= m; resF[k] *= m; Jab0[k] *= m; Jab1[k] *= m;
     }
+#pragma unroll
     for (int i = 0; i < 10; ++i) { Xx[i] *= m; Xy[i] *= m; }
     Jpdd0 *= m;
     Jpdd1 *= m;
 
     float resA[8];
-    if (use_rz) {
-      const float* dp = dpt + hf * 8;
+    if (A.use_rz) {
+      const float* dp = dpt_s + hf * 8;
       const float dd = id - iz;
       float Jp0 = 0.f, Jp1 = 0.f;
       for (int c = 0; c < 4; ++c) {
-        Jp0 += Xx[c] * S.dc[c];
-        Jp1 += Xy[c] * S.dc[c];
+        const float dc = c4[c] - A.c_zero[c];
+        Jp0 += Xx[c] * dc;
+        Jp1 += Xy[c] * dc;
       }
       for (int i = 0; i < 6; ++i) {
         Jp0 += Xx[4 + i] * dp[i];
@@ -189,16 +401,21 @@ __global__ void ba_point_kernel(
       }
       Jp0 += Jpdd0 * dd;
       Jp1 += Jpdd1 * dd;
-      for (int k = 0; k < 8; ++k)
+#pragma unroll
+      for (int k = 0; k < NTAP; ++k)
         resA[k] = resF[k] - (((JIx[k] * Jp0 + JIy[k] * Jp1) + Jab0[k] * dp[6])
                              + Jab1[k] * dp[7]);
     } else {
-      for (int k = 0; k < 8; ++k) resA[k] = resF[k];
+#pragma unroll
+      for (int k = 0; k < NTAP; ++k) resA[k] = resF[k];
     }
 
+    // the tap sums (the factors of RawResidualJacobian), taps in order
     float a00 = 0.f, a01 = 0.f, a11 = 0.f, JIr0 = 0.f, JIr1 = 0.f;
     float ab00 = 0.f, ab01 = 0.f, ab10 = 0.f, ab11 = 0.f;
-    for (int k = 0; k < 8; ++k) {
+    float s00 = 0.f, s01 = 0.f, s11 = 0.f, r0 = 0.f, r1 = 0.f, rr = 0.f;
+#pragma unroll
+    for (int k = 0; k < NTAP; ++k) {
       a00 += JIx[k] * JIx[k];
       a01 += JIx[k] * JIy[k];
       a11 += JIy[k] * JIy[k];
@@ -208,190 +425,294 @@ __global__ void ba_point_kernel(
       ab01 += Jab0[k] * JIy[k];
       ab10 += Jab1[k] * JIx[k];
       ab11 += Jab1[k] * JIy[k];
+      s00 += Jab0[k] * Jab0[k];
+      s01 += Jab0[k] * Jab1[k];
+      s11 += Jab1[k] * Jab1[k];
+      r0 += Jab0[k] * resA[k];
+      r1 += Jab1[k] * resA[k];
+      rr += resA[k] * resA[k];
     }
     const float Ji2Jp0 = a00 * Jpdd0 + a01 * Jpdd1;
     const float Ji2Jp1 = a01 * Jpdd0 + a11 * Jpdd1;
-    Hdd += Ji2Jp0 * Jpdd0 + Ji2Jp1 * Jpdd1;
-    bd += JIr0 * Jpdd0 + JIr1 * Jpdd1;
-    for (int c = 0; c < 4; ++c) Hcd[c] += Xx[c] * Ji2Jp0 + Xy[c] * Ji2Jp1;
+    float* c7 = cs + t * NCS;
+    c7[0] = Ji2Jp0 * Jpdd0 + Ji2Jp1 * Jpdd1;
+    c7[1] = JIr0 * Jpdd0 + JIr1 * Jpdd1;
+    for (int c = 0; c < 4; ++c) c7[2 + c] = Xx[c] * Ji2Jp0 + Xy[c] * Ji2Jp1;
+    c7[6] = m;
     for (int i = 0; i < 6; ++i)
-      JpJd[f][i] = Xx[4 + i] * Ji2Jp0 + Xy[4 + i] * Ji2Jp1;
-    JpJd[f][6] = ab00 * Jpdd0 + ab01 * Jpdd1;
-    JpJd[f][7] = ab10 * Jpdd0 + ab11 * Jpdd1;
-    hasr = fmaxf(hasr, m);
+      JpJd[i] = Xx[4 + i] * Ji2Jp0 + Xy[4 + i] * Ji2Jp1;
+    JpJd[6] = ab00 * Jpdd0 + ab01 * Jpdd1;
+    JpJd[7] = ab10 * Jpdd0 + ab11 * Jpdd1;
+    for (int i = 0; i < 8; ++i) jp[t * 8 + i] = JpJd[i];
 
-    float* y = yscr + (size_t)base * 13;
-    for (int k = 0; k < 8; ++k) {
-      for (int i = 0; i < 10; ++i)
-        y[k * 13 + i] = Xx[i] * JIx[k] + Xy[i] * JIy[k];
-      y[k * 13 + 10] = Jab0[k];
-      y[k * 13 + 11] = Jab1[k];
-      y[k * 13 + 12] = resA[k];
+    // the pair's term of its (host, target) cell, the 91 distinct entries
+    // of Y^T Y for the gram rows Y = [X^T JI (10) | Jab (2) | resA (1)] x
+    // 8 taps, from the tap sums: X^T (JI JI^T) X and so on
+    float* g = gs + t * NE;
+    int e = 0;
+#pragma unroll
+    for (int i = 0; i < 10; ++i) {
+      const float T0 = a00 * Xx[i] + a01 * Xy[i];
+      const float T1 = a01 * Xx[i] + a11 * Xy[i];
+#pragma unroll
+      for (int j = i; j < 10; ++j) g[e++] = Xx[j] * T0 + Xy[j] * T1;
+      g[e++] = Xx[i] * ab00 + Xy[i] * ab01;
+      g[e++] = Xx[i] * ab10 + Xy[i] * ab11;
+      g[e++] = Xx[i] * JIr0 + Xy[i] * JIr1;
     }
+    g[e++] = s00; g[e++] = s01; g[e++] = r0;
+    g[e++] = s11; g[e++] = r1;
+    g[e++] = rr;
   }
+  __syncthreads();
 
-  const float prior = pr * S.prior_fac;
-  float Hdd_full = Hdd + prior;
-  if (Hdd_full < 1e-10f) Hdd_full = 1e-10f;
-  const float HdiF = hasr > 0.5f ? 1.f / Hdd_full : 0.f;
-  const float bd_full = S.shift_flag > 0.5f ? bd + prior * (id - iz) : bd;
-  srows[p] = Hdd_full;
-  srows[P + p] = HdiF;
-  srows[2 * P + p] = bd_full;
-  srows[3 * P + p] = hasr;
-
-  // absolute cross column v = [Hcd, adjoint-stitched frame rows]
-  for (int c = 0; c < 4; ++c) vout[c * P + p] = Hcd[c];
-  float vH[8];
-  for (int i = 0; i < 8; ++i) {
-    float s = 0.f;
-    for (int f = 0; f < F; ++f) {
-      const float* a = adH + (size_t)(hst * F + f) * 64;
-      for (int r = 0; r < 8; ++r) s += a[r * 8 + i] * JpJd[f][r];
+  // ---- points: sums over a point's frames in frame order, and the
+  // adjoint stitch of v; the pairs take the target part, threads
+  // [256, 256 + NP) the host part at the same time ----
+  float vtgt[8];
+  if (t < NP) {
+    if (valid) {
+      // rows of the pair's adTarget cell by 16-byte loads, rows in order
+      const float4* a4 = (const float4*)(adt_s + (hst * F + f) * ADS);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) vtgt[i] = 0.f;
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const float4 lo = a4[2 * r], hi = a4[2 * r + 1];
+        vtgt[0] += lo.x * JpJd[r]; vtgt[1] += lo.y * JpJd[r];
+        vtgt[2] += lo.z * JpJd[r]; vtgt[3] += lo.w * JpJd[r];
+        vtgt[4] += hi.x * JpJd[r]; vtgt[5] += hi.y * JpJd[r];
+        vtgt[6] += hi.z * JpJd[r]; vtgt[7] += hi.w * JpJd[r];
+      }
     }
-    vH[i] = s;
-  }
-  for (int f = 0; f < F; ++f) {
-    const float* a = adT + (size_t)(hst * F + f) * 64;
-    const float oh = (f == hst) ? 1.f : 0.f;
-    for (int i = 0; i < 8; ++i) {
-      float s = 0.f;
-      for (int r = 0; r < 8; ++r) s += a[r * 8 + i] * JpJd[f][r];
-      vout[(4 + 8 * f + i) * P + p] = s + oh * vH[i];
+    // task (point, c): c < 4 Hcd[c]; c == 4 Hdd, bd, has_res
+    for (int task = t; task < 5 * n; task += NP) {
+      const int q = task / 5, c = task - q * 5;
+      const float* c7 = cs + q * F * NCS;
+      if (c < 4) {
+        float s = 0.f;
+        for (int g = 0; g < F; ++g) s += c7[g * NCS + 2 + c];
+        vt[c * VS + q] = s;
+      } else {
+        float Hdd = 0.f, bd = 0.f, hasr = 0.f;
+        for (int g = 0; g < F; ++g) {
+          Hdd += c7[g * NCS];
+          bd += c7[g * NCS + 1];
+          hasr = fmaxf(hasr, c7[g * NCS + 6]);
+        }
+        const float idq = A.idep[p0 + q], izq = A.idz[p0 + q];
+        const float prior = A.ptprior[p0 + q] * A.prior_fac;
+        float Hdd_full = Hdd + prior;
+        if (Hdd_full < 1e-10f) Hdd_full = 1e-10f;
+        sr[q] = Hdd_full;
+        sr[PB + q] = hasr > 0.5f ? 1.f / Hdd_full : 0.f;
+        sr[2 * PB + q] = A.shift_flag ? bd + prior * (idq - izq) : bd;
+        sr[3 * PB + q] = hasr;
+        has_s[q] = hasr > 0.5f ? 1 : 0;
+      }
     }
-  }
-}
-
-// Partial H_sc / b_sc over one range of SPLIT points: block (row i,
-// range s), thread j = column (j == D: b_sc). Tiles of TILE points of v
-// staged in shared memory (coalesced loads); points in index order.
-__global__ void schur_partial_kernel(const float* __restrict__ vin,
-                                     const float* __restrict__ srows, int P,
-                                     int D, float* __restrict__ part) {
-  extern __shared__ float sm[];
-  float* vt = sm;                    // (D, TILE)
-  float* ht = sm + D * TILE;         // (TILE) HdiF
-  float* bt = ht + TILE;             // (TILE) bd
-  const int i = blockIdx.x;
-  const int s = blockIdx.y;
-  const int j = threadIdx.x;
-  const int p_lo = s * SPLIT;
-  const int p_hi = min(P, p_lo + SPLIT);
-  float acc = 0.f;
-  for (int p0 = p_lo; p0 < p_hi; p0 += TILE) {
-    const int n = min(TILE, p_hi - p0);
+  } else if (t >= MAXPAIRS && t < MAXPAIRS + NP) {
+    // column i of a point's host part by thread (point, i mod F): frames
+    // then rows in order
+    const int t2 = t - MAXPAIRS;
+    const int q = t2 / F, i0 = t2 - q * F;
+    if (q < n) {
+      const int hq = h_tab[q];
+      for (int i = i0; i < 8; i += F) {
+        float s = 0.f;
 #pragma unroll 4
-    for (int q = threadIdx.x; q < D * TILE; q += blockDim.x) {
-      const int row = q / TILE, c = q % TILE;
-      vt[q] = c < n ? vin[(size_t)row * P + p0 + c] : 0.f;
+        for (int g = 0; g < F; ++g) {
+          const float* a = adh_s + (hq * F + g) * ADS;
+          const float* jg = jp + (q * F + g) * 8;
+#pragma unroll
+          for (int r = 0; r < 8; ++r) s += a[r * 8 + i] * jg[r];
+        }
+        vh[q * 8 + i] = s;
+      }
     }
-    for (int c = threadIdx.x; c < TILE; c += blockDim.x) {
-      ht[c] = c < n ? srows[P + p0 + c] : 0.f;
-      bt[c] = c < n ? srows[2 * P + p0 + c] : 0.f;
+  }
+  __syncthreads();
+  if (valid) {
+    const float oh = (f == hraw) ? 1.f : 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      vt[(4 + 8 * f + i) * VS + pl] = vtgt[i] + oh * vh[pl * 8 + i];
+  }
+  __syncthreads();
+
+  // ---- write: rows of consecutive points ----
+  const int lg = PB == 32 ? 5 : 3;   // PB is 32 or 8
+  for (int q = t; q < D * PB; q += NT) {
+    const int d = q >> lg, c = q & (PB - 1);
+    if (c < n) A.vout[(size_t)d * P + p0 + c] = vt[d * VS + c];
+  }
+  for (int q = t; q < 4 * PB; q += NT) {
+    const int d = q >> lg, c = q & (PB - 1);
+    if (c < n) A.srows[(size_t)d * P + p0 + c] = sr[q];
+  }
+  if (t < NP) {
+    const int g = t >> lg, c = t & (PB - 1);
+    if (c < n) {
+      const size_t o = (size_t)g * P + p0 + c;
+      A.energy[o] = en[t];
+      A.energy_raw[o] = er[t];
+      A.state[o] = st_s[t];
+      A.active[o] = act_s[t];
     }
-    __syncthreads();
-    if (j <= D) {
+  }
+  if (t < n) A.has_res[p0 + t] = has_s[t];
+
+  // ---- cells: the pairs' terms summed over the block's points of each
+  // host, in point order. Item w = target * 91 + entry is also its offset
+  // in a point's row of gs; a thread walks the points once for two items,
+  // w and w + NT: two independent chains of adds ----
+  for (int w = t; w < NE * F; w += 2 * NT) {
+    const bool two = w + NT < NE * F;
+    const int w2 = two ? w + NT : w;
+    float* out = A.part_top + (size_t)blockIdx.x * F * F * NE;
+    for (int h = 0; h < F; ++h) {
+      float acc1 = 0.f, acc2 = 0.f;
+#pragma unroll 4
+      for (int j = seg[h]; j < seg[h + 1]; ++j) {
+        const float* row = gs + order[j] * F * NE;
+        acc1 += row[w];
+        acc2 += row[w2];
+      }
+      out[(size_t)h * F * NE + w] = acc1;
+      if (two) out[(size_t)h * F * NE + w2] = acc2;
+    }
+  }
+
+  // ---- schur: v_i HdiF v_j over the block's points in point order; one
+  // thread per 2 x 4 tile of H_sc that reaches the diagonal or above (its
+  // 6 rows of v and HdiF are read once for 8 entries), then b_sc ----
+  {
+    const int n_sc = D * (D + 1) / 2 + D;
+    float* out = A.part_sc + (size_t)blockIdx.x * n_sc;
+    const float* hdif = sr + PB;
+    const float* bdf = sr + 2 * PB;
+    // D = 4 + 8 F: TC whole tile columns; tile rows 2k and 2k + 1 start at
+    // tile column k, so the tiles on or above the diagonal are TC (TC + 1)
+    const int TC = D / 4;
+    for (int task = t; task < TC * (TC + 1); task += NT) {
+      int k = 0, rem = task;
+      while (rem >= 2 * (TC - k)) { rem -= 2 * (TC - k); ++k; }
+      const int second = rem < TC - k ? 0 : 1;   // tile row 2k or 2k + 1
+      const int i0 = 2 * (2 * k + second);
+      const int j0 = 4 * (k + rem - second * (TC - k));
+      float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll 4
       for (int c = 0; c < n; ++c) {
-        const float vw = vt[i * TILE + c] * ht[c];
-        acc += vw * (j < D ? vt[j * TILE + c] : bt[c]);
+        const float hd = hdif[c];
+        const float w0 = vt[i0 * VS + c] * hd;
+        const float w1 = vt[(i0 + 1) * VS + c] * hd;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float x = vt[(j0 + q) * VS + c];
+          acc[0][q] += w0 * x;
+          acc[1][q] += w1 * x;
+        }
       }
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (j0 + q >= i0 + r)
+            out[tri(i0 + r, j0 + q, D + 1)] = acc[r][q];
     }
-    __syncthreads();
-  }
-  if (j <= D) part[((size_t)s * D + i) * (D + 1) + j] = acc;
-}
-
-// Partial top-Hessian cells over one range of SPLIT points: block
-// (target f, range s), thread (a, b). acc_h[a][b] += sum_k Y[p][f][k][a] *
-// Y[p][f][k][b] for each point p of the range (index order) into its
-// host's accumulator; gram rows staged STAGE points at a time.
-__global__ void top_partial_kernel(const float* __restrict__ yscr,
-                                   const int* __restrict__ host, int P,
-                                   int F, float* __restrict__ part) {
-  __shared__ float ys[STAGE][YROW];
-  __shared__ int hs[STAGE];
-  const int f = blockIdx.x;
-  const int s = blockIdx.y;
-  const int t = threadIdx.x;
-  const int a = t / 13, b = t % 13;
-  const int p_lo = s * SPLIT;
-  const int p_hi = min(P, p_lo + SPLIT);
-  float acc[MAXF];
-  for (int h = 0; h < MAXF; ++h) acc[h] = 0.f;
-  for (int p0 = p_lo; p0 < p_hi; p0 += STAGE) {
-    const int n = min(STAGE, p_hi - p0);
+    for (int i = t; i < D; i += NT) {
+      float acc = 0.f;
 #pragma unroll 4
-    for (int q = t; q < n * YROW; q += blockDim.x) {
-      const int pp = q / YROW, r = q % YROW;
-      ys[pp][r] = yscr[(size_t)((p0 + pp) * F + f) * YROW + r];
+      for (int c = 0; c < n; ++c) acc += (vt[i * VS + c] * hdif[c]) * bdf[c];
+      out[tri(i, D, D + 1)] = acc;
     }
-    if (t < n) hs[t] = host[p0 + t];
-    __syncthreads();
-    if (t < 169) {
-      for (int pp = 0; pp < n; ++pp) {
-        const int h = hs[pp];
-        float v = 0.f;
-        for (int k = 0; k < 8; ++k) v += ys[pp][k * 13 + a] * ys[pp][k * 13 + b];
-        if (h >= 0 && h < F) acc[h] += v;
-      }
-    }
-    __syncthreads();
   }
-  if (t < 169)
-    for (int h = 0; h < F; ++h)
-      part[(((size_t)s * F + h) * F + f) * 169 + t] = acc[h];
 }
 
-// out[idx] = sum over ranges s = 0..S-1, in order, of part[s][idx].
-__global__ void range_sum_kernel(const float* __restrict__ part, int S, int n,
-                                 float* __restrict__ out) {
+// One thread per entry of acc (F,F,13,13), then of [H_sc | b_sc] (D,D+1):
+// the blocks' partial sums added in block order, symmetric halves
+// mirrored; b_sc also lands in its own contiguous (D,) output.
+__global__ void block_sum_kernel(const float* __restrict__ part_top,
+                                 const float* __restrict__ part_sc, int NB,
+                                 int F, float* __restrict__ acc,
+                                 float* __restrict__ hsc,
+                                 float* __restrict__ bsc) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  float acc = 0.f;
-  for (int s = 0; s < S; ++s) acc += part[(size_t)s * n + idx];
-  out[idx] = acc;
+  const int D = 4 + 8 * F;
+  const int n_top = F * F * NG * NG;
+  const int n_hsc = D * (D + 1);
+  if (idx < n_top) {
+    const int cell = idx / (NG * NG), r = idx - cell * NG * NG;
+    const int a = r / NG, b = r - a * NG;
+    const int lo = min(a, b), hi = max(a, b);
+    const float* src = part_top + (size_t)cell * NE + tri(lo, hi, NG);
+    const size_t stride = (size_t)F * F * NE;
+    float s = 0.f;
+#pragma unroll 32
+    for (int k = 0; k < NB; ++k) s += src[k * stride];
+    acc[idx] = s;
+  } else if (idx < n_top + n_hsc) {
+    const int q = idx - n_top;
+    const int i = q / (D + 1), j = q - i * (D + 1);
+    const int lo = j < D ? min(i, j) : i, hi = j < D ? max(i, j) : D;
+    const size_t stride = (size_t)(D * (D + 1) / 2 + D);
+    const float* src = part_sc + tri(lo, hi, D + 1);
+    float s = 0.f;
+#pragma unroll 32
+    for (int k = 0; k < NB; ++k) s += src[k * stride];
+    hsc[q] = s;
+    if (j == D) bsc[i] = s;
+  }
+}
+
+// Floats of the partial-sum scratch `part` at P points, F frames.
+extern "C" int ba_fused_part_floats(int P, int F) {
+  const int PB = points_per_block(F), D = 4 + 8 * F;
+  const int NB = (P + PB - 1) / PB;
+  return NB * (F * F * NE + D * (D + 1) / 2 + D);
 }
 
 extern "C" int launch_ba_fused(
     const float* hit, const float* okf, const float* u, const float* v,
     const float* idep, const float* idz, const float* ptprior,
-    const float* ptvalid, const float* pmask, const float* color,
-    const float* wpat, const int* host, const float* res_exist,
-    const float* prev_oob, const float* R0, const float* t0,
-    const float* affLL, const float* scal, int P, int F, int use_rz,
-    const float* b0, const float* eth, const float* fvalid,
-    const float* adHTdelta, const float* adHost, const float* adTarget,
-    float* yscr, float* part, float* vout, float* srows, float* energy,
-    float* energy_raw, signed char* state, float* acc, float* hsc,
-    void* stream) {
+    const unsigned char* ptvalid, const unsigned char* pmask,
+    const float* color, const float* wpat, const int* host,
+    const unsigned char* res_exist, const signed char* res_state,
+    const float* R0, const float* t0, const float* affLL, const float* c,
+    const float* c_zero, const float* b0, const float* eth,
+    const unsigned char* fvalid, const float* adHTdelta, const float* adHost,
+    const float* adTarget, int P, int F, int use_rz, int shift_flag,
+    float prior_fac, float huber, float oc, float wlim, float hlim,
+    float* part, float* vout, float* srows, float* energy, float* energy_raw,
+    signed char* state, unsigned char* active, unsigned char* has_res,
+    float* acc, float* hsc, float* bsc, void* stream) {
   if (F > MAXF || F < 1 || P < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const int D = 4 + 8 * F;
-  const int S = (P + SPLIT - 1) / SPLIT;
-  const int n_sc = D * (D + 1), n_top = F * F * 169;
-  float* part_sc = part;                         // (S, D, D+1)
-  float* part_top = part + (size_t)S * n_sc;     // (S, F, F, 169)
-  cudaError_t err;
-#define CHECK_LAUNCH()                                   \
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err
-  ba_point_kernel<<<(P + 127) / 128, 128, 0, st>>>(
-      hit, okf, u, v, idep, idz, ptprior, ptvalid, pmask, color, wpat, host,
-      res_exist, prev_oob, R0, t0, affLL, scal, P, F, use_rz, b0, eth,
-      fvalid, adHTdelta, adHost, adTarget, yscr, vout, srows, energy,
-      energy_raw, state);
-  CHECK_LAUNCH();
-  const int threads = ((D + 1 + 31) / 32) * 32;
-  const size_t smem = (size_t)(D * TILE + 2 * TILE) * sizeof(float);
-  schur_partial_kernel<<<dim3(D, S), threads, smem, st>>>(vout, srows, P, D,
-                                                          part_sc);
-  CHECK_LAUNCH();
-  range_sum_kernel<<<(n_sc + 255) / 256, 256, 0, st>>>(part_sc, S, n_sc, hsc);
-  CHECK_LAUNCH();
-  top_partial_kernel<<<dim3(F, S), 192, 0, st>>>(yscr, host, P, F, part_top);
-  CHECK_LAUNCH();
-  range_sum_kernel<<<(n_top + 255) / 256, 256, 0, st>>>(part_top, S, n_top,
-                                                        acc);
-  CHECK_LAUNCH();
-#undef CHECK_LAUNCH
-  return 0;
+  const int PB = points_per_block(F), D = 4 + 8 * F;
+  const int NB = (P + PB - 1) / PB;
+  K3Args A;
+  A.hit = hit; A.okf = okf; A.u = u; A.v = v; A.idep = idep; A.idz = idz;
+  A.ptprior = ptprior; A.ptvalid = ptvalid; A.pmask = pmask;
+  A.color = color; A.wpat = wpat; A.host = host; A.res_exist = res_exist;
+  A.res_state = res_state; A.R0 = R0; A.t0 = t0; A.aff = affLL; A.c = c;
+  A.c_zero = c_zero; A.b0 = b0; A.eth = eth; A.fvalid = fvalid;
+  A.dpt = adHTdelta; A.adH = adHost; A.adT = adTarget;
+  A.P = P; A.F = F; A.use_rz = use_rz; A.shift_flag = shift_flag;
+  A.prior_fac = prior_fac; A.huber = huber; A.oc = oc; A.wlim = wlim;
+  A.hlim = hlim;
+  A.part_top = part;
+  A.part_sc = part + (size_t)NB * F * F * NE;
+  A.vout = vout; A.srows = srows; A.energy = energy;
+  A.energy_raw = energy_raw; A.state = state; A.active = active;
+  A.has_res = has_res;
+  const size_t smem = (size_t)smem_layout(F).total * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      ba_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  ba_block_kernel<<<NB, NT, smem, st>>>(A);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const int n_out = F * F * NG * NG + D * (D + 1);
+  block_sum_kernel<<<(n_out + 127) / 128, 128, 0, st>>>(
+      A.part_top, A.part_sc, NB, F, acc, hsc, bsc);
+  return (int)cudaGetLastError();
 }

@@ -18,6 +18,7 @@ setAdjointsF / setDeltaF / solveSystemF / resubstituteF.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Tuple
 
 import torch
@@ -43,13 +44,23 @@ RES_OOB = 1
 RES_OUTLIER = 2
 
 
+# The three constant tensors below are made once per device and shared
+# (read-only): making one is a host-to-device copy, and they are wanted in
+# every BA iteration.
+@functools.lru_cache(maxsize=None)
 def state8_scale(device) -> torch.Tensor:
     """State8 internal -> real multipliers."""
     return torch.tensor(_STATE8_SCALE, dtype=torch.float32, device=device)
 
 
+@functools.lru_cache(maxsize=None)
 def pattern(device) -> torch.Tensor:
     return torch.as_tensor(PATTERN_OFFSETS, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _calib_scale(device) -> torch.Tensor:
+    return torch.tensor(_CALIB_SCALE, dtype=torch.float32, device=device)
 
 
 class BAState(NamedTuple):
@@ -89,8 +100,7 @@ class BAState(NamedTuple):
 
 
 def calib_real(ba: BAState) -> torch.Tensor:
-    return ba.c * torch.tensor(_CALIB_SCALE, dtype=torch.float32,
-                               device=ba.c.device)
+    return ba.c * _calib_scale(ba.c.device)
 
 
 def state_to_pose(T_cw_eval: torch.Tensor, state: torch.Tensor):

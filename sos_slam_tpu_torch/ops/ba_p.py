@@ -29,7 +29,7 @@ from sos_slam_tpu_torch.ops.image import interp_bilinear_frames
 from sos_slam_tpu_torch.utils import cuda_build as CB
 from sos_slam_tpu_torch.utils.config import CPARS, Settings
 
-MAX_FRAMES = 16   # the kernel's per-thread frame arrays
+MAX_FRAMES = 16   # the kernel's block holds at most 256 (point, frame) pairs
 
 
 class SchurDataT(NamedTuple):
@@ -162,19 +162,66 @@ def fused_iteration_plain(ba: B.BAState, pre: B.Precalc, dI, settings,
         new_state=lin.new_state.T.contiguous(), active=active.T.contiguous())
 
 
-# C entry point: 17 inputs + scal, (P, F, use_rz), 6 tables, 2 scratch,
-# v, srows, energy, energy_raw, state, acc, hsc, stream
-_BA_ARGS = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 3
-            + [ctypes.c_void_p] * 8 + [ctypes.c_void_p] * 8)
-_SPLIT = 128   # points per range of the kernel's split reductions
+# launch_ba_fused: 25 input pointers; P, F, use_rz, shift flag; prior_fac,
+# huber_th, outlier_th_sum_component, w - 3, h - 3; the partial-sum scratch
+# and 10 outputs; the stream
+_BA_ARGS = ([ctypes.c_void_p] * 25 + [ctypes.c_int] * 4
+            + [ctypes.c_float] * 5 + [ctypes.c_void_p] * 11
+            + [ctypes.c_void_p])
+_BA_PART_ARGS = [ctypes.c_int, ctypes.c_int]
+_K3_OUT = ("v", "srows", "energy", "energy_raw", "state", "active",
+           "has_res", "acc", "hsc", "bsc")
+# partial-sum scratch of the kernel, one buffer per (P, F, device): the
+# launches of one stream run in order, so the next call may overwrite it
+_K3_SCRATCH = {}
+
+
+def _as(t: torch.Tensor, dtype, wide: bool = False) -> torch.Tensor:
+    """`t` itself when it already is contiguous `dtype` data (starting on
+    16 bytes when the kernel reads it by `wide` 16-byte loads); else such a
+    copy."""
+    if t.dtype != dtype or not t.is_contiguous():
+        return t.to(dtype).contiguous()
+    return t.clone() if wide and t.data_ptr() % 16 else t
+
+
+def k3_pack(ba: B.BAState, pre: B.Precalc, pmask=None):
+    """K3's window and table inputs in the kernel's order and types (after
+    hit and okf): floats as float32, masks as the bool they are, res_state
+    int8, host int32. A tensor that already has its type is passed as it
+    is, not copied; a missing pmask stays None (all points)."""
+    f32, bl = torch.float32, torch.bool
+    return [_as(ba.u, f32), _as(ba.v, f32), _as(ba.idepth, f32),
+            _as(ba.idepth_zero, f32), _as(ba.pt_prior, f32),
+            _as(ba.pt_valid, bl),
+            None if pmask is None else _as(pmask, bl),
+            _as(ba.color, f32, True), _as(ba.weight, f32, True),
+            _as(ba.host, torch.int32), _as(ba.res_exist, bl),
+            _as(ba.res_state, torch.int8), _as(pre.R0, f32),
+            _as(pre.t0, f32), _as(pre.affLL, f32), _as(ba.c, f32),
+            _as(ba.c_zero, f32), _as(pre.b0, f32), _as(ba.energy_th, f32),
+            _as(ba.frame_valid, bl), _as(pre.adHTdelta, f32),
+            _as(pre.adHost, f32, True), _as(pre.adTarget, f32, True)]
+
+
+def _k3_scratch(P: int, F: int, dev) -> torch.Tensor:
+    key = (P, F, dev)
+    part = _K3_SCRATCH.get(key)
+    if part is None:
+        n = CB.function("ba_fused", "ba_fused_part_floats",
+                        _BA_PART_ARGS)(P, F)
+        part = _K3_SCRATCH[key] = torch.empty(n, dtype=torch.float32,
+                                              device=dev)
+    return part
 
 
 def k3_prepare(ba: B.BAState, pre: B.Precalc, dI, settings: Settings,
                w: int, h: int, pmask=None, use_rz: bool = False,
                shift_prior_to_zero: bool = True, prior_fac: float = 1.0):
     """K3's PyTorch side before the launch: the current-state projection and
-    tap gather, the packed inputs, and the outputs and scratch allocated.
-    Returns the record `k3_launch` consumes (it keeps every buffer alive)."""
+    tap gather, the packed inputs, and the outputs allocated. Nothing here
+    copies from the host or reads the card. Returns the record `k3_launch`
+    consumes (it keeps every buffer alive)."""
     dev = ba.u.device
     if dev.type != "cuda":
         raise ValueError(f"fused_iteration kernel needs CUDA tensors, got {dev}")
@@ -187,11 +234,14 @@ def k3_prepare(ba: B.BAState, pre: B.Precalc, dI, settings: Settings,
                          "window's device")
     shapes = dict(u=(ba.u, (P,)), v=(ba.v, (P,)), idepth=(ba.idepth, (P,)),
                   idepth_zero=(ba.idepth_zero, (P,)),
-                  pt_prior=(ba.pt_prior, (P,)), host=(ba.host, (P,)),
+                  pt_prior=(ba.pt_prior, (P,)), pt_valid=(ba.pt_valid, (P,)),
+                  host=(ba.host, (P,)),
                   color=(ba.color, (P, 8)), weight=(ba.weight, (P, 8)),
                   res_exist=(ba.res_exist, (P, F)),
                   res_state=(ba.res_state, (P, F)),
                   energy_th=(ba.energy_th, (F,)), c=(ba.c, (CPARS,)),
+                  c_zero=(ba.c_zero, (CPARS,)),
+                  frame_valid=(ba.frame_valid, (F,)),
                   R0=(pre.R0, (F, F, 3, 3)), t0=(pre.t0, (F, F, 3)),
                   affLL=(pre.affLL, (F, F, 2)), b0=(pre.b0, (F,)),
                   adHTdelta=(pre.adHTdelta, (F, F, 8)),
@@ -201,50 +251,31 @@ def k3_prepare(ba: B.BAState, pre: B.Precalc, dI, settings: Settings,
     if pmask is not None:
         shapes["pmask"] = (pmask, (P,))
     for name, (t, shp) in shapes.items():
-        if tuple(t.shape) != shp:
+        if tuple(t.shape) != shp or t.device != dev:
             raise ValueError(f"fused_iteration: {name} has shape "
-                             f"{tuple(t.shape)}, expected {shp}")
+                             f"{tuple(t.shape)} on {t.device}, expected "
+                             f"{shp} on {dev}")
     hit, okf = _project_taps(ba, pre, dI, w, h)
     f32 = torch.float32
-
-    def c(t, dtype=f32):
-        t = t.to(dtype).contiguous()
-        if t.device != dev:
-            raise ValueError("fused_iteration: all inputs on one device")
-        return t
-
-    pm = (torch.ones(P, dtype=f32, device=dev) if pmask is None
-          else c(pmask, f32))
-    ins = [c(hit), c(okf), c(ba.u), c(ba.v), c(ba.idepth),
-           c(ba.idepth_zero), c(ba.pt_prior), c(ba.pt_valid, f32), pm,
-           c(ba.color), c(ba.weight), c(ba.host, torch.int32),
-           c(ba.res_exist, f32), c(ba.res_state == B.RES_OOB, f32),
-           c(pre.R0), c(pre.t0), c(pre.affLL)]
-    tabs = [c(pre.b0), c(ba.energy_th), c(ba.frame_valid, f32),
-            c(pre.adHTdelta), c(pre.adHost), c(pre.adTarget)]
-    scal = torch.cat([B.calib_real(ba), torch.tensor(
-        [prior_fac, 1.0 if shift_prior_to_zero else 0.0,
-         settings.huber_th, settings.outlier_th_sum_component,
-         float(w - 3), float(h - 3), 0.0, 0.0], dtype=f32, device=dev),
-        ba.c - ba.c_zero]).contiguous()                      # (16,)
+    ins = [_as(hit, f32, True), _as(okf, f32, True)] + k3_pack(ba, pre, pmask)
     out = dict(v=torch.empty((D, P), dtype=f32, device=dev),
                srows=torch.empty((4, P), dtype=f32, device=dev),
                energy=torch.empty((F, P), dtype=f32, device=dev),
                energy_raw=torch.empty((F, P), dtype=f32, device=dev),
                state=torch.empty((F, P), dtype=torch.int8, device=dev),
+               active=torch.empty((F, P), dtype=torch.bool, device=dev),
+               has_res=torch.empty((P,), dtype=torch.bool, device=dev),
                acc=torch.empty((F, F, 13, 13), dtype=f32, device=dev),
-               hsc=torch.empty((D, D + 1), dtype=f32, device=dev))
-    yscr = torch.empty((P, F, 8, 13), dtype=f32, device=dev)
-    n_ranges = -(-P // _SPLIT)
-    part = torch.empty(n_ranges * (D * (D + 1) + F * F * 169), dtype=f32,
-                       device=dev)
-    args = ([CB.ptr(t) for t in ins] + [CB.ptr(scal)]
-            + [P, F, int(use_rz)]
-            + [CB.ptr(t) for t in tabs] + [CB.ptr(yscr), CB.ptr(part)]
-            + [CB.ptr(out[k]) for k in ("v", "srows", "energy",
-                                        "energy_raw", "state", "acc", "hsc")]
-            + [CB.stream_ptr(dev)])
-    return dict(args=args, out=out, keep=(ins, tabs, scal, yscr, part))
+               hsc=torch.empty((D, D + 1), dtype=f32, device=dev),
+               bsc=torch.empty((D,), dtype=f32, device=dev))
+    part = _k3_scratch(P, F, dev)
+    args = ([None if t is None else CB.ptr(t) for t in ins]
+            + [P, F, int(use_rz), int(shift_prior_to_zero), float(prior_fac),
+               float(settings.huber_th),
+               float(settings.outlier_th_sum_component),
+               float(w - 3), float(h - 3), CB.ptr(part)]
+            + [CB.ptr(out[k]) for k in _K3_OUT] + [CB.stream_ptr(dev)])
+    return dict(args=args, out=out, keep=(ins, part))
 
 
 def k3_launch(prep) -> None:
@@ -259,7 +290,7 @@ def fused_iteration(ba: B.BAState, pre: B.Precalc, dI, settings: Settings,
                     prior_fac: float = 1.0) -> FusedOut:
     """K3. On CPU tensors: the plain twin. On CUDA tensors: `k3_prepare`
     (PyTorch projection + tap gather), `k3_launch` (csrc/ba_fused.cu: the
-    per-point pass and the two split fixed-order reductions; one count in
+    per-residual block pass and the block sum; one count in
     `fused_iteration.launches`), then the adjoint stitch in PyTorch."""
     dev = ba.u.device
     if dev.type == "cpu":
@@ -273,15 +304,13 @@ def fused_iteration(ba: B.BAState, pre: B.Precalc, dI, settings: Settings,
     D = CPARS + 8 * ba.F
     H_top, b_top = B.stitch_acc(ba, pre, o["acc"][..., :12, :12],
                                 o["acc"][..., :12, 12])
-    active = (ba.res_exist.T & ba.pt_valid[None, :]
-              & ba.frame_valid[:, None] & (o["state"] == B.RES_IN))
     srows = o["srows"]
     sc = SchurDataT(Hdd=srows[0], HdiF=srows[1], bd=srows[2], vcross=o["v"],
-                    has_res=srows[3] > 0.5)
+                    has_res=o["has_res"])
     return FusedOut(H_top=H_top, b_top=b_top, H_sc=o["hsc"][:, :D],
-                    b_sc=o["hsc"][:, D].contiguous(), sc=sc,
+                    b_sc=o["bsc"], sc=sc,
                     energy=o["energy"], energy_raw=o["energy_raw"],
-                    new_state=o["state"], active=active)
+                    new_state=o["state"], active=o["active"])
 
 
 fused_iteration.launches = 0
@@ -320,7 +349,8 @@ _ACT_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_float] \
 def act_pass(hit, a, b, okf, color, weights2, ap, oob_in, energy_th,
              clamp: bool, huber_th: float):
     """K4. On CPU tensors: the plain twin. On CUDA tensors: one launch of
-    csrc/act_pass.cu (counted in `act_pass.launches`)."""
+    csrc/act_pass.cu, one thread per (candidate, frame) pair (counted in
+    `act_pass.launches`)."""
     dev = hit.device
     if dev.type == "cpu":
         return act_pass_plain(hit, a, b, okf, color, weights2, ap, oob_in,
@@ -336,13 +366,13 @@ def act_pass(hit, a, b, okf, color, weights2, ap, oob_in, energy_th,
                 or t.device != dev:
             raise ValueError(f"act_pass: expected float32 {shp} on {dev}, "
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-    ins = [t.contiguous() for t, _ in shapes]
+    ins = [_as(t, torch.float32, True) for t, _ in shapes]
     e_res = torch.empty((N, F), dtype=torch.float32, device=dev)
     oob_out = torch.empty((N, F), dtype=torch.float32, device=dev)
     sums = torch.empty((3, N), dtype=torch.float32, device=dev)
     fn = CB.function("act_pass", "launch_act_pass", _ACT_ARGS)
     CB.check(fn(*[CB.ptr(t) for t in ins], N, F, int(clamp),
-                ctypes.c_float(huber_th), CB.ptr(e_res), CB.ptr(oob_out),
+                float(huber_th), CB.ptr(e_res), CB.ptr(oob_out),
                 CB.ptr(sums), CB.stream_ptr(dev)), "act_pass")
     act_pass.launches += 1
     return e_res, oob_out, sums[0], sums[1], sums[2]

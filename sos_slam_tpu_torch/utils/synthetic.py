@@ -82,3 +82,102 @@ def make_sequence(calib: CalibPyramid, n_frames: int,
         poses.append(T)
         T = T @ step
     return torch.stack(imgs), torch.stack(idepths), torch.stack(poses)
+
+
+# (P, F) of the fused BA iteration and (N, F) of the activation pass that no
+# block size divides, for holding the kernels to their plain forms at the
+# edges: F = 1..16 need not divide a warp, P and N need not fill a block
+K3_RAGGED_SHAPES = ((100, 1), (100, 3), (100, 5), (512, 8), (512, 16),
+                    (2048 + 37, 5), (2048 + 37, 8), (2048 + 37, 16))
+K4_RAGGED_SHAPES = ((100, 1), (100, 3), (515, 5), (1024 + 37, 8), (515, 16))
+
+
+def make_window(P: int, F: int, seed: int = 0, w: int = 160, h: int = 120,
+                plane_z: float = 2.0):
+    """A BA window of P point slots and F frames of the textured plane, as
+    numpy: (dict of ops/ba.BAState fields, dI (F,h,w,3) [I,dx,dy]). Every
+    random draw comes from numpy's RandomState(seed), so the same window
+    can be handed to any implementation. Built to reach every branch of
+    the fused BA iteration: mixed hosts, free point slots, dropped, OOB
+    and outlier residuals, per-frame thresholds, and a state moved off its
+    FEJ point (so the res_toZero shift is live)."""
+    from sos_slam_tpu_torch.ops import image as IMG
+    from sos_slam_tpu_torch.utils.config import PATTERN_OFFSETS
+    r = np.random.RandomState(seed)
+    calib = default_calib(w, h)
+    fx, fy, cx, cy = calib.intrinsics(0)
+    imgs, idepths, poses = make_sequence(
+        calib, F, (0.04, 0.02, 0.03, 0.004, 0.008, 0.004), plane_z=plane_z,
+        seed=seed, device="cpu")
+    dI = torch.stack([IMG.pyramid_level_plain(im)[0] for im in imgs])
+    T_eval = torch.stack([
+        lie.se3_exp(torch.as_tensor(
+            (0.0 if i == 0 else 0.004) * r.randn(6).astype(np.float32)))
+        @ poses[i] for i in range(F)])
+
+    host = r.randint(0, F, P).astype(np.int32)
+    u = r.uniform(8, w - 9, P).astype(np.float32)
+    v = r.uniform(8, h - 9, P).astype(np.float32)
+    pt_valid = r.rand(P) < 0.9
+    host = np.where(pt_valid, host, 0).astype(np.int32)
+    pat = np.asarray(PATTERN_OFFSETS, np.float32)
+    ut, vt, ht = torch.as_tensor(u), torch.as_tensor(v), torch.as_tensor(
+        host).long()
+    idp_true = torch.stack([IMG.interp_bilinear(idepths[i], ut, vt)
+                            for i in range(F)])[ht, torch.arange(P)].numpy()
+    color = torch.stack([
+        IMG.interp_bilinear(imgs[i], ut[:, None] + torch.as_tensor(pat[:, 0]),
+                            vt[:, None] + torch.as_tensor(pat[:, 1]))
+        for i in range(F)])[ht, torch.arange(P)].numpy()
+    idz = (idp_true * (1.0 + 0.05 * r.randn(P))).astype(np.float32)
+    idepth = (idz * (1.0 + 0.01 * r.randn(P))).astype(np.float32)
+
+    fr = np.arange(F)
+    res_exist = (pt_valid[:, None] & (fr[None, :] != host[:, None])
+                 & (r.rand(P, F) < 0.9))
+    res_state = r.choice(np.array([0, 1, 2], np.int8), (P, F),
+                         p=[0.9, 0.05, 0.05]).astype(np.int8)
+    state_zero = np.zeros((F, 8), np.float32)
+    state = (0.003 * r.randn(F, 8)).astype(np.float32)
+    state[0] = 0.0
+    c_zero = (np.array([fx, fy, cx, cy], np.float32)
+              / np.array([50.0, 50.0, 50.0, 50.0], np.float32))
+    D = 4 + 8 * F
+    fields = dict(
+        frame_valid=np.ones(F, bool), T_cw_eval=T_eval.numpy(), state=state,
+        state_zero=state_zero,
+        exposure=(1.0 + 0.05 * r.rand(F)).astype(np.float32),
+        energy_th=(12.0 * 12.0 * 8.0 * (0.25 + 0.75 * r.rand(F))).astype(
+            np.float32),
+        prior=np.zeros((F, 8), np.float32),
+        c=(c_zero * np.float32(1.001)).astype(np.float32), c_zero=c_zero,
+        pt_valid=pt_valid, host=host, u=u, v=v,
+        color=color.astype(np.float32),
+        weight=(0.5 + 0.5 * r.rand(P, 8)).astype(np.float32),
+        idepth=idepth * pt_valid, idepth_zero=idz * pt_valid,
+        pt_prior=(50.0 * r.rand(P) * pt_valid).astype(np.float32),
+        res_exist=res_exist, res_state=res_state,
+        HM=np.zeros((D, D), np.float32), bM=np.zeros(D, np.float32))
+    return fields, dI.numpy()
+
+
+def make_act_inputs(N: int, F: int, seed: int = 0, nan_dead: bool = True):
+    """Seeded numpy inputs of one activation-pass reduce at N candidates, F
+    frames: hit (N,F,8,3), a, b, okf (N,F,8), color, weights^2 (N,8),
+    affine (N,F,2), oob (N,F), energy_th (N,). Taps that are not ok hold
+    NaN when `nan_dead`, as on the main path."""
+    r = np.random.RandomState(seed)
+    hit = (r.rand(N, F, 8, 3) * [200, 20, 20] - [0, 10, 10]).astype(
+        np.float32)
+    a = (r.randn(N, F, 8) * 30).astype(np.float32)
+    b = (r.randn(N, F, 8) * 30).astype(np.float32)
+    okf = (r.rand(N, F, 8) > 0.03).astype(np.float32)
+    if nan_dead:
+        hit[..., 0] = np.where(okf > 0.5, hit[..., 0], np.nan)
+    color = (r.rand(N, 8) * 200).astype(np.float32)
+    w2 = r.rand(N, 8).astype(np.float32)
+    ap = np.stack([1 + 0.1 * r.randn(N, F), 5 * r.randn(N, F)], -1).astype(
+        np.float32)
+    oob = (r.rand(N, F) < 0.2).astype(np.float32)
+    eth = (8 * 144.0 * (0.05 + r.rand(N))).astype(np.float32)
+    return hit, a, b, okf, color, w2, ap, oob, eth

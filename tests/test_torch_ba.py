@@ -17,6 +17,7 @@ from sos_slam_tpu.ops import ba_t as JBT
 from sos_slam_tpu_torch.models import energy as TE
 from sos_slam_tpu_torch.ops import ba as TB
 from sos_slam_tpu_torch.ops import ba_p as TBP
+from sos_slam_tpu_torch.utils import convert, synthetic
 from tests.test_ba import SETTINGS, W, H, build_window
 from tests.test_ba_p import _mixed_host_window
 from tests.test_torch_helpers import (GN_TOL, act_inputs, close, exact,
@@ -121,6 +122,40 @@ def test_k3_marg_mode_matches(win):
     close(fj.sc.bd, ft.sc.bd)
 
 
+# (P, F) that fill no block of the CUDA kernels: the plain twin is what the
+# kernels are held to on the card at these edges, so it is held to the
+# Pallas kernel here, on the same numpy-seeded window
+RAGGED_K3 = [(100, 5), (75, 1), (167, 8), (515, 3), (210, 16)]
+
+
+@pytest.mark.parametrize("marg", [False, True], ids=["gn", "marg"])
+@pytest.mark.parametrize("P,F", RAGGED_K3)
+def test_k3_plain_matches_pallas_interpret_ragged(P, F, marg):
+    fields, dI = synthetic.make_window(P, F, seed=3)
+    ba = JB.BAState(**{k: jnp.asarray(v) for k, v in fields.items()})
+    bt = convert.from_numpy(TB.BAState, fields, "cpu")
+    kw, kw_t = {}, {}
+    if marg:
+        pmask = fields["pt_valid"] & (np.arange(P) % 3 == 0)
+        kw = dict(use_rz=True, shift_prior_to_zero=False,
+                  prior_fac=SETTINGS.idepth_fix_prior_marg_fac)
+        kw_t = dict(kw, pmask=t(pmask))
+        kw = dict(kw, pmask=jnp.asarray(pmask))
+    fj = JBP.fused_iteration(ba, JB.make_precalc(ba), jnp.asarray(dI),
+                             SETTINGS, 160, 120, interpret=True, **kw)
+    ft = TBP.fused_iteration(bt, TB.make_precalc(bt), t(dI), SETTINGS, 160,
+                             120, **kw_t)
+    exact(fj.new_state, ft.new_state)
+    exact(fj.active, ft.active)
+    exact(fj.sc.has_res, ft.sc.has_res)
+    for k in ("H_top", "b_top", "H_sc", "b_sc", "energy", "energy_raw"):
+        close(getattr(fj, k), getattr(ft, k))
+    for k in ("H_top", "H_sc"):
+        gram_close(getattr(fj, k), getattr(ft, k))
+    for k in ("Hdd", "HdiF", "bd", "vcross"):
+        close(getattr(fj.sc, k), getattr(ft.sc, k))
+
+
 def test_full_gn_step_matches(win):
     ba, dI, pre, bt, dIt, pre_t = win
     fj = JBP.fused_iteration(ba, pre, dI, SETTINGS, W, H, interpret=True)
@@ -145,6 +180,22 @@ def test_full_gn_step_matches(win):
 @pytest.mark.parametrize("clamp", [False, True])
 def test_k4_plain_matches_pallas_interpret(clamp):
     ins = act_inputs(3 + int(clamp))
+    oj = JBP.act_pass(*(jnp.asarray(x) for x in ins), clamp=clamp,
+                      huber_th=9.0, interpret=True)
+    ot = TBP.act_pass(*(t(x) for x in ins), clamp=clamp, huber_th=9.0)
+    exact(np.asarray(oj[1]) > 0.5, ot[1].numpy() > 0.5)
+    live = np.asarray(oj[1]) < 0.5
+    close(np.asarray(oj[0])[live], ot[0].numpy()[live])
+    for a, b in zip(oj[2:], ot[2:]):
+        assert np.isfinite(b.numpy()).all()
+        close(a, b)
+
+
+@pytest.mark.parametrize("clamp", [False, True])
+@pytest.mark.parametrize("N,F", [(100, 1), (100, 3), (515, 5), (1061, 8),
+                                 (210, 16)])
+def test_k4_plain_matches_pallas_interpret_ragged(N, F, clamp):
+    ins = synthetic.make_act_inputs(N, F, seed=5)
     oj = JBP.act_pass(*(jnp.asarray(x) for x in ins), clamp=clamp,
                       huber_th=9.0, interpret=True)
     ot = TBP.act_pass(*(t(x) for x in ins), clamp=clamp, huber_th=9.0)

@@ -105,3 +105,118 @@ def test_k4_act_pass():
         for a, b in zip(ok_[2:], op_[2:]):
             close(a, b)
         assert np.isfinite(ok_[2].cpu().numpy()).all()
+
+
+# ---- K3 and K4 at the edges: ragged shapes on numpy-seeded inputs ----
+
+def _window(P, F, dev, seed=3, **override):
+    from sos_slam_tpu_torch.ops import ba as B
+    from sos_slam_tpu_torch.utils import convert, synthetic
+    fields, dI = synthetic.make_window(P, F, seed=seed)
+    fields.update(override)
+    ba = convert.from_numpy(B.BAState, fields, dev)
+    return ba, B.make_precalc(ba), torch.as_tensor(dI, device=dev)
+
+
+def _same_bits(a, b):
+    return torch.equal(a.contiguous().view(torch.uint8),
+                       b.contiguous().view(torch.uint8))
+
+
+def _k3_against_plain(ba, pre, dI, **kw):
+    from sos_slam_tpu_torch.ops import ba_p as BP
+    from sos_slam_tpu_torch.utils.config import default_settings
+    s = default_settings()
+    h, w = dI.shape[1], dI.shape[2]
+    fk = BP.fused_iteration(ba, pre, dI, s, w, h, **kw)
+    fp = BP.fused_iteration_plain(ba, pre, dI, s, w, h, **kw)
+    exact(fk.new_state, fp.new_state)
+    exact(fk.active, fp.active)
+    exact(fk.sc.has_res, fp.sc.has_res)
+    for k in ("H_top", "b_top", "H_sc", "b_sc", "energy", "energy_raw"):
+        close(getattr(fk, k), getattr(fp, k))
+    for k in ("Hdd", "HdiF", "bd", "vcross"):
+        close(getattr(fk.sc, k), getattr(fp.sc, k))
+    gram_close(fk.H_top, fp.H_top)
+    gram_close(fk.H_sc, fp.H_sc)
+    prep = BP.k3_prepare(ba, pre, dI, s, w, h, **kw)
+    BP.k3_launch(prep)
+    cH, cb = BP.fused_cells_plain(ba, pre, dI, s, w, h,
+                                  pmask=kw.get("pmask"),
+                                  use_rz=kw.get("use_rz", False))
+    gram_close(prep["out"]["acc"][..., :12, :12], cH)
+    close(prep["out"]["acc"][..., :12, 12], cb)
+    # no atomics: a second launch on the same inputs repeats every bit
+    again = BP.fused_iteration(ba, pre, dI, s, w, h, **kw)
+    for a, b in zip(fk[:4] + tuple(fk.sc) + fk[5:],
+                    again[:4] + tuple(again.sc) + again[5:]):
+        assert _same_bits(a, b)
+    return fk
+
+
+_MARG = dict(use_rz=True, shift_prior_to_zero=False, prior_fac=2.5)
+
+
+def _k3_shapes():
+    from sos_slam_tpu_torch.utils import synthetic
+    return synthetic.K3_RAGGED_SHAPES
+
+
+def _k4_shapes():
+    from sos_slam_tpu_torch.utils import synthetic
+    return synthetic.K4_RAGGED_SHAPES
+
+
+@pytest.mark.parametrize("marg", [False, True])
+@pytest.mark.parametrize("P,F", _k3_shapes())
+def test_k3_ragged(P, F, marg):
+    dev = _dev()
+    ba, pre, dI = _window(P, F, dev)
+    kw = {}
+    if marg:
+        kw = dict(_MARG, pmask=ba.pt_valid
+                  & (torch.arange(P, device=dev) % 3 == 0))
+    fk = _k3_against_plain(ba, pre, dI, **kw)
+    if F > 1:
+        assert bool(fk.sc.has_res.any())
+
+
+def test_k3_empty_pmask():
+    dev = _dev()
+    ba, pre, dI = _window(512, 5, dev)
+    fk = _k3_against_plain(ba, pre, dI, **dict(
+        _MARG, pmask=torch.zeros(512, dtype=torch.bool, device=dev)))
+    assert not bool(fk.sc.has_res.any())
+    assert float(fk.H_sc.abs().max()) == 0.0
+
+
+def test_k3_all_oob():
+    from sos_slam_tpu_torch.ops import ba as B
+    dev = _dev()
+    ba, pre, dI = _window(100, 3, dev,
+                          res_state=np.full((100, 3), B.RES_OOB, np.int8))
+    fk = _k3_against_plain(ba, pre, dI)
+    assert bool((fk.new_state == B.RES_OOB).all())
+    assert not bool(fk.active.any())
+
+
+@pytest.mark.parametrize("clamp", [False, True])
+@pytest.mark.parametrize("N,F", _k4_shapes())
+def test_k4_ragged(N, F, clamp):
+    """NaN taps in dead frames, clamp off and on, and a bitwise repeat."""
+    from sos_slam_tpu_torch.ops import ba_p as BP
+    from sos_slam_tpu_torch.utils import synthetic
+    dev = _dev()
+    ins = [torch.as_tensor(x, device=dev)
+           for x in synthetic.make_act_inputs(N, F, seed=5)]
+    ok_ = BP.act_pass(*ins, clamp=clamp, huber_th=9.0)
+    op_ = BP.act_pass_plain(*ins, clamp=clamp, huber_th=9.0)
+    exact(ok_[1], op_[1])
+    live = (op_[1] < 0.5).cpu().numpy()
+    close(ok_[0].cpu().numpy()[live], op_[0].cpu().numpy()[live])
+    for a, b in zip(ok_[2:], op_[2:]):
+        close(a, b)
+        assert np.isfinite(a.cpu().numpy()).all()
+    again = BP.act_pass(*ins, clamp=clamp, huber_th=9.0)
+    for a, b in zip(ok_, again):
+        assert _same_bits(a, b)

@@ -81,18 +81,5 @@ def scene_images(w, h, n, twist, plane_z=2.0):
 def act_inputs(seed, N=128, F=4, nan_dead=True):
     """Seeded inputs of one activation pass reduce (K4): hit, a, b, okf,
     color, weights^2, affine, oob, energy_th."""
-    r = np.random.RandomState(seed)
-    hit = (r.rand(N, F, 8, 3) * [200, 20, 20] - [0, 10, 10]).astype(
-        np.float32)
-    a = (r.randn(N, F, 8) * 30).astype(np.float32)
-    b = (r.randn(N, F, 8) * 30).astype(np.float32)
-    okf = (r.rand(N, F, 8) > 0.03).astype(np.float32)
-    if nan_dead:   # dead (not ok) taps may hold NaN: `where`, not multiply
-        hit[..., 0] = np.where(okf > 0.5, hit[..., 0], np.nan)
-    color = (r.rand(N, 8) * 200).astype(np.float32)
-    w2 = r.rand(N, 8).astype(np.float32)
-    ap = np.stack([1 + 0.1 * r.randn(N, F), 5 * r.randn(N, F)], -1).astype(
-        np.float32)
-    oob = (r.rand(N, F) < 0.2).astype(np.float32)
-    eth = np.full(N, 8 * 144.0, np.float32)
-    return hit, a, b, okf, color, w2, ap, oob, eth
+    from sos_slam_tpu_torch.utils import synthetic
+    return synthetic.make_act_inputs(N, F, seed, nan_dead)
