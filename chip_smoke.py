@@ -13,15 +13,19 @@ In order, failing (exit code != 0, no result line) at the first fault:
      each kernel is then held against its plain PyTorch twin on those
      inputs (floats: rtol 2e-4, atol 2e-4 * max(1, max|plain|), K3's
      Hessians also on their diagonal-normalized form; states, masks and
-     `good`: exact); K3 and K4 also at ragged shapes on seeded synthetic
-     inputs (P, N that fill no block, F = 1..16, an empty pmask, an
-     all-OOB window, NaN taps in dead frames), each launched twice and
-     required to repeat bit for bit;
+     K2's `idn` and `good`: exact); K1 and K2 at their whole-call entries
+     (all levels in one launch), also bit for bit against one launch per
+     level, K1 also at 1 and 3 levels and at 328x248 (no whole number of
+     tiles, coarse rows off 16 bytes); K3 and K4 also at ragged shapes on
+     seeded synthetic inputs (P, N that fill no block, F = 1..16, an empty
+     pmask, an all-OOB window, NaN taps in dead frames); every kernel
+     launched twice and required to repeat bit for bit;
   4. the slice: the full bench main scene (48 frames, twist
      (0.03, 0.012, 0.02, 0.002, 0.004, 0.001), plane_z 2.0) through the
      port's FullSystem on the card, with every launch counter set to 0
      just before and read just after; initialized, not lost, and the
-     scale-aligned ATE <= 0.05 * path + 0.02, as bench.py gates it;
+     scale-aligned ATE <= 0.05 * path + 0.02, as bench.py gates it; K1
+     launched once per pyramid built and K2 once per template built;
   5. the breakdown: 8 more frames through the same FullSystem under
      torch.profiler (the card's busy share and its top device ops);
   6. kernel times on the inputs of step 3 (after the slice, so that the
@@ -32,9 +36,11 @@ In order, failing (exit code != 0, no result line) at the first fault:
      `ms` of the kernels line is their median), the card's time per call
      from torch.profiler over 30 calls, and the CUDA-event wall time of a
      single call; beside them the plain twin's times and the bound worked
-     out from the bytes and operations. For K3 also each launch's device
-     time by kernel name, and for the whole K3 and K4 wrappers the device
-     ops a call and the host-device copies among them (K3: none allowed);
+     out from the bytes and operations. For K1, K2 and K3 also each
+     launch's device time by kernel name (K1 and K2: one launch a call,
+     K3: two), and for the whole wrappers (build_pyramid,
+     build_track_template, fused_iteration, act_pass) the device ops a
+     call and the host-device copies among them (K3: none allowed);
      then the launch counts and the kernels line (one JSON object);
   7. last line: {"ok": true, "device": {...}}.
 
@@ -60,11 +66,17 @@ PROF_FRAMES = 8   # frames after the slice run under the profiler
 TWIST = (0.03, 0.012, 0.02, 0.002, 0.004, 0.001)
 TOL = 2e-4
 REPS = 30
+PROFILE_TRIES = 5  # windows of the profiler before an empty one stands
 QUEUED = 200      # back-to-back launches under one pair of events
 # device ops a call of the whole K3 wrapper in the first Hopper design
 # (five launches, float copies of the masks; scripts/torch_kernel_times.py
 # on that commit, NVIDIA H100 80GB HBM3)
 K3_WRAPPER_OPS_FIRST_DESIGN = 150
+# the same for build_pyramid (4 levels) and build_track_template when K1
+# and K2 took one launch per level (same script on that commit, same card)
+K1_WRAPPER_OPS_FIRST_DESIGN = 4
+K2_WRAPPER_OPS_FIRST_DESIGN = 427
+RAGGED_HW = (248, 328)   # divisible by 8, fills no whole number of K1 tiles
 JAX_REFERENCE = "JAX package on the same scene: 22 keyframes, ATE 0.0103 m " \
                 "over 1.786 m (BENCH_r05.json, not asserted)"
 
@@ -92,6 +104,7 @@ class Recorder:
         self.orig = getattr(module, name)
         self.calls = collections.deque(maxlen=keep)
         self.last_of = {}
+        self.n_calls = 0
         setattr(module, name, self)
 
     @property
@@ -104,6 +117,7 @@ class Recorder:
 
     def __call__(self, *args, **kw):
         self.calls.append((args, kw))
+        self.n_calls += 1
         self.last_of[self.kind(args, kw)] = (args, kw)
         return self.orig(*args, **kw)
 
@@ -225,15 +239,26 @@ def time_ms(torch, fn):
     return dev_us / REPS / 1e3, float(np.median(times))
 
 
-def profiled(torch, fn):
-    """The device events of REPS calls of `fn` under torch.profiler."""
+def profiled(torch, fn, at_least=1):
+    """The device events of REPS calls of `fn` under torch.profiler. The
+    profiler may lose the first events of a window, at times all of them:
+    a window that shows fewer than `at_least` kinds of device event is
+    taken again, PROFILE_TRIES times at most, and the last one is
+    returned as it is for the caller to judge."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(REPS):
-            fn()
+    for attempt in range(PROFILE_TRIES):
         torch.cuda.synchronize()
-    return device_events(prof)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(REPS):
+                fn()
+            torch.cuda.synchronize()
+        ev = device_events(prof)
+        if len(ev) >= at_least:
+            break
+        log(f"[profiler] window {attempt + 1} of {PROFILE_TRIES} showed "
+            f"{len(ev)} kind(s) of device event, {at_least} wanted")
+    return ev
 
 
 def device_ops(torch, fn):
@@ -259,6 +284,15 @@ def bound(nbytes, flops):
     t_b = nbytes / H100_BYTES_PER_S * 1e3
     t_f = flops / H100_F32_FLOPS * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
+def k1_bytes(w, h, n_levels):
+    """Bytes K1 must move for n_levels of a w x h frame in one call: the
+    frame read once (the coarser levels are formed from it and never cross
+    device memory) and, per pixel of every level, [I, dx, dy] and |grad|^2
+    written once. No `down` is counted: the frame path asks for none."""
+    px = sum((w >> lv) * (h >> lv) for lv in range(n_levels))
+    return 4 * (w * h + px * (3 + 1))
 
 
 def k3_kind(args, kw):
@@ -302,25 +336,29 @@ def k3_flops(P, F, D):
 
 
 def checked(kernels, timings, name, source, replaces, err, kernel_fn,
-            plain_fn, nbytes, flops, what, wrapper_fn=None, by_name=False):
+            plain_fn, nbytes, flops, what, wrapper_fn=None,
+            launches_a_call=None):
     """Record a kernel that matched its plain twin: log its error now,
     queue its timing (run after the slice, so the profiler cannot slow the
-    slice down)."""
+    slice down). `launches_a_call`, where given, is the number of kernels
+    (and no other device op) the profiler must see in a call of
+    `kernel_fn`."""
     log(f"[{name.split()[0]}] {what}: matches its plain twin, "
         f"max_abs_err {err[0]:.3e} ({err[1]:.3f} of the tolerance)")
     b_ms, b_by = bound(nbytes, flops)
     kernels.append(dict(name=name, route="cuda", source=source,
                         replaces=replaces, max_abs_err=err[0], bound_ms=b_ms,
                         bound_by=b_by, library_ms=None))
-    timings.append((kernel_fn, plain_fn, nbytes, flops, wrapper_fn, by_name))
+    timings.append((kernel_fn, plain_fn, nbytes, flops, wrapper_fn,
+                    launches_a_call))
 
 
 def time_kernels(torch, kernels, timings):
     """Times every checked kernel; returns, per kernel tag that has a whole
     wrapper, (its device ops a call, its host-device copies)."""
     wrappers = {}
-    for k, (kernel_fn, plain_fn, nbytes, flops, wrapper_fn, by_name) in zip(
-            kernels, timings):
+    for k, (kernel_fn, plain_fn, nbytes, flops, wrapper_fn,
+            launches_a_call) in zip(kernels, timings):
         tag = f"[{k['name'].split()[0]}]"
         q, before, after = queued_ms(torch, kernel_fn)
         prof_ms, wall = time_ms(torch, kernel_fn)
@@ -335,13 +373,20 @@ def time_kernels(torch, kernels, timings):
             f"plain {pwall:.4f}; bound {k['bound_ms']:.5f} ms "
             f"({k['bound_by']}: {nbytes / 1e6:.2f} MB, {flops / 1e6:.2f} "
             f"MFLOP), {100 * k['bound_ms'] / k['ms']:.2f}% of the bound")
-        if by_name:
+        if launches_a_call is not None:
+            ev = profiled(torch, kernel_fn, at_least=launches_a_call)
             log(f"{tag} its launches by kernel name, device ms a call "
                 "(launches a call): " + "; ".join(
                     f"{e.key.split('(')[0][:40]} "
                     f"{e.self_device_time_total / 1e3 / REPS:.5f} "
-                    f"({e.count / REPS:.0f})"
-                    for e in profiled(torch, kernel_fn)))
+                    f"({e.count / REPS:.0f})" for e in ev))
+            # the profiler may drop the first events of a window, so a
+            # kernel is counted at most, not exactly, REPS times
+            if len(ev) != launches_a_call or any(e.count > REPS for e in ev):
+                raise AssertionError(
+                    f"{tag} a call is not {launches_a_call} launch(es): "
+                    f"the profiler saw {[(e.key, e.count) for e in ev]} in "
+                    f"{REPS} calls")
         if wrapper_fn is not None:
             wms, wwall = time_ms(torch, wrapper_fn)
             n_ops, crossing = device_ops(torch, wrapper_fn)
@@ -485,15 +530,63 @@ def k4_against_plain(BP, a, kw):
     return err
 
 
-def capture(torch, calib, settings, imgs, dev):
+def k1_against_plain(torch, IMG, img, n_levels):
+    """K1's whole-call entry on `img`: one launch; every level within the
+    tolerance of the plain twin; every bit that of one launch per level
+    chained through `down`; and a second launch repeats every bit."""
+    before = IMG.pyramid_levels.launches
+    lv, ag = IMG.pyramid_levels(img, n_levels)
+    if IMG.pyramid_levels.launches - before != 1:
+        raise AssertionError("K1: a call is not one launch")
+    plv, pag = IMG.pyramid_levels_plain(img, n_levels)
+    err = compare("K1", list(zip(lv + ag, plv + pag)), [])
+    chained, cur = [], img
+    for _ in range(n_levels - 1):
+        dI, asg, cur = IMG.pyramid_level(cur)
+        chained.append((dI, asg))
+    (dI,), (asg,) = IMG.pyramid_levels(cur, 1)   # the last may have odd sides
+    chained.append((dI, asg))
+    same_bits("K1 against one launch per level", lv + ag,
+              tuple(c[0] for c in chained) + tuple(c[1] for c in chained))
+    again = IMG.pyramid_levels(img, n_levels)
+    same_bits("K1", lv + ag, again[0] + again[1])
+    return err
+
+
+def k2_against_plain(WIN, maps, colors, diags):
+    """K2's whole-call entry: one launch; idn and good exactly the plain
+    twin's; every bit that of one launch per level; and a second launch
+    repeats every bit."""
+    before = WIN.template_levels.launches
+    out = WIN.template_levels(maps, colors, diags)
+    if WIN.template_levels.launches - before != 1:
+        raise AssertionError("K2: a call is not one launch")
+    plain = WIN.template_levels_plain(maps, colors, diags)
+    flat = [x for pair in out for x in pair]
+    err = compare("K2", [(k[0], p[0]) for k, p in zip(out, plain)],
+                  [(k[1], p[1]) for k, p in zip(out, plain)])
+    if err[0] != 0.0:
+        raise AssertionError(f"K2: idn is off its plain twin by {err[0]:.3e}")
+    per_level = [WIN.template_level(idm, wm, color.contiguous(), diag)
+                 for (idm, wm), color, diag in zip(maps, colors, diags)]
+    same_bits("K2 against one launch per level", flat,
+              [x for pair in per_level for x in pair])
+    same_bits("K2", flat, [x for pair in WIN.template_levels(
+        maps, colors, diags) for x in pair])
+    return err
+
+
+def capture(torch, calib, settings, imgs, dev, k2_entry="template_levels"):
     """Runs the scene through a FullSystem until the main path has
     marginalized a point (so that K3's use_rz mode is met on the main
-    path's own inputs) with recorders on K2, K3 and K4. Returns (the
-    recorders by kernel, the frames it took)."""
+    path's own inputs) with recorders on K2 (the entry `k2_entry` of
+    models/window.py), its caller build_track_template, K3 and K4. Returns
+    (the recorders by kernel, the frames it took)."""
     from sos_slam_tpu_torch.models import window as WIN
     from sos_slam_tpu_torch.models.full_system import FullSystem
     from sos_slam_tpu_torch.ops import ba_p as BP
-    recs = dict(k2=Recorder(WIN, "template_level", 4),
+    recs = dict(k2=Recorder(WIN, k2_entry, 4),
+                tmpl=Recorder(WIN, "build_track_template", 1),
                 k3=Recorder(BP, "fused_iteration", 1, kind=k3_kind),
                 k4=Recorder(BP, "act_pass", 8))
     fs = FullSystem(calib, settings, device=dev)
@@ -524,6 +617,8 @@ def ate_of(fs, poses):
 
 
 def run(torch):
+    from sos_slam_tpu_torch.models import full_system as FSM
+    from sos_slam_tpu_torch.models import initializer as INIT
     from sos_slam_tpu_torch.models import window as WIN
     from sos_slam_tpu_torch.models.full_system import FullSystem
     from sos_slam_tpu_torch.ops import ba_p as BP
@@ -558,42 +653,53 @@ def run(torch):
     recs, n_pre = capture(torch, calib, settings, imgs, dev)
     kernels, timings = [], []
 
-    # K1: all 4 levels of one 640x480 frame
-    levels = []
-    cur = imgs[n_pre].contiguous()
-    for _ in range(calib.levels):
-        levels.append(cur)
-        cur = IMG.downsample2x(cur).contiguous()
-    err = (0.0, 0.0)
-    for lv in levels:
-        k, p = IMG.pyramid_level(lv), IMG.pyramid_level_plain(lv)
-        err = worse(err, compare("K1", list(zip(k, p)), []))
-    px = sum(lv.numel() for lv in levels)
-    checked(kernels, timings, "K1 pyramid_level (4 levels of one frame)",
-            "sos_slam_tpu_torch/csrc/pyramid.cu",
+    # K1: all levels of one 640x480 frame in one launch
+    frame = imgs[n_pre].contiguous()
+    err = k1_against_plain(torch, IMG, frame, calib.levels)
+    for n in (1, 3):
+        err = worse(err, k1_against_plain(torch, IMG, frame, n))
+    g = torch.Generator(device="cpu").manual_seed(1)
+    ragged_img = (torch.rand(*RAGGED_HW, generator=g) * 255).to(dev)
+    err = worse(err, k1_against_plain(torch, IMG, ragged_img, 4))
+    px = sum((W >> lv) * (H >> lv) for lv in range(calib.levels))
+    checked(kernels, timings,
+            f"K1 pyramid_levels ({calib.levels} levels of one frame, one "
+            "launch)", "sos_slam_tpu_torch/csrc/pyramid.cu",
             "sos_slam_tpu/ops/pallas_kernels.py:92", err,
-            lambda: [IMG.pyramid_level(lv) for lv in levels],
-            lambda: [IMG.pyramid_level_plain(lv) for lv in levels],
-            px * 4 * (1 + 3 + 1 + 0.25), px * 12,
-            f"4 levels {W}x{H}..{W >> 3}x{H >> 3}")
+            lambda: IMG.pyramid_levels(frame, calib.levels),
+            lambda: IMG.pyramid_levels_plain(frame, calib.levels),
+            k1_bytes(W, H, calib.levels), px * 12,
+            f"{calib.levels} levels {W}x{H}..{W >> 3}x{H >> 3}, also 1 and 3 "
+            f"levels and {RAGGED_HW[1]}x{RAGGED_HW[0]}; bitwise equal to one "
+            "launch per level and to a second launch",
+            wrapper_fn=lambda: IMG.build_pyramid(frame, calib.levels),
+            launches_a_call=1)
 
-    # K2: the 4 template levels of the last keyframe, both diag modes
-    calls = [(a[0], a[1], a[2], kw["diag"]) for a, kw in recs["k2"].calls]
-    if len(calls) != 4:
+    # K2: the template levels of the last keyframe in one launch, the
+    # main path's neighbourhoods and the swapped ones
+    if not recs["k2"].calls:
         raise AssertionError("K2 capture incomplete")
-    err = (0.0, 0.0)
-    for idm, wm, color, _ in calls:
-        for diag in (False, True):
-            ki, kg = WIN.template_level(idm, wm, color, diag)
-            pi, pg = WIN.template_level_plain(idm, wm, color, diag)
-            err = worse(err, compare("K2", [(ki, pi)], [(kg, pg)]))
-    px = sum(a[0].numel() for a in calls)
-    checked(kernels, timings, "K2 template_level (4 levels of one keyframe)",
-            "sos_slam_tpu_torch/csrc/template.cu",
+    (maps, colors, diags), _ = recs["k2"].calls[-1]
+    if len(maps) != calib.levels or any(c.is_contiguous() for c in colors):
+        raise AssertionError("K2 was not given the interleaved levels of "
+                             "the keyframe")
+    err = k2_against_plain(WIN, maps, colors, diags)
+    err = worse(err, k2_against_plain(WIN, maps, colors,
+                                      [not d for d in diags]))
+    px = sum(idm.numel() for idm, _ in maps)
+    tmpl_a, tmpl_kw = recs["tmpl"].calls[-1]
+    checked(kernels, timings,
+            f"K2 template_levels ({len(maps)} levels of one keyframe, one "
+            "launch)", "sos_slam_tpu_torch/csrc/template.cu",
             "sos_slam_tpu/ops/pallas_kernels.py:171", err,
-            lambda: [WIN.template_level(*a) for a in calls],
-            lambda: [WIN.template_level_plain(*a) for a in calls],
-            px * (3 * 4 + 4 + 1), px * 40, "4 levels x 2 diag modes")
+            lambda: WIN.template_levels(maps, colors, diags),
+            lambda: WIN.template_levels_plain(maps, colors, diags),
+            px * (3 * 4 + 4 + 1), px * 40,
+            f"{len(maps)} levels x 2 neighbourhoods, colour read in place at "
+            f"stride {colors[0].stride(1)}; idn and good exact, bitwise equal "
+            "to one launch per level and to a second launch",
+            wrapper_fn=lambda: WIN.build_track_template(*tmpl_a, **tmpl_kw),
+            launches_a_call=1)
 
     # K3: the last GN call and the last point marginalization (use_rz on
     # the points it marginalized) of the capture run
@@ -620,7 +726,7 @@ def run(torch):
             f"GN mode and use_rz mode ({int(last['rz'][1]['pmask'].sum())} "
             "marginalized points) checked, GN mode timed",
             wrapper_fn=lambda a=a, kw=kw: BP.fused_iteration(*a, **kw),
-            by_name=True)
+            launches_a_call=2)
 
     # K4: one activation pass, clamp off and on
     a4, kw4 = recs["k4"].calls[-1]
@@ -644,8 +750,12 @@ def run(torch):
     torch.cuda.synchronize()
 
     # ---- 4. the slice, every launch counter from 0 ----
-    wrappers = (IMG.pyramid_level, WIN.template_level, BP.fused_iteration,
+    wrappers = (IMG.pyramid_levels, WIN.template_levels, BP.fused_iteration,
                 BP.act_pass)
+    # the callers of K1 and K2, counted: a call of theirs is one launch
+    callers = [Recorder(FSM, "build_pyramid", 1),
+               Recorder(INIT, "build_pyramid", 1),
+               Recorder(WIN, "build_track_template", 1)]
     for w_ in wrappers:
         w_.launches = 0
     fs = FullSystem(calib, settings, device=dev)
@@ -663,6 +773,11 @@ def run(torch):
         if fs.is_lost or fs.init_failed:
             break
     counts = [w_.launches for w_ in wrappers]
+    for r in callers:
+        r.restore()
+    n_pyramids = callers[0].n_calls + callers[1].n_calls
+    n_templates = callers[2].n_calls
+    del callers
     if not fs.initialized or fs.is_lost or fs.init_failed:
         raise AssertionError(f"slice failed: initialized={fs.initialized} "
                              f"lost={fs.is_lost} init_failed={fs.init_failed}")
@@ -689,6 +804,14 @@ def run(torch):
     for (name, c) in zip(("K1", "K2", "K3", "K4"), counts):
         if c <= 0:
             raise AssertionError(f"{name} was not launched on the main path")
+    if counts[0] != n_pyramids or counts[1] != n_templates:
+        raise AssertionError(
+            f"K1 launched {counts[0]} times for {n_pyramids} pyramids, K2 "
+            f"{counts[1]} times for {n_templates} templates: a call is not "
+            "one launch")
+    log(f"[slice] {n_pyramids} pyramids built in {counts[0]} K1 launches, "
+        f"{n_templates} templates ({n_kf} keyframes) in {counts[1]} K2 "
+        "launches")
     for k, c in zip(kernels, counts):
         k["launches"] = c
     profile_frames(torch, fs, imgs, N_FRAMES, PROF_FRAMES)
@@ -702,6 +825,15 @@ def run(torch):
     if not n_ops < K3_WRAPPER_OPS_FIRST_DESIGN:
         raise AssertionError("K3's wrapper runs no fewer device ops than "
                              "the first design")
+    for tag, what, first in (
+            ("[K1]", "build_pyramid", K1_WRAPPER_OPS_FIRST_DESIGN),
+            ("[K2]", "build_track_template", K2_WRAPPER_OPS_FIRST_DESIGN)):
+        n_ops, _ = wrapper_stats[tag]
+        log(f"{tag} whole {what}: {n_ops:.1f} device ops a call; with one "
+            f"launch per level it ran {first}")
+        if not n_ops < first:
+            raise AssertionError(f"{what} runs no fewer device ops than "
+                                 "with one launch per level")
     log("kernels: " + ", ".join(f"K{i + 1}={c}" for i, c in enumerate(counts)))
     log(json.dumps({"kernels": kernels}))
     log(f"{card}")

@@ -2,9 +2,11 @@
 sos_slam_tpu/models/window.py).
 
 Fixed-shape slot allocation into padded pools replaces the reference's
-vectors of pointers. Kernel K2, `template_level`, replaces the TPU kernel
-sos_slam_tpu/ops/pallas_kernels.py:template_level (4 launches per
-keyframe); see csrc/template.cu.
+vectors of pointers. Kernel K2 replaces the TPU kernel
+sos_slam_tpu/ops/pallas_kernels.py:template_level, which the JAX package
+calls once per level. Here `template_levels` takes all levels of a keyframe
+in one launch (csrc/template.cu has the design); `template_level` is the
+counterpart of the JAX function and the one-level case of that kernel.
 """
 
 from __future__ import annotations
@@ -84,35 +86,80 @@ def template_level_plain(idm, wm, color, diag: bool):
     return idn, good
 
 
-_TMPL_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-              ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-              ctypes.c_void_p]
+def template_levels_plain(maps, colors, diags):
+    """Plain twin of K2: `template_level_plain` on every level."""
+    return [template_level_plain(idm, wm, color, diag)
+            for (idm, wm), color, diag in zip(maps, colors, diags)]
+
+
+K2_MAX_LEVELS = 6      # levels one launch of csrc/template.cu takes
+
+
+class TemplateTable(ctypes.Structure):
+    """`TemplateTable` of csrc/template.cu, passed by value."""
+    _fields_ = [(name, ctypes.c_void_p * K2_MAX_LEVELS)
+                for name in ("idm", "wm", "color", "idn", "good")] \
+        + [(name, ctypes.c_int * K2_MAX_LEVELS)
+           for name in ("h", "w", "diag", "color_stride", "first_block")]
+
+
+_TMPL_ARGS = [TemplateTable, ctypes.c_int, ctypes.c_void_p]
+
+
+def template_levels(maps, colors, diags):
+    """K2: the dilated, normalised idepth map and the good-pixel mask of
+    every template level. maps[l] is the (idm, wm) pair of level l,
+    colors[l] its (H_l, W_l) colour plane (contiguous, or the channel-0 view
+    of an interleaved (H_l, W_l, C) level: it is read in place), diags[l]
+    whether the level dilates over diagonal or cross neighbours. Returns
+    [(idn, good)] per level. On CPU tensors: the plain twin. On CUDA
+    tensors: one launch of csrc/template.cu for all levels (counted in
+    `template_levels.launches`); the idn maps are views of one allocation,
+    the masks of another (each view contiguous)."""
+    if not (0 < len(maps) <= K2_MAX_LEVELS
+            and len(maps) == len(colors) == len(diags)):
+        raise ValueError(f"template_levels takes 1..{K2_MAX_LEVELS} levels of "
+                         "maps, colours and neighbourhoods")
+    dev = maps[0][0].device
+    if dev.type == "cpu":
+        return template_levels_plain(maps, colors, diags)
+    if dev.type != "cuda":
+        raise ValueError(f"template_levels: unsupported device {dev}")
+    table = TemplateTable()
+    for lvl, ((idm, wm), color, diag) in enumerate(zip(maps, colors, diags)):
+        for t in (idm, wm):
+            if t.device != dev or t.dtype != torch.float32 or t.dim() != 2 \
+                    or t.shape != idm.shape or not t.is_contiguous():
+                raise ValueError("template_levels takes contiguous (H,W) "
+                                 "float32 maps on one device")
+        h, w = idm.shape
+        if color.device != dev or color.dtype != torch.float32 \
+                or color.shape != idm.shape or color.stride(1) < 1 \
+                or color.stride(0) != w * color.stride(1):
+            raise ValueError("template_levels takes an (H,W) float32 colour "
+                             "plane with one stride between all its pixels")
+        table.idm[lvl], table.wm[lvl] = idm.data_ptr(), wm.data_ptr()
+        table.color[lvl] = color.data_ptr()
+        table.h[lvl], table.w[lvl], table.diag[lvl] = h, w, int(diag)
+        table.color_stride[lvl] = color.stride(1)
+    shapes = [idm.shape for idm, _ in maps]
+    idns = CB.empty_views(shapes, torch.float32, dev)
+    goods = CB.empty_views(shapes, torch.bool, dev)
+    for lvl, (idn, good) in enumerate(zip(idns, goods)):
+        table.idn[lvl], table.good[lvl] = idn.data_ptr(), good.data_ptr()
+    fn = CB.function("template", "launch_template_levels", _TMPL_ARGS)
+    CB.check(fn(table, len(maps), CB.stream_ptr(dev)), "template_levels")
+    template_levels.launches += 1
+    return list(zip(idns, goods))
+
+
+template_levels.launches = 0
 
 
 def template_level(idm, wm, color, diag: bool):
-    """K2. On CPU tensors: the plain twin. On CUDA tensors: one launch of
-    csrc/template.cu (counted in `template_level.launches`)."""
-    if idm.device.type == "cpu":
-        return template_level_plain(idm, wm, color, diag)
-    if idm.device.type != "cuda":
-        raise ValueError(f"template_level: unsupported device {idm.device}")
-    for t in (idm, wm, color):
-        if t.device != idm.device or t.dtype != torch.float32 \
-                or t.shape != idm.shape or not t.is_contiguous() or t.dim() != 2:
-            raise ValueError("template_level takes three contiguous (H,W) "
-                             "float32 maps on one device")
-    h, w = idm.shape
-    idn = torch.empty_like(idm)
-    good = torch.empty((h, w), dtype=torch.bool, device=idm.device)
-    fn = CB.function("template", "launch_template_level", _TMPL_ARGS)
-    CB.check(fn(CB.ptr(idm), CB.ptr(wm), CB.ptr(color), h, w, int(diag),
-                CB.ptr(idn), CB.ptr(good), CB.stream_ptr(idm.device)),
-             "template_level")
-    template_level.launches += 1
-    return idn, good
-
-
-template_level.launches = 0
+    """One K2 level, the counterpart of the JAX package's template_level:
+    the one-level case of `template_levels`."""
+    return template_levels([(idm, wm)], [color], [diag])[0]
 
 
 def template_maps(ba: B.BAState, HdiF: torch.Tensor, n_levels: int,
@@ -161,21 +208,25 @@ def template_maps(ba: B.BAState, HdiF: torch.Tensor, n_levels: int,
 def build_track_template(ba: B.BAState, HdiF: torch.Tensor, pyr_ref,
                          n_levels: int, sizes: Tuple[int, ...], w: int, h: int):
     """makeCoarseDepthL0 (reference CoarseTracker.cpp:56-230): scattered
-    maps, one K2 dilation+normalisation per level, then fixed-size per-level
-    point lists. Also returns the level-0 (u, v, idepth, ok) cloud."""
+    maps, one K2 call for the dilation+normalisation of all levels (diagonal
+    neighbours on levels 0-1, cross on coarser ones), then fixed-size
+    per-level point lists. Also returns the level-0 (u, v, idepth, ok)
+    cloud."""
+    maps = template_maps(ba, HdiF, n_levels, w, h)
+    dilated = template_levels(maps, [pyr_ref[lvl][..., 0]
+                                     for lvl in range(n_levels)],
+                              [lvl < 2 for lvl in range(n_levels)])
     templates = []
     pc_l0 = None
-    for lvl, (idm, wm) in enumerate(template_maps(ba, HdiF, n_levels, w, h)):
-        color = pyr_ref[lvl][..., 0].contiguous()
-        hl, wl = idm.shape
-        idn, good = template_level(idm, wm, color, diag=(lvl < 2))
+    for lvl, (idn, good) in enumerate(dilated):
+        wl = idn.shape[1]
         idx, sel_ok = selector.compact_mask_indices(good.reshape(-1),
                                                     sizes[lvl])
         u_t = (idx % wl).to(torch.float32)
         v_t = (idx // wl).to(torch.float32)
         tid = idn.reshape(-1)[idx]
-        templates.append(LevelTemplate(u=u_t, v=v_t, idepth=tid,
-                                       color=color.reshape(-1)[idx],
+        color = pyr_ref[lvl].reshape(-1, pyr_ref[lvl].shape[-1])[idx, 0]
+        templates.append(LevelTemplate(u=u_t, v=v_t, idepth=tid, color=color,
                                        valid=sel_ok))
         if lvl == 0:
             pc_l0 = (u_t, v_t, tid, sel_ok)

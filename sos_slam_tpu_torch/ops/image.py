@@ -11,9 +11,11 @@ Parity with the reference's makeImages (HessianBlocks.cpp:121-176):
 Each level is an (H, W, 3) tensor [intensity, dx, dy]; a pyramid is a
 tuple of levels.
 
-Kernel K1, `pyramid_level`, replaces the TPU kernel
-sos_slam_tpu/ops/pallas_kernels.py:fused_pyramid_level (4 launches per
-frame at 640x480). See csrc/pyramid.cu for its design.
+Kernel K1 replaces the TPU kernel
+sos_slam_tpu/ops/pallas_kernels.py:fused_pyramid_level, which the JAX
+package calls once per level. Here `pyramid_levels` forms all levels of a
+frame in one launch (csrc/pyramid.cu has the design); `pyramid_level` is
+the counterpart of the JAX function and the one-level case of that kernel.
 """
 
 from __future__ import annotations
@@ -42,54 +44,124 @@ def image_gradients(img: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return dx, dy
 
 
-def pyramid_level_plain(img: torch.Tensor):
-    """Plain twin of K1: (H,W) level -> ((H,W,3) [I,dx,dy], (H,W) |grad|^2,
-    (H/2,W/2) box-downsampled next level)."""
+def pyramid_level_plain(img: torch.Tensor, down: bool = True):
+    """Plain twin of one K1 level: (H,W) level -> ((H,W,3) [I,dx,dy], (H,W)
+    |grad|^2, (H/2,W/2) box-downsampled next level, or None for
+    `down=False`)."""
     dx, dy = image_gradients(img)
     return (torch.stack([img, dx, dy], -1), dx * dx + dy * dy,
-            downsample2x(img))
+            downsample2x(img) if down else None)
 
 
-_PYR_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+def pyramid_levels_plain(img: torch.Tensor, n_levels: int):
+    """Plain twin of K1: `pyramid_level_plain` chained over n_levels.
+    Returns (levels, abs_sq_grads)."""
+    levels, absgrads = [], []
+    cur = img
+    for lvl in range(n_levels):
+        dI, asg, cur = pyramid_level_plain(cur, down=lvl + 1 < n_levels)
+        levels.append(dI)
+        absgrads.append(asg)
+    return tuple(levels), tuple(absgrads)
+
+
+K1_MAX_LEVELS = 4      # levels one launch of csrc/pyramid.cu forms
+
+
+class PyramidOut(ctypes.Structure):
+    """`PyramidOut` of csrc/pyramid.cu, passed by value."""
+    _fields_ = [("dI", ctypes.c_void_p * K1_MAX_LEVELS),
+                ("asg", ctypes.c_void_p * K1_MAX_LEVELS)]
+
+
+_PYR_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             PyramidOut, ctypes.c_void_p, ctypes.c_void_p]
+
+
+def _check_pyramid(img: torch.Tensor, what: str, halvings: int,
+                   n_levels: int):
+    """Raise unless img is a contiguous (H,W) float32 map on the CPU or a
+    CUDA device whose sides halve `halvings` times without remainder and
+    whose last of n_levels levels keeps 4 pixels a side."""
+    if img.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {img.device}")
+    if img.dtype != torch.float32 or img.dim() != 2 or not img.is_contiguous():
+        raise ValueError(f"{what} takes a contiguous (H,W) float32 map")
+    h, w = img.shape
+    if n_levels < 1:
+        raise ValueError(f"a pyramid needs at least 1 level, got {n_levels}")
+    if h % (1 << halvings) or w % (1 << halvings):
+        raise ValueError(f"pyramid dims must be divisible by 2^{halvings}, "
+                         f"got {h}x{w}")
+    if min(h, w) >> (n_levels - 1) < 4:
+        raise ValueError(f"level {n_levels - 1} of {h}x{w} is under 4 pixels "
+                         "a side")
+
+
+def _launch_pyramid(img: torch.Tensor, n_levels: int, want_down: bool):
+    """One launch of csrc/pyramid.cu on a CUDA (H,W) float32 map: n_levels
+    <= K1_MAX_LEVELS levels and, for want_down, the next level's input.
+    The levels' [I,dx,dy] maps are views of one allocation, the |grad|^2
+    maps of another (each view contiguous)."""
+    h, w = img.shape
+    dims = [(h >> lvl, w >> lvl) for lvl in range(n_levels)]
+    levels = CB.empty_views([(hl, wl, 3) for hl, wl in dims], torch.float32,
+                            img.device)
+    absgrads = CB.empty_views(dims, torch.float32, img.device)
+    down = torch.empty((h >> n_levels, w >> n_levels), dtype=torch.float32,
+                       device=img.device) if want_down else None
+    out = PyramidOut()
+    for lvl in range(n_levels):
+        out.dI[lvl] = levels[lvl].data_ptr()
+        out.asg[lvl] = absgrads[lvl].data_ptr()
+    fn = CB.function("pyramid", "launch_pyramid", _PYR_ARGS)
+    CB.check(fn(CB.ptr(img), h, w, n_levels, out,
+                CB.ptr(down) if want_down else None,
+                CB.stream_ptr(img.device)), "pyramid_levels")
+    pyramid_levels.launches += 1
+    return levels, absgrads, down
+
+
+def pyramid_levels(img: torch.Tensor, n_levels: int):
+    """K1: all n_levels levels of one frame. Returns (levels, abs_sq_grads)
+    as `build_pyramid` does. On a CPU tensor: the plain twin. On a CUDA
+    tensor: one launch of csrc/pyramid.cu for up to 4 levels (one more for
+    every further 4), counted in `pyramid_levels.launches`. H and W must be
+    divisible by 2^(n_levels-1) and the last level at least 4 pixels a
+    side."""
+    _check_pyramid(img, "pyramid_levels", n_levels - 1, n_levels)
+    if img.device.type == "cpu":
+        return pyramid_levels_plain(img, n_levels)
+    levels, absgrads = [], []
+    cur = img
+    while len(levels) < n_levels:
+        n = min(K1_MAX_LEVELS, n_levels - len(levels))
+        lv, ag, cur = _launch_pyramid(cur, n, len(levels) + n < n_levels)
+        levels += lv
+        absgrads += ag
+    return tuple(levels), tuple(absgrads)
+
+
+pyramid_levels.launches = 0
 
 
 def pyramid_level(img: torch.Tensor):
-    """K1. On a CPU tensor: the plain twin. On a CUDA tensor: one launch of
-    csrc/pyramid.cu (counted in `pyramid_level.launches`)."""
+    """One K1 level, the counterpart of the JAX package's
+    fused_pyramid_level: (H,W) -> ((H,W,3) [I,dx,dy], (H,W) |grad|^2,
+    (H/2,W/2) next level). On a CPU tensor: the plain twin. On a CUDA
+    tensor: the one-level case of the `pyramid_levels` kernel with the next
+    level asked for (one launch, counted in `pyramid_levels.launches`)."""
+    _check_pyramid(img, "pyramid_level", 1, 1)
     if img.device.type == "cpu":
         return pyramid_level_plain(img)
-    if img.device.type != "cuda":
-        raise ValueError(f"pyramid_level: unsupported device {img.device}")
-    if img.dtype != torch.float32 or img.dim() != 2 or not img.is_contiguous():
-        raise ValueError("pyramid_level takes a contiguous (H,W) float32 map")
-    h, w = img.shape
-    if h % 2 or w % 2 or h < 3 or w < 3:
-        raise ValueError(f"pyramid_level needs even dims >= 4, got {h}x{w}")
-    dI = torch.empty((h, w, 3), dtype=torch.float32, device=img.device)
-    asg = torch.empty((h, w), dtype=torch.float32, device=img.device)
-    down = torch.empty((h // 2, w // 2), dtype=torch.float32,
-                       device=img.device)
-    fn = CB.function("pyramid", "launch_pyramid_level", _PYR_ARGS)
-    CB.check(fn(CB.ptr(img), h, w, CB.ptr(dI), CB.ptr(asg), CB.ptr(down),
-                CB.stream_ptr(img.device)), "pyramid_level")
-    pyramid_level.launches += 1
+    (dI,), (asg,), down = _launch_pyramid(img, 1, True)
     return dI, asg, down
-
-
-pyramid_level.launches = 0
 
 
 def build_pyramid(image: torch.Tensor, n_levels: int):
     """(levels, abs_sq_grads): levels[l] is (H_l, W_l, 3) [I, dx, dy];
-    abs_sq_grads[l] is (H_l, W_l). One K1 launch per level."""
-    levels, absgrads = [], []
-    cur = image.to(torch.float32).contiguous()
-    for _ in range(n_levels):
-        dI, asg, cur = pyramid_level(cur)
-        levels.append(dI)
-        absgrads.append(asg)
-    return tuple(levels), tuple(absgrads)
+    abs_sq_grads[l] is (H_l, W_l). One K1 call."""
+    return pyramid_levels(image.to(torch.float32).contiguous(), n_levels)
 
 
 def _corners(u, v, h, w):

@@ -108,6 +108,21 @@ def stream_ptr(device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
+def empty_views(shapes, dtype, device):
+    """One uninitialised allocation cut into contiguous views, one per
+    shape, each starting on a multiple of 4 elements (16 bytes of float32):
+    the outputs of one kind of a kernel that writes several, each fit for
+    16-byte stores."""
+    import torch
+    sizes = [torch.Size(s).numel() for s in shapes]
+    starts = [0]
+    for n in sizes:
+        starts.append(starts[-1] + -(-n // 4) * 4)
+    flat = torch.empty(starts[-1], dtype=dtype, device=device)
+    return [flat[at:at + n].view(shape)
+            for at, n, shape in zip(starts, sizes, shapes)]
+
+
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {err}")

@@ -22,6 +22,11 @@ def _dev():
     return torch.device("cuda")
 
 
+def _same_bits(a, b):
+    return torch.equal(a.contiguous().view(torch.uint8),
+                       b.contiguous().view(torch.uint8))
+
+
 def test_k1_pyramid_level():
     from sos_slam_tpu_torch.ops import image as IMG
     dev = _dev()
@@ -30,21 +35,138 @@ def test_k1_pyramid_level():
         close(k, p)
 
 
+def _chained_levels(IMG, img, n_levels):
+    """n_levels one-level launches chained through `down` (the last level
+    may have odd sides, so it is taken without a next one)."""
+    levels, absgrads, cur = [], [], img
+    for _ in range(n_levels - 1):
+        dI, asg, cur = IMG.pyramid_level(cur)
+        levels.append(dI)
+        absgrads.append(asg)
+    (dI,), (asg,) = IMG.pyramid_levels(cur, 1)
+    return levels + [dI], absgrads + [asg]
+
+
+# 640x480 is the main path's frame; 328x248 fills no whole number of tiles
+# and its coarse levels' rows start off 16 bytes; 6 levels take two launches
+@pytest.mark.parametrize("hw,n_levels", [
+    ((480, 640), 4), ((480, 640), 3), ((480, 640), 1), ((248, 328), 4),
+    ((248, 328), 3), ((248, 328), 1), ((40, 72), 4), ((512, 640), 6)])
+def test_k1_pyramid_levels(hw, n_levels):
+    """One launch for all levels: against the plain twin, bit for bit
+    against one launch per level, and a second launch repeats every bit."""
+    from sos_slam_tpu_torch.ops import image as IMG
+    dev = _dev()
+    g = torch.Generator(device="cpu").manual_seed(hw[0] + n_levels)
+    img = (torch.rand(*hw, generator=g) * 255).to(dev)
+    before = IMG.pyramid_levels.launches
+    lv, ag = IMG.pyramid_levels(img, n_levels)
+    assert IMG.pyramid_levels.launches - before == -(-n_levels // 4)
+    assert len(lv) == len(ag) == n_levels
+    plv, pag = IMG.pyramid_levels_plain(img, n_levels)
+    for k, p in zip(lv + ag, plv + pag):
+        assert k.shape == p.shape and k.is_contiguous()
+        close(k, p)
+    clv, cag = _chained_levels(IMG, img, n_levels)
+    for k, c in zip(lv + ag, tuple(clv + cag)):
+        assert _same_bits(k, c)
+    lv2, ag2 = IMG.pyramid_levels(img, n_levels)
+    for k, c in zip(lv + ag, lv2 + ag2):
+        assert _same_bits(k, c)
+
+
+def test_k1_rejects_what_the_kernel_does_not_take():
+    from sos_slam_tpu_torch.ops import image as IMG
+    dev = _dev()
+    img = torch.rand(480, 640, device=dev)
+    with pytest.raises(ValueError):
+        IMG.pyramid_levels(img[:, ::2], 2)
+    with pytest.raises(ValueError):
+        IMG.pyramid_levels(img[:60, :80].contiguous(), 4)
+    with pytest.raises(ValueError):
+        IMG.pyramid_levels(img.double(), 2)
+
+
+def _template_inputs(dims, dev, seed=0, interleaved=True):
+    """Sparse idepth/weight maps per level and the colour planes, as
+    channel-0 views of interleaved (H,W,3) levels with a NaN among them."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    maps, colors = [], []
+    for h, w in dims:
+        occ = torch.rand(h, w, generator=g) < 0.05
+        wm = torch.where(occ, torch.rand(h, w, generator=g) + 0.1,
+                         torch.zeros(h, w)).to(dev)
+        idm = torch.where(occ, torch.rand(h, w, generator=g) * 2,
+                          torch.zeros(h, w)).to(dev)
+        level = (torch.rand(h, w, 3, generator=g) * 255)
+        level[3:h - 3:5, 3:w - 3:4, 0] = float("nan")
+        maps.append((idm, wm))
+        colors.append(level.to(dev)[..., 0] if interleaved
+                      else level[..., 0].contiguous().to(dev))
+    return maps, colors
+
+
 def test_k2_template_level():
     from sos_slam_tpu_torch.models import window as WIN
     dev = _dev()
-    g = torch.Generator(device="cpu").manual_seed(0)
-    occ = torch.rand(60, 80, generator=g) < 0.05
-    wm = torch.where(occ, torch.rand(60, 80, generator=g) + 0.1,
-                     torch.zeros(60, 80)).to(dev)
-    idm = torch.where(occ, torch.rand(60, 80, generator=g) * 2,
-                      torch.zeros(60, 80)).to(dev)
-    color = (torch.rand(60, 80, generator=g) * 255).to(dev)
+    (maps,), (color,) = (x[:1] for x in _template_inputs(
+        [(60, 80)], dev, interleaved=False))
+    idm, wm = maps
     for diag in (False, True):
         ki, kg = WIN.template_level(idm, wm, color, diag)
         pi, pg = WIN.template_level_plain(idm, wm, color, diag)
         exact(kg, pg)
         close(ki, pi)
+
+
+# the main path's four levels; a size whose coarse widths are no multiples
+# of 4 (41, and 82 whose rows still start on 8 bytes); six levels
+@pytest.mark.parametrize("dims", [
+    [(480, 640), (240, 320), (120, 160), (60, 80)],
+    [(248, 328), (124, 164), (62, 82), (31, 41)],
+    [(512, 640), (256, 320), (128, 160), (64, 80), (32, 40), (16, 20)],
+    [(9, 7)]])
+def test_k2_template_levels(dims):
+    """One launch for all levels, the colour read in place at stride 3:
+    idn and good exactly the plain twin's, bit for bit one launch per
+    level's, and a second launch repeats every bit."""
+    from sos_slam_tpu_torch.models import window as WIN
+    dev = _dev()
+    maps, colors = _template_inputs(dims, dev, seed=len(dims))
+    for diags in ([lvl < 2 for lvl in range(len(dims))],
+                  [lvl >= 2 for lvl in range(len(dims))]):
+        before = WIN.template_levels.launches
+        out = WIN.template_levels(maps, colors, diags)
+        assert WIN.template_levels.launches - before == 1
+        plain = WIN.template_levels_plain(maps, colors, diags)
+        again = WIN.template_levels(maps, colors, diags)
+        for lvl, ((ki, kg), (pi, pg), (ai, ag)) in enumerate(
+                zip(out, plain, again)):
+            assert ki.is_contiguous() and kg.is_contiguous()
+            assert kg.dtype == torch.bool
+            exact(kg, pg)
+            exact(ki, pi)
+            oi, og = WIN.template_level(*maps[lvl], colors[lvl].contiguous(),
+                                        diags[lvl])
+            assert _same_bits(ki, oi) and _same_bits(kg, og)
+            assert _same_bits(ki, ai) and _same_bits(kg, ag)
+        assert int(out[0][1].sum()) > 0 or dims[0][0] < 10
+
+
+def test_k2_rejects_what_the_kernel_does_not_take():
+    from sos_slam_tpu_torch.models import window as WIN
+    dev = _dev()
+    (maps,), (color,) = _template_inputs([(60, 80)], dev)
+    idm, wm = maps
+    with pytest.raises(ValueError):
+        WIN.template_levels([(idm, wm.double())], [color], [True])
+    with pytest.raises(ValueError):
+        WIN.template_levels([(idm, wm)], [color.t()], [True])
+    with pytest.raises(ValueError):
+        WIN.template_levels([(idm, wm)], [color[:, :40]], [True])
+    with pytest.raises(ValueError):     # rows further apart than w pixels
+        WIN.template_levels([(idm, wm)],
+                            [torch.rand(60, 100, device=dev)[:, :80]], [True])
 
 
 def test_k3_fused_iteration():
@@ -116,11 +238,6 @@ def _window(P, F, dev, seed=3, **override):
     fields.update(override)
     ba = convert.from_numpy(B.BAState, fields, dev)
     return ba, B.make_precalc(ba), torch.as_tensor(dI, device=dev)
-
-
-def _same_bits(a, b):
-    return torch.equal(a.contiguous().view(torch.uint8),
-                       b.contiguous().view(torch.uint8))
 
 
 def _k3_against_plain(ba, pre, dI, **kw):

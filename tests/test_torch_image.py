@@ -1,9 +1,9 @@
 """K1 and the bilinear samplers of the port against the JAX package.
 
 K1's plain twin is held against the TPU kernel in interpret mode
-(pallas_kernels.fused_pyramid_level) and against build_pyramid; the
-samplers (including the BiLin forward-difference gradients) against
-sos_slam_tpu.ops.image."""
+(pallas_kernels.fused_pyramid_level; all levels of a frame against
+build_pyramid_pallas) and against build_pyramid; the samplers (including
+the BiLin forward-difference gradients) against sos_slam_tpu.ops.image."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -43,6 +43,45 @@ def test_build_pyramid_matches():
         close(a, b)
     for a, b in zip(ag_j, ag_t):
         close(a, b)
+
+
+@pytest.mark.parametrize("n_levels", [1, 3, 4])
+def test_pyramid_levels_matches_pallas_interpret(n_levels):
+    """All levels in one call against the TPU kernel chained over the
+    levels (interpret mode) and against the JAX package's XLA form."""
+    img = _img(11 + n_levels, 96, 128)
+    lv_t, ag_t = TI.pyramid_levels(t(img), n_levels)
+    assert len(lv_t) == len(ag_t) == n_levels
+    for ref in (PK.build_pyramid_pallas(jnp.asarray(img), n_levels,
+                                        interpret=True),
+                JI.build_pyramid(jnp.asarray(img), n_levels)):
+        for lvl, (a, b) in enumerate(zip(ref[0], lv_t)):
+            assert b.shape == (96 >> lvl, 128 >> lvl, 3)
+            close(a, b)
+        for a, b in zip(ref[1], ag_t):
+            close(a, b)
+    # build_pyramid is that call
+    for a, b in zip(TI.build_pyramid(t(img), n_levels)[0], lv_t):
+        exact(a, b)
+
+
+@pytest.mark.parametrize("hw,n_levels", [((60, 80), 4), ((64, 100), 4),
+                                         ((24, 64), 4), ((48, 64), 0),
+                                         ((3, 64), 1)])
+def test_pyramid_levels_rejects_bad_dims(hw, n_levels):
+    """Dims that do not halve n_levels-1 times, a last level under 4
+    pixels a side, no level at all."""
+    with pytest.raises(ValueError):
+        TI.pyramid_levels(t(_img(1, *hw)), n_levels)
+    with pytest.raises(ValueError):
+        TI.build_pyramid(t(_img(1, *hw)), n_levels)
+
+
+def test_pyramid_level_rejects_odd_dims():
+    with pytest.raises(ValueError):
+        TI.pyramid_level(t(_img(1, 63, 64)))
+    with pytest.raises(ValueError):
+        TI.pyramid_levels(t(_img(1, 64, 64)).double(), 2)
 
 
 def _coords(seed, n, w, h, shape):

@@ -19,13 +19,18 @@ from sos_slam_tpu_torch.utils import convert, cuda_build, synthetic
 
 # every extern "C" entry point of csrc/ and the argtypes its wrapper sets
 ARGTYPES = {
-    "launch_pyramid_level": IMG._PYR_ARGS,
-    "launch_template_level": WIN._TMPL_ARGS,
+    "launch_pyramid": IMG._PYR_ARGS,
+    "launch_template_levels": WIN._TMPL_ARGS,
     "launch_ba_fused": BP._BA_ARGS,
     "ba_fused_part_floats": BP._BA_PART_ARGS,
     "launch_act_pass": BP._ACT_ARGS,
 }
+# the tables a launcher takes by value and their ctypes mirrors
+STRUCTS = {"PyramidOut": IMG.PyramidOut, "TemplateTable": WIN.TemplateTable}
 _EXTERN = re.compile(r'extern\s+"C"\s+int\s+(\w+)\s*\(([^)]*)\)', re.S)
+_STRUCT = re.compile(r"^struct\s+(\w+)\s*\{(.*?)^\};", re.S | re.M)
+_FIELD = re.compile(r"^(.*?)(\w+)\[(\w+)\]$")
+_DEFINE = re.compile(r"^#define\s+(\w+)\s+(\d+)\s*$", re.M)
 
 
 def _c_functions():
@@ -37,11 +42,36 @@ def _c_functions():
     return out
 
 
+def _c_structs():
+    """{struct name: [(field name, 'pointer' or C type, array length)]} of
+    the array-of-levels tables in csrc/ (every field is `type name[N];`)."""
+    out = {}
+    for name in cuda_build.SOURCES:
+        src = (cuda_build.SRC_DIR / f"{name}.cu").read_text()
+        consts = {k: int(v) for k, v in _DEFINE.findall(src)}
+        for struct, body in _STRUCT.findall(src):
+            if struct not in STRUCTS:
+                continue
+            fields = []
+            for decl in re.sub(r"//[^\n]*", "", body).split(";"):
+                decl = " ".join(decl.split())
+                if not decl:
+                    continue
+                ctype, field, n = _FIELD.match(decl).groups()
+                fields.append((field, "pointer" if "*" in ctype
+                               else ctype.strip(), consts[n]))
+            out[struct] = fields
+    return out
+
+
+_SCALARS = {"int": ctypes.c_int, "float": ctypes.c_float}
+
+
 def _ctype_of(param: str):
     if "*" in param:
         return ctypes.c_void_p
     base = param.split()[-2] if len(param.split()) > 1 else param
-    return {"int": ctypes.c_int, "float": ctypes.c_float}[base]
+    return STRUCTS[base] if base in STRUCTS else _SCALARS[base]
 
 
 def test_every_entry_point_has_argtypes():
@@ -54,6 +84,41 @@ def test_argtypes_match_c_signature(fn):
     assert len(ARGTYPES[fn]) == len(params)
     for i, (got, param) in enumerate(zip(ARGTYPES[fn], params)):
         assert got is _ctype_of(param), f"{fn} argument {i}: {param}"
+
+
+@pytest.mark.parametrize("struct", sorted(STRUCTS))
+def test_by_value_table_matches_c_struct(struct):
+    """Field order, kind and array length of a table passed by value: a
+    mismatch shifts every later field and shows only on the card."""
+    c_fields = _c_structs()[struct]
+    py_fields = STRUCTS[struct]._fields_
+    assert [f for f, _, _ in c_fields] == [f for f, _ in py_fields]
+    for (field, kind, n), (_, got) in zip(c_fields, py_fields):
+        want = ctypes.c_void_p if kind == "pointer" else _SCALARS[kind]
+        assert got._type_ is want and got._length_ == n, f"{struct}.{field}"
+    assert ctypes.sizeof(STRUCTS[struct]) == sum(
+        n * ctypes.sizeof(ctypes.c_void_p if kind == "pointer"
+                          else _SCALARS[kind]) for _, kind, n in c_fields)
+
+
+def test_by_value_tables_hold_the_port_s_levels():
+    from sos_slam_tpu_torch.utils.config import PYR_LEVELS
+    assert WIN.K2_MAX_LEVELS >= PYR_LEVELS
+    assert IMG.PyramidOut.dI.size == IMG.K1_MAX_LEVELS * ctypes.sizeof(
+        ctypes.c_void_p)
+
+
+def test_empty_views_are_contiguous_and_16_byte_aligned():
+    shapes = [(31, 41, 3), (15, 20, 3), (7, 10, 3), (3, 5)]
+    views = cuda_build.empty_views(shapes, torch.float32, "cpu")
+    base = views[0].data_ptr()
+    for v, shape in zip(views, shapes):
+        assert v.shape == shape and v.is_contiguous()
+        assert (v.data_ptr() - base) % 16 == 0
+    for a, b in zip(views, views[1:]):
+        assert a.data_ptr() + a.numel() * 4 <= b.data_ptr()
+    masks = cuda_build.empty_views([(31, 41), (15, 20)], torch.bool, "cpu")
+    assert (masks[1].data_ptr() - masks[0].data_ptr()) % 4 == 0
 
 
 def _window(P=100, F=5):

@@ -2,12 +2,14 @@
 
 K2's plain twin against the TPU kernel in interpret mode
 (pallas_kernels.template_level) on every in-border pixel (the only pixels
-the template extraction can pick); build_track_template against the JAX
-form (identical extracted templates); the slot bookkeeping exactly."""
+the template extraction can pick), one level and all levels of a keyframe
+in one call; build_track_template against the JAX form (identical
+extracted templates); the slot bookkeeping exactly."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from sos_slam_tpu.models import window as JW
 from sos_slam_tpu.ops import pallas_kernels as PK
@@ -41,6 +43,47 @@ def test_k2_plain_matches_pallas_interpret(diag, hw):
     inb = np.zeros((h, w), bool)
     inb[2:h - 2, 2:w - 2] = True
     close(np.asarray(idn_j)[inb], idn_t.numpy()[inb])
+
+
+def test_template_levels_matches_pallas_interpret():
+    """All levels of a keyframe in one call, the colour read in place from
+    interleaved [I, dx, dy] levels (a NaN among it), against one TPU-kernel
+    call per level (interpret mode)."""
+    dims = [(96, 128), (48, 64), (24, 32), (12, 16)]
+    diags = [lvl < 2 for lvl in range(4)]
+    maps, colors, ref = [], [], []
+    for lvl, (h, w) in enumerate(dims):
+        idm, wm, color = _maps(20 + lvl, h, w, frac=0.08)
+        level = np.random.RandomState(lvl).rand(h, w, 3).astype(np.float32)
+        level[..., 0] = color
+        maps.append((t(idm), t(wm)))
+        colors.append(t(level)[..., 0])
+        assert not colors[-1].is_contiguous()
+        ref.append(PK.template_level(jnp.asarray(idm), jnp.asarray(wm),
+                                     jnp.asarray(color), diag=diags[lvl],
+                                     interpret=True))
+    out = TW.template_levels(maps, colors, diags)
+    assert len(out) == 4
+    for (h, w), (idn_j, good_j), (idn_t, good_t) in zip(dims, ref, out):
+        assert idn_t.shape == (h, w) and good_t.dtype == torch.bool
+        exact(good_j, good_t)
+        assert not bool(good_t[3, 5]) and int(good_t.sum()) > 0
+        close(np.asarray(idn_j)[2:h - 2, 2:w - 2],
+              idn_t.numpy()[2:h - 2, 2:w - 2])
+    # one level through the whole-call entry is the one-level entry
+    one = TW.template_level(*maps[2], colors[2], diags[2])
+    exact(one[0], out[2][0])
+    exact(one[1], out[2][1])
+
+
+def test_template_levels_rejects_mismatched_levels():
+    idm, wm, color = (t(x) for x in _maps(1, 12, 16))
+    with pytest.raises(ValueError):
+        TW.template_levels([(idm, wm)], [color], [True, False])
+    with pytest.raises(ValueError):
+        TW.template_levels([], [], [])
+    with pytest.raises(ValueError):
+        TW.template_levels([(idm, wm)] * 7, [color] * 7, [True] * 7)
 
 
 @pytest.fixture(scope="module")
