@@ -28,8 +28,22 @@ In order, failing (exit code != 0, no result line) at the first fault:
      launched once per pyramid built and K2 once per template built;
   5. the breakdown: 8 more frames through the same FullSystem under
      torch.profiler (the card's busy share and its top device ops);
-  6. kernel times on the inputs of step 3 (after the slice, so that the
-     profiler cannot slow the slice), three measures of each kernel: one
+  6. the flagship scene (bench.py's _bench_full_config: stereo + spline
+     VIO, 640x480, 44 frames at 10 Hz on a bounded sinusoidal trajectory,
+     200 Hz IMU, right camera at a 0.11 m baseline,
+     default_settings(weight_imu_dso=6, scale_opt_thres=12, min_g_imu=10))
+     through the port's FullSystem, every launch counter from 0: gated on
+     initialized, not lost, the IMU initialized, the stereo scale trapped,
+     the fused VIO chain run, the scaled trajectory's metric ATE (no
+     alignment) <= 0.15 * path + 0.03, K1-K4 each launched, K1 once per
+     pyramid built (left and right) and K2 once per template; it prints
+     the keyframe count, ATE, scale, steady fps over frames 30-43 (as
+     bench.py measures it) and the keyframe median; then K3 on a VIO GN
+     step and a VIO point marginalization, K4 on an activation pass and K1
+     on a right image of this run against their plain twins, and 4 more
+     frames under torch.profiler;
+  7. kernel times on the inputs of step 3 (after the slices, so that the
+     profiler cannot slow them), three measures of each kernel: one
      pair of CUDA events around 200 back-to-back launches queued behind a
      sleeping kernel (device time a launch with the queue full, no
      profiler; three times, SM and memory clocks before and after: the
@@ -41,8 +55,10 @@ In order, failing (exit code != 0, no result line) at the first fault:
      K3: two), and for the whole wrappers (build_pyramid,
      build_track_template, fused_iteration, act_pass) the device ops a
      call and the host-device copies among them (K3: none allowed);
-     then the launch counts and the kernels line (one JSON object);
-  7. last line: {"ok": true, "device": {...}}.
+     then the launch counts of both scenes and the kernels line (one JSON
+     object; `launches` counts the mono slice, `launches_flagship` the
+     flagship scene);
+  8. last line: {"ok": true, "device": {...}}.
 
 Needs one card; exits with code 2 when CUDA is unavailable or the port is
 not importable beside this script.
@@ -63,6 +79,7 @@ H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12          # fp32 without tensor cores, data sheet
 W, H, N_FRAMES, WARMUP = 640, 480, 48, 26
 PROF_FRAMES = 8   # frames after the slice run under the profiler
+FLAG_PROF_FRAMES = 4   # the same after the flagship scene
 TWIST = (0.03, 0.012, 0.02, 0.002, 0.004, 0.001)
 TOL = 2e-4
 REPS = 30
@@ -79,10 +96,23 @@ K2_WRAPPER_OPS_FIRST_DESIGN = 427
 RAGGED_HW = (248, 328)   # divisible by 8, fills no whole number of K1 tiles
 JAX_REFERENCE = "JAX package on the same scene: 22 keyframes, ATE 0.0103 m " \
                 "over 1.786 m (BENCH_r05.json, not asserted)"
+# the flagship scene (bench.py's _bench_full_config): stereo + spline VIO
+# on the bounded sinusoidal trajectory, 10 Hz frames, 200 Hz IMU
+FLAG_FRAMES, FLAG_WARMUP, FLAG_DT = 44, 30, 0.1
+JAX_FLAGSHIP = "JAX package on the same scene: 11 keyframes in 44 frames " \
+               "(BENCH_r05.json, a TPU v5e run; history, not asserted)"
 
 
 def log(msg):
     print(msg, flush=True)
+
+
+T_START = time.perf_counter()
+
+
+def phase_done(name):
+    log(f"[time] {name} done {time.perf_counter() - T_START:.1f} s into the "
+        "run")
 
 
 def nvidia_smi() -> str:
@@ -104,6 +134,7 @@ class Recorder:
         self.orig = getattr(module, name)
         self.calls = collections.deque(maxlen=keep)
         self.last_of = {}
+        self.n_of = collections.Counter()
         self.n_calls = 0
         setattr(module, name, self)
 
@@ -118,7 +149,9 @@ class Recorder:
     def __call__(self, *args, **kw):
         self.calls.append((args, kw))
         self.n_calls += 1
-        self.last_of[self.kind(args, kw)] = (args, kw)
+        kind = self.kind(args, kw)
+        self.last_of[kind] = (args, kw)
+        self.n_of[kind] += 1
         return self.orig(*args, **kw)
 
     def restore(self):
@@ -303,6 +336,23 @@ def k3_kind(args, kw):
     return "rz" if bool(kw["pmask"].any()) else "rz-empty"
 
 
+def k3_caller(args, kw):
+    """What a K3 call serves on the flagship path: the function that called
+    K3's caller (gn_step_vio, optimize_vio, marginalize_points_vio, ...),
+    marked "-empty" for a point marginalization without points."""
+    name = sys._getframe(3).f_code.co_name
+    if kw.get("use_rz", False) and not bool(kw["pmask"].any()):
+        return name + "-empty"
+    return name
+
+
+def pyramid_side(args, kw):
+    """"right" for the stereo scale solve's pyramid of the right image,
+    "left" for every other pyramid FullSystem builds."""
+    return "right" if sys._getframe(2).f_code.co_name == "_scale_solve" \
+        else "left"
+
+
 def k3_bytes(P, F, D):
     """Bytes K3 must move at P points, F frames (each input read once, each
     output written once; the projection and tap gather are not K3's):
@@ -397,12 +447,12 @@ def time_kernels(torch, kernels, timings):
     return wrappers
 
 
-def profile_frames(torch, fs, imgs, first, n):
-    """Where a frame's time goes: n more frames of the scene through the
-    same FullSystem under torch.profiler. Logs the wall and device time per
-    frame, the card's busy share, its launches per frame and the device
-    ops that take the most time. The profiler slows the host, so the busy
-    share is a lower bound."""
+def profile_frames(torch, fs, feed, first, n, tag="profile"):
+    """Where a frame's time goes: n more frames of the scene (`feed(i)`
+    hands frame i to the same FullSystem) under torch.profiler. Logs the
+    wall and device time per frame, the card's busy share, its launches
+    per frame and the device ops that take the most time. The profiler
+    slows the host, so the busy share is a lower bound."""
     from torch.profiler import ProfilerActivity, profile
     n_kf = fs.stats["n_kf"]
     torch.cuda.synchronize()
@@ -410,17 +460,17 @@ def profile_frames(torch, fs, imgs, first, n):
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i in range(first, first + n):
-            fs.add_active_frame(imgs[i], timestamp=i * 0.05, frame_id=i)
+            feed(i)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / n
     ev = device_events(prof)
     dev_ms = sum(e.self_device_time_total for e in ev) / 1e3 / n
-    log(f"[profile] frames {first}-{first + n - 1} ({fs.stats['n_kf'] - n_kf} "
+    log(f"[{tag}] frames {first}-{first + n - 1} ({fs.stats['n_kf'] - n_kf} "
         f"keyframes), profiler on: wall {wall:.1f} ms/frame, device "
         f"{dev_ms:.2f} ms/frame, card busy {100 * dev_ms / wall:.1f}%, "
         f"{sum(e.count for e in ev) / n:.0f} device ops/frame")
     top = sorted(ev, key=lambda e: -e.self_device_time_total)[:8]
-    log("[profile] top device ops, ms/frame (count/frame): " + "; ".join(
+    log(f"[{tag}] top device ops, ms/frame (count/frame): " + "; ".join(
         f"{e.key[:48]} {e.self_device_time_total / 1e3 / n:.3f} "
         f"({e.count / n:.0f})" for e in top))
 
@@ -616,6 +666,165 @@ def ate_of(fs, poses):
     return ate, path
 
 
+def flagship(torch, dev, card, kernels):
+    """Phase 5: the flagship scene (stereo + spline VIO, bench.py's
+    _bench_full_config) through the port at 640x480 with every launch
+    counter from 0; the gates, the numbers, and K1 (a right image), K3 (a
+    VIO GN step and a VIO point marginalization) and K4 (an activation
+    pass) of this run held against their plain twins. Adds each kernel's
+    launches on this path to `kernels` (`launches_flagship`) and widens
+    its max_abs_err by what these checks found."""
+    from sos_slam_tpu_torch.models import energy as E
+    from sos_slam_tpu_torch.models import full_system as FSM
+    from sos_slam_tpu_torch.models import imu as IM
+    from sos_slam_tpu_torch.models import initializer as INIT
+    from sos_slam_tpu_torch.models import window as WIN
+    from sos_slam_tpu_torch.ops import ba_p as BP
+    from sos_slam_tpu_torch.ops import image as IMG
+    from sos_slam_tpu_torch.utils import synthetic
+    from sos_slam_tpu_torch.utils.config import default_settings
+
+    def prior_in(args, kw):
+        """Whether the VIO prior a frame marginalization starts from is
+        finite (ROADMAP Queue 3: an interior slot without a valid spline
+        leaves it NaN, in both packages)."""
+        return "finite" if bool(torch.isfinite(args[1].HM).all()) else "NaN"
+
+    calib = synthetic.default_calib(W, H)
+    settings = default_settings(weight_imu_dso=6.0, scale_opt_thres=12.0,
+                                min_g_imu=10)
+    scene = synthetic.stereo_vio_scene(
+        calib, FLAG_FRAMES + FLAG_PROF_FRAMES, FLAG_DT, synthetic.sine_pose,
+        synthetic.sine_acc, device=dev)
+    left, right, imu = scene["left"], scene["right"], scene["imu"]
+    stereo = FSM.StereoCalib(T_lr=scene["T_lr"], calib_right=calib)
+
+    def feed(fs, i):
+        fs.add_active_frame(left[i], timestamp=i * FLAG_DT, frame_id=i,
+                            image_right=right[i], imu_samples=imu[i])
+
+    wrappers = (IMG.pyramid_levels, WIN.template_levels, BP.fused_iteration,
+                BP.act_pass)
+    recs = [Recorder(FSM, "build_pyramid", 1, kind=pyramid_side),
+            Recorder(INIT, "build_pyramid", 1),
+            Recorder(WIN, "build_track_template", 1),
+            Recorder(BP, "fused_iteration", 1, kind=k3_caller),
+            Recorder(BP, "act_pass", 1),
+            Recorder(E, "marginalize_frame_vio", 1, kind=prior_in)]
+    for w_ in wrappers:
+        w_.launches = 0
+    fs = FSM.FullSystem(calib, settings, stereo=stereo, device=dev)
+    frame_ms, kf_ms, t_steady = [], [], None
+    for i in range(FLAG_FRAMES):
+        if i == FLAG_WARMUP:
+            torch.cuda.synchronize()
+            t_steady = time.perf_counter()
+        n_kf = fs.stats["n_kf"]
+        t0 = time.perf_counter()
+        feed(fs, i)
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        if i >= FLAG_WARMUP and fs.stats["n_kf"] > n_kf:
+            kf_ms.append(frame_ms[-1])
+        if fs.is_lost or fs.init_failed:
+            break
+    fs.finish_pending()
+    torch.cuda.synchronize()
+    steady_s = time.perf_counter() - t_steady if t_steady else float("nan")
+    counts = [w_.launches for w_ in wrappers]
+    for r in recs:
+        r.restore()
+    pyr_l, pyr_i, tmpl, k3, k4, mfv = recs
+
+    tag = f"[flagship] ({card})"
+    if not fs.initialized or fs.is_lost or fs.init_failed:
+        raise AssertionError(f"flagship failed: initialized={fs.initialized}"
+                             f" lost={fs.is_lost} "
+                             f"init_failed={fs.init_failed}")
+    ate, path = synthetic.metric_ate(fs.trajectory(scaled=True),
+                                     scene["poses"])
+    n_kf = len(fs.kf_shell_ids)
+    fps = (FLAG_FRAMES - FLAG_WARMUP) / steady_s
+    kf_ids = set(fs.kf_shell_ids)
+    nonkf = [frame_ms[i] for i in range(FLAG_WARMUP, len(frame_ms))
+             if i not in kf_ids]
+    log(f"{tag} {W}x{H} {FLAG_FRAMES} frames, stereo + VIO on {card}: n_kf "
+        f"{n_kf}, metric ATE of the scaled trajectory (no alignment) "
+        f"{ate:.4f} m over {path:.3f} m, stereo scale {fs.current_scale:.4f}"
+        f", IMU scale {float(fs.imu.scale) * IM.SCALE_SCALE:.4f}, steady fps "
+        f"{fps:.2f} (frames {FLAG_WARMUP}-{FLAG_FRAMES - 1}, {steady_s:.3f} "
+        f"s), keyframe median "
+        f"{np.median(kf_ms) if kf_ms else float('nan'):.1f} ms "
+        f"({len(kf_ms)} keyframes in the window), non-keyframe median "
+        f"{np.median(nonkf) if nonkf else float('nan'):.1f} ms, first "
+        f"frame {frame_ms[0]:.0f} ms")
+    log(f"{tag} reference: {JAX_FLAGSHIP}")
+    log(f"{tag} VIO frame marginalizations by the prior they started from: "
+        + (", ".join(f"{k} {v}" for k, v in sorted(mfv.n_of.items()))
+           or "none")
+        + "; the VIO prior after the run is "
+        + ("finite" if bool(torch.isfinite(fs.imu.HM).all()) else "NaN")
+        + " (a NaN prior turns every later VIO step into a zero step)")
+    rep = fs.telemetry.report()["timers_ms"]
+    log(f"{tag} host stage timers: " + ", ".join(
+        f"{k} n={v['n']} median {v['median']:.1f} ms"
+        for k, v in sorted(rep.items())))
+    if not (fs.imu_initialized and fs.scale_trapped):
+        raise AssertionError(f"flagship: imu_initialized="
+                             f"{fs.imu_initialized} scale_trapped="
+                             f"{fs.scale_trapped}")
+    if fs._last_bg is None:
+        raise AssertionError("flagship: the fused VIO chain never ran")
+    if not ate <= 0.15 * path + 0.03:
+        raise AssertionError(f"flagship ATE gate: {ate} > 0.15 * {path} "
+                             "+ 0.03")
+    for name, c in zip(("K1", "K2", "K3", "K4"), counts):
+        if c <= 0:
+            raise AssertionError(f"{name} was not launched on the flagship "
+                                 "path")
+    n_right = pyr_l.n_of["right"]
+    n_pyr = pyr_l.n_calls + pyr_i.n_calls
+    if counts[0] != n_pyr or counts[1] != tmpl.n_calls:
+        raise AssertionError(
+            f"flagship: K1 launched {counts[0]} times for {n_pyr} pyramids "
+            f"({n_right} right), K2 {counts[1]} times for {tmpl.n_calls} "
+            "templates: a call is not one launch")
+    log(f"{tag} {n_pyr} pyramids built ({n_pyr - n_right} left, {n_right} "
+        f"right) in {counts[0]} K1 launches, {tmpl.n_calls} templates in "
+        f"{counts[1]} K2 launches; K3 {counts[2]} launches "
+        + ", ".join(f"{k} {v}" for k, v in sorted(k3.n_of.items()))
+        + f"; K4 {counts[3]} launches")
+
+    # the kernels on this run's own inputs
+    for need in ("gn_step_vio", "marginalize_points_vio"):
+        if need not in k3.last_of:
+            raise AssertionError(f"flagship: no K3 call from {need}")
+    err3 = (0.0, 0.0)
+    for need in ("gn_step_vio", "marginalize_points_vio"):
+        a, kw = k3.last_of[need]
+        err3 = worse(err3, k3_against_plain(BP, a, kw))
+    a4, kw4 = k4.calls[-1]
+    err4 = (0.0, 0.0)
+    for clamp in (False, True):
+        err4 = worse(err4, k4_against_plain(BP, a4, dict(kw4, clamp=clamp)))
+    err1 = k1_against_plain(torch, IMG, right[FLAG_FRAMES - 1].contiguous(),
+                            calib.levels)
+    a, kw = k3.last_of["marginalize_points_vio"]
+    log(f"{tag} K3 on a VIO GN step and a VIO point marginalization "
+        f"({int(kw['pmask'].sum())} points): max_abs_err {err3[0]:.3e} "
+        f"({err3[1]:.3f} of the tolerance); K4 on an activation pass: "
+        f"{err4[0]:.3e} ({err4[1]:.3f}); K1 on a right image: {err1[0]:.3e} "
+        f"({err1[1]:.3f}); each matches its plain twin, second launches "
+        "bitwise equal")
+    for k, c, e in zip(kernels, counts, (err1, (0.0, 0.0), err3, err4)):
+        k["launches_flagship"] = c
+        k["max_abs_err"] = max(k["max_abs_err"], e[0])
+    del recs, pyr_l, pyr_i, tmpl, k3, k4, mfv, a, kw, a4, kw4
+    phase_done("flagship run and checks")
+    profile_frames(torch, fs, lambda i: feed(fs, i), FLAG_FRAMES,
+                   FLAG_PROF_FRAMES, tag="flagship profile")
+
+
 def run(torch):
     from sos_slam_tpu_torch.models import full_system as FSM
     from sos_slam_tpu_torch.models import initializer as INIT
@@ -637,6 +846,7 @@ def run(torch):
     t0 = time.perf_counter()
     report = cuda_build.build_all()
     log(f"[build] {len(report)} kernels in {time.perf_counter() - t0:.2f} s")
+    phase_done("build")
     for name, r in report.items():
         regs = [ln.strip().replace("ptxas info    : ", "")
                 for ln in r["ptxas"].splitlines()
@@ -744,6 +954,7 @@ def run(torch):
             N4 * F4 * (8 * 20 + 6), f"N={N4} F={F4}, clamp off + on",
             wrapper_fn=lambda: BP.act_pass(*a4, **kw4))
     ragged = ragged_cases(torch, dev, settings)
+    phase_done("capture and kernel checks")
     kernels[2]["max_abs_err"] = max(kernels[2]["max_abs_err"], ragged[0][0])
     kernels[3]["max_abs_err"] = max(kernels[3]["max_abs_err"], ragged[1][0])
     del recs
@@ -814,8 +1025,15 @@ def run(torch):
         "launches")
     for k, c in zip(kernels, counts):
         k["launches"] = c
-    profile_frames(torch, fs, imgs, N_FRAMES, PROF_FRAMES)
+    phase_done("mono slice")
+    profile_frames(torch, fs, lambda i: fs.add_active_frame(
+        imgs[i], timestamp=i * 0.05, frame_id=i), N_FRAMES, PROF_FRAMES)
+    phase_done("mono profile")
+    del fs
+    flagship(torch, dev, card, kernels)
+    phase_done("flagship scene")
     wrapper_stats = time_kernels(torch, kernels, timings)
+    phase_done("kernel times")
     n_ops, crossing = wrapper_stats["[K3]"]
     log(f"[K3] whole wrapper: {n_ops:.1f} device ops a call; the first "
         f"Hopper design ran {K3_WRAPPER_OPS_FIRST_DESIGN}")
@@ -834,7 +1052,10 @@ def run(torch):
         if not n_ops < first:
             raise AssertionError(f"{what} runs no fewer device ops than "
                                  "with one launch per level")
-    log("kernels: " + ", ".join(f"K{i + 1}={c}" for i, c in enumerate(counts)))
+    log("kernels, launches on the mono slice: " + ", ".join(
+        f"K{i + 1}={k['launches']}" for i, k in enumerate(kernels))
+        + "; on the flagship scene: " + ", ".join(
+        f"K{i + 1}={k['launches_flagship']}" for i, k in enumerate(kernels)))
     log(json.dumps({"kernels": kernels}))
     log(f"{card}")
     log(json.dumps({"ok": True, "device": {

@@ -8,9 +8,10 @@ four Pallas kernels is a hand-written CUDA kernel here (`csrc/`), built at
 first use and launched through a wrapper that runs the kernel's plain
 PyTorch twin when its tensors lie on the CPU.
 
-This slice covers the monocular, vision-only main path (initializer,
-coarse tracker, immature-point trace/activation, windowed BA with FEJ
-marginalization). Stereo scale, VIO, loop closure and IO come later.
+The port covers the monocular main path (initializer, coarse tracker,
+immature-point trace/activation, windowed BA with FEJ marginalization),
+the stereo 1-DoF metric-scale solve and the continuous-time spline VIO
+with its visual-inertial KKT BA. Loop closure and IO come later.
 """
 
 __version__ = "0.1.0"

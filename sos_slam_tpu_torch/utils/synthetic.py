@@ -84,6 +84,122 @@ def make_sequence(calib: CalibPyramid, n_frames: int,
     return torch.stack(imgs), torch.stack(idepths), torch.stack(poses)
 
 
+# ---------------------------------------------------------------------------
+# stereo + VIO scenes: a trajectory, its analytic IMU and both cameras
+# ---------------------------------------------------------------------------
+
+GRAVITY = np.array([0.0, 0.0, -9.81])
+IMU_HZ = 200.0
+BASELINE = 0.11          # right camera at +x in the left camera's frame
+
+# the flagship scene (bench.py's _bench_full_config): a bounded sinusoidal
+# 6-DoF trajectory with continuous non-zero acceleration (spline-VIO
+# observability) that never closes on the plane
+SINE_A = np.array([0.38, 0.28, 0.20])      # translation amplitudes (m)
+SINE_WT = np.array([0.9, 0.7, 1.1])        # translation frequencies
+SINE_B = np.array([0.05, 0.09, 0.04])      # rotation amplitudes (rad)
+SINE_WR = np.array([0.8, 1.0, 0.7])        # rotation frequencies
+
+# the small CPU scene (tests/test_fused_vio.py): a cubic trajectory with a
+# constant gyro bias
+CUBIC_L = np.array([0.10, 0.05, 0.08, 0.04, 0.06, 0.03])
+CUBIC_Q = np.array([0.06, -0.05, 0.04, 0.02, -0.015, 0.02])
+CUBIC_C = np.array([0.008, -0.006, 0.007, -0.004, 0.003, -0.004])
+CUBIC_BIAS_G = np.array([0.005, -0.008, 0.006])
+
+
+def sine_pose(t: float) -> np.ndarray:
+    """Camera-to-world pose (4,4) f32 of the flagship scene at time t."""
+    T = np.eye(4, dtype=np.float32)
+    T[:3, :3] = lie.np_so3_exp(SINE_B * np.sin(SINE_WR * t)).astype(
+        np.float32)
+    T[:3, 3] = SINE_A * np.sin(SINE_WT * t)
+    return T
+
+
+def sine_acc(t: float) -> np.ndarray:
+    """World-frame acceleration of `sine_pose`."""
+    return -SINE_A * SINE_WT * SINE_WT * np.sin(SINE_WT * t)
+
+
+def cubic_pose(t: float) -> np.ndarray:
+    """Camera-to-world pose (4,4) f32 of the small cubic scene at time t."""
+    p = CUBIC_L[:3] * t + CUBIC_Q[:3] * t * t + CUBIC_C[:3] * t ** 3
+    r = CUBIC_L[3:] * t + CUBIC_Q[3:] * t * t + CUBIC_C[3:] * t ** 3
+    T = np.eye(4, dtype=np.float32)
+    T[:3, :3] = lie.np_so3_exp(r).astype(np.float32)
+    T[:3, 3] = p
+    return T
+
+
+def cubic_acc(t: float) -> np.ndarray:
+    """World-frame acceleration of `cubic_pose`."""
+    return 2 * CUBIC_Q[:3] + 6 * CUBIC_C[:3] * t
+
+
+def imu_between(pose_fn, acc_fn, t0: float, t1: float,
+                bias_g=(0.0, 0.0, 0.0)):
+    """Analytic IMU samples (t, acc(3,) f32, gyro(3,) f32) at IMU_HZ in
+    (t0, t1] of a body moving along pose_fn (the body frame is the camera
+    frame): specific force in the body frame, body rates from a central
+    difference of the rotation, plus a constant gyro bias."""
+    out, h = [], 1e-4
+    for i in range(1, int(round((t1 - t0) * IMU_HZ)) + 1):
+        t = t0 + i / IMU_HZ
+        R = pose_fn(t)[:3, :3]
+        Wx = R.T @ ((pose_fn(t + h)[:3, :3] - pose_fn(t - h)[:3, :3])
+                    / (2 * h))
+        w_body = np.array([Wx[2, 1], Wx[0, 2], Wx[1, 0]])
+        out.append((t, (R.T @ (acc_fn(t) + GRAVITY)).astype(np.float32),
+                    (w_body + np.asarray(bias_g)).astype(np.float32)))
+    return out
+
+
+def stereo_T_lr(baseline: float = BASELINE):
+    """(T_lr left -> right (4,4) f32, the right camera's pose in the left
+    camera's frame (4,4))."""
+    T_right_in_left = np.eye(4)
+    T_right_in_left[0, 3] = baseline
+    return (np.linalg.inv(T_right_in_left).astype(np.float32),
+            T_right_in_left)
+
+
+def stereo_vio_scene(calib: CalibPyramid, n_frames: int, frame_dt: float,
+                     pose_fn, acc_fn, bias_g=(0.0, 0.0, 0.0),
+                     baseline: float = BASELINE, plane_z: float = 2.0,
+                     device=None) -> dict:
+    """A stereo + IMU sequence over the textured plane, frame i at time
+    i * frame_dt: `left` and `right` (n,H,W) image tensors on `device`
+    (CUDA unless named), `poses` (n,4,4) numpy ground truth, `imu` the
+    per-frame sample lists (the first covers (-frame_dt, 0]) and `T_lr`.
+    chip_smoke.py and the card tests build their stereo + VIO scenes here;
+    the CPU parity tests take the trajectories and IMU samples above."""
+    dev = resolve_device(device)
+    T_lr, T_rl = stereo_T_lr(baseline)
+    poses = np.stack([pose_fn(i * frame_dt) for i in range(n_frames)])
+    left, right = [], []
+    for p in poses:
+        left.append(render_plane(calib, torch.as_tensor(p, device=dev),
+                                 plane_z)[0])
+        right.append(render_plane(calib, torch.as_tensor(
+            (p @ T_rl).astype(np.float32), device=dev), plane_z)[0])
+    imu = [imu_between(pose_fn, acc_fn, (i - 1) * frame_dt, i * frame_dt,
+                       bias_g) for i in range(n_frames)]
+    return dict(left=torch.stack(left), right=torch.stack(right),
+                poses=poses, imu=imu, T_lr=T_lr)
+
+
+def metric_ate(traj: np.ndarray, poses: np.ndarray):
+    """(ATE, path length) of a trajectory (`id x y z` rows) against the
+    ground-truth poses, with no alignment: the metric gate of the stereo
+    and VIO scenes is ATE <= 0.15 * path + 0.03."""
+    ids = traj[:, 0].astype(int)
+    gt = poses[ids, :3, 3]
+    err = np.linalg.norm(traj[:, 1:4] - gt, axis=1)
+    path = float(np.sum(np.linalg.norm(np.diff(gt, axis=0), axis=1)))
+    return float(np.sqrt(np.mean(err ** 2))), path
+
+
 # (P, F) of the fused BA iteration and (N, F) of the activation pass that no
 # block size divides, for holding the kernels to their plain forms at the
 # edges: F = 1..16 need not divide a warp, P and N need not fill a block

@@ -53,12 +53,15 @@ def _chained_levels(IMG, img, n_levels):
     ((480, 640), 4), ((480, 640), 3), ((480, 640), 1), ((248, 328), 4),
     ((248, 328), 3), ((248, 328), 1), ((40, 72), 4), ((512, 640), 6)])
 def test_k1_pyramid_levels(hw, n_levels):
+    dev = _dev()
+    g = torch.Generator(device="cpu").manual_seed(hw[0] + n_levels)
+    _k1_against_plain((torch.rand(*hw, generator=g) * 255).to(dev), n_levels)
+
+
+def _k1_against_plain(img, n_levels):
     """One launch for all levels: against the plain twin, bit for bit
     against one launch per level, and a second launch repeats every bit."""
     from sos_slam_tpu_torch.ops import image as IMG
-    dev = _dev()
-    g = torch.Generator(device="cpu").manual_seed(hw[0] + n_levels)
-    img = (torch.rand(*hw, generator=g) * 255).to(dev)
     before = IMG.pyramid_levels.launches
     lv, ag = IMG.pyramid_levels(img, n_levels)
     assert IMG.pyramid_levels.launches - before == -(-n_levels // 4)
@@ -240,10 +243,10 @@ def _window(P, F, dev, seed=3, **override):
     return ba, B.make_precalc(ba), torch.as_tensor(dI, device=dev)
 
 
-def _k3_against_plain(ba, pre, dI, **kw):
+def _k3_against_plain(ba, pre, dI, s=None, **kw):
     from sos_slam_tpu_torch.ops import ba_p as BP
     from sos_slam_tpu_torch.utils.config import default_settings
-    s = default_settings()
+    s = s or default_settings()
     h, w = dI.shape[1], dI.shape[2]
     fk = BP.fused_iteration(ba, pre, dI, s, w, h, **kw)
     fp = BP.fused_iteration_plain(ba, pre, dI, s, w, h, **kw)
@@ -337,3 +340,66 @@ def test_k4_ragged(N, F, clamp):
     again = BP.act_pass(*ins, clamp=clamp, huber_th=9.0)
     for a, b in zip(ok_, again):
         assert _same_bits(a, b)
+
+
+# ---- the flagship path (stereo + spline VIO): K3 in the visual-inertial
+# BA and its point marginalization, K1 on a right image ----
+
+@pytest.fixture(scope="module")
+def flagship_calls():
+    """The port on the card over the flagship scene (utils/synthetic's
+    sine trajectory, stereo + 200 Hz IMU) at 256x192, until K3 has served
+    a VIO GN step and a VIO point marginalization of at least one point:
+    those two calls' arguments, the scene's last right image and the
+    pyramid depth."""
+    import sys
+    from sos_slam_tpu_torch.models.full_system import FullSystem, StereoCalib
+    from sos_slam_tpu_torch.ops import ba_p as BP
+    from sos_slam_tpu_torch.utils import synthetic
+    from sos_slam_tpu_torch.utils.config import default_settings
+    dev = _dev()
+    calib = synthetic.default_calib(256, 192)
+    s = default_settings(weight_imu_dso=6.0, scale_opt_thres=12.0,
+                         min_g_imu=10, max_points=512, max_immature=1024,
+                         max_track_pts=4096, desired_point_density=400.0,
+                         desired_immature_density=400.0)
+    sc = synthetic.stereo_vio_scene(calib, 44, 0.1, synthetic.sine_pose,
+                                    synthetic.sine_acc, device=dev)
+    calls, orig = {}, BP.fused_iteration
+
+    def recording(*a, **kw):
+        who = sys._getframe(2).f_code.co_name
+        if who == "gn_step_vio" or (who == "marginalize_points_vio"
+                                    and bool(kw["pmask"].any())):
+            calls[who] = (a, kw)
+        return orig(*a, **kw)
+
+    # the wrapper counts its launches through its module-level name
+    recording.launches = orig.launches
+    BP.fused_iteration = recording
+    try:
+        fs = FullSystem(calib, s, stereo=StereoCalib(
+            T_lr=sc["T_lr"], calib_right=calib), device=dev)
+        for i in range(44):
+            fs.add_active_frame(sc["left"][i], timestamp=0.1 * i, frame_id=i,
+                                image_right=sc["right"][i],
+                                imu_samples=sc["imu"][i])
+            if len(calls) == 2:
+                break
+    finally:
+        BP.fused_iteration = orig
+    assert fs.imu_initialized and len(calls) == 2, sorted(calls)
+    return calls, sc["right"][i], calib.levels
+
+
+@pytest.mark.parametrize("who", ["gn_step_vio", "marginalize_points_vio"])
+def test_k3_on_the_flagship_path(flagship_calls, who):
+    a, kw = flagship_calls[0][who]
+    ba, pre, dI, s = a[:4]
+    fk = _k3_against_plain(ba, pre, dI, s, **kw)
+    assert bool(fk.sc.has_res.any())
+
+
+def test_k1_on_a_right_image(flagship_calls):
+    _, right, n_levels = flagship_calls
+    _k1_against_plain(right.contiguous(), n_levels)

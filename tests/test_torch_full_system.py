@@ -137,9 +137,21 @@ def test_entry_points_default_to_cuda():
 
 
 def test_optional_layers_raise():
-    from sos_slam_tpu_torch.models.full_system import FullSystem
+    """Loop closure is the one layer not ported yet; stereo scale and VIO
+    construct, and stereo scale without a StereoCalib is refused."""
+    from sos_slam_tpu_torch.models.full_system import FullSystem, StereoCalib
     from sos_slam_tpu_torch.utils import synthetic
     from sos_slam_tpu_torch.utils.config import default_settings
+    calib = synthetic.default_calib(128, 96)
+    stereo = StereoCalib(T_lr=np.eye(4, dtype=np.float32), calib_right=calib)
     with pytest.raises(NotImplementedError):
-        FullSystem(synthetic.default_calib(128, 96),
-                   default_settings(weight_imu_dso=1.0), device="cpu")
+        FullSystem(calib, default_settings(scale_opt_thres=12.0,
+                                           loop_lidar_range=40.0),
+                   stereo=stereo, device="cpu")
+    with pytest.raises(ValueError):
+        FullSystem(calib, default_settings(scale_opt_thres=12.0),
+                   device="cpu")
+    fs = FullSystem(calib, default_settings(weight_imu_dso=1.0,
+                                            scale_opt_thres=12.0),
+                    stereo=stereo, device="cpu")
+    assert fs.imu is not None and fs.stereo is stereo

@@ -83,3 +83,53 @@ def act_inputs(seed, N=128, F=4, nan_dead=True):
     color, weights^2, affine, oob, energy_th."""
     from sos_slam_tpu_torch.utils import synthetic
     return synthetic.make_act_inputs(N, F, seed, nan_dead)
+
+
+def _imu_arrays(seed=0, F=8):
+    """The JAX package's ImuState at F frames filled from a seeded numpy
+    draw, as numpy arrays by field name."""
+    import jax.numpy as jnp
+    from sos_slam_tpu.models import imu as JIM
+    r = np.random.RandomState(seed)
+    base = JIM.empty_imu(F)
+    filled = {}
+    for k, v in base._asdict().items():
+        a = np.asarray(v)
+        if a.dtype == np.bool_:
+            a = r.rand(*a.shape) < 0.5
+        elif a.dtype == np.int32:
+            a = r.randint(0, 10, a.shape)
+        else:
+            a = r.randn(*a.shape)
+        filled[k] = np.asarray(jnp.asarray(a, v.dtype))
+    return filled
+
+
+def test_imu_and_stereo_round_trip():
+    """utils/convert carries the JAX package's ImuState and StereoCalib
+    into the port and back without changing a bit."""
+    import dataclasses
+    from sos_slam_tpu.models.full_system import StereoCalib as JSC
+    from sos_slam_tpu.utils import synthetic as JSY
+    from sos_slam_tpu_torch.models import imu as TIM
+    from sos_slam_tpu_torch.models.full_system import StereoCalib as TSC
+    arrays = _imu_arrays()
+    imu = convert.from_numpy(TIM.ImuState, arrays, "cpu")
+    assert imu.queue_i.dtype == torch.int32 and imu.scale.dim() == 0
+    back = convert.to_numpy(imu)
+    assert back.keys() == arrays.keys()
+    for k, a in arrays.items():
+        assert back[k].dtype == a.dtype and back[k].shape == a.shape, k
+        assert back[k].tobytes() == a.tobytes(), k
+
+    T_lr = np.eye(4, dtype=np.float32)
+    T_lr[0, 3] = -0.11
+    js = JSC(T_lr=T_lr, calib_right=JSY.default_calib(256, 192))
+    d = dataclasses.asdict(js)
+    ts = convert.from_numpy(TSC, d, "cpu")
+    assert isinstance(ts, TSC)
+    assert ts.calib_right.intrinsics(2) == js.calib_right.intrinsics(2)
+    back = convert.to_numpy(ts)
+    assert back["calib_right"] == d["calib_right"]
+    assert back["T_lr"].dtype == np.float32
+    assert back["T_lr"].tobytes() == d["T_lr"].tobytes()
