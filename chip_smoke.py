@@ -26,7 +26,7 @@ In order, failing (exit code != 0, no result line) at the first fault:
      just before and read just after; initialized, not lost, and the
      scale-aligned ATE <= 0.05 * path + 0.02, as bench.py gates it; K1
      launched once per pyramid built and K2 once per template built;
-  5. the breakdown: 8 more frames through the same FullSystem under
+  5. the breakdown: 4 more frames through the same FullSystem under
      torch.profiler (the card's busy share and its top device ops);
   6. the flagship scene (bench.py's _bench_full_config: stereo + spline
      VIO, 640x480, 44 frames at 10 Hz on a bounded sinusoidal trajectory,
@@ -40,8 +40,26 @@ In order, failing (exit code != 0, no result line) at the first fault:
      the keyframe count, ATE, scale, steady fps over frames 30-43 (as
      bench.py measures it) and the keyframe median; then K3 on a VIO GN
      step and a VIO point marginalization, K4 on an activation pass and K1
-     on a right image of this run against their plain twins, and 4 more
+     on a right image of this run against their plain twins, and 2 more
      frames under torch.profiler;
+  6b. the [loop] phase: (a) the flagship scene's frames through the port's
+     SlamNode (pinhole camera files, no rectification, loop closure on
+     at a 40 m LiDAR range, the loop handler synchronous so that its
+     errors propagate), every launch counter from 0: gated on the
+     keyframes of a FullSystem without loop closure fed the same
+     rectified frames, one handler record per marginalized keyframe,
+     an odometry edge with a finite dso_error between each consecutive
+     pair, at least one scan, poses.txt rows whose metric ATE passes the
+     flagship gate, and K1-K4 launched (`launches_node`); (c)
+     estimate_direct on the record of (a) with the most points, against
+     its own pyramid from 2 cm and 1 deg off, accepted, card = CPU at the
+     tracker's tolerances (1e-4 on T, 1e-3 on the residual); (b)
+     LoopHandler alone on tests/test_loop_closure_e2e.py's pillar scene,
+     synchronously then asynchronously: a loop edge, ICP-verified, the
+     drift corrected (rigid-aligned ATE < 0.6 x the odometry's), both
+     modes the same poses; (d) optimize_pose_graph at 1000 keyframes on
+     tests/test_loop.py's graph: its loop-error gates, first and warm
+     wall times;
   7. kernel times on the inputs of step 3 (after the slices, so that the
      profiler cannot slow them), three measures of each kernel: one
      pair of CUDA events around 200 back-to-back launches queued behind a
@@ -55,9 +73,9 @@ In order, failing (exit code != 0, no result line) at the first fault:
      K3: two), and for the whole wrappers (build_pyramid,
      build_track_template, fused_iteration, act_pass) the device ops a
      call and the host-device copies among them (K3: none allowed);
-     then the launch counts of both scenes and the kernels line (one JSON
-     object; `launches` counts the mono slice, `launches_flagship` the
-     flagship scene);
+     then the launch counts of the three runs and the kernels line (one
+     JSON object; `launches` counts the mono slice, `launches_flagship`
+     the flagship scene, `launches_node` the SlamNode run);
   8. last line: {"ok": true, "device": {...}}.
 
 Needs one card; exits with code 2 when CUDA is unavailable or the port is
@@ -78,8 +96,8 @@ import numpy as np
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12          # fp32 without tensor cores, data sheet
 W, H, N_FRAMES, WARMUP = 640, 480, 48, 26
-PROF_FRAMES = 8   # frames after the slice run under the profiler
-FLAG_PROF_FRAMES = 4   # the same after the flagship scene
+PROF_FRAMES = 4   # frames after the slice run under the profiler
+FLAG_PROF_FRAMES = 2   # the same after the flagship scene
 TWIST = (0.03, 0.012, 0.02, 0.002, 0.004, 0.001)
 TOL = 2e-4
 REPS = 30
@@ -101,6 +119,11 @@ JAX_REFERENCE = "JAX package on the same scene: 22 keyframes, ATE 0.0103 m " \
 FLAG_FRAMES, FLAG_WARMUP, FLAG_DT = 44, 30, 0.1
 JAX_FLAGSHIP = "JAX package on the same scene: 11 keyframes in 44 frames " \
                "(BENCH_r05.json, a TPU v5e run; history, not asserted)"
+# the loop phase: the flagship scene through SlamNode at this LiDAR range,
+# and tests/test_loop_closure_e2e.py's pillar scene for the handler alone
+LOOP_LIDAR = 40.0
+LOOP_KFS, LOOP_RANGE = 20, 30.0
+PILLAR_INTR = ((300.0, 300.0, 128.0, 96.0),)
 
 
 def log(msg):
@@ -821,8 +844,324 @@ def flagship(torch, dev, card, kernels):
         k["max_abs_err"] = max(k["max_abs_err"], e[0])
     del recs, pyr_l, pyr_i, tmpl, k3, k4, mfv, a, kw, a4, kw4
     phase_done("flagship run and checks")
+    kf_ids = list(fs.kf_shell_ids)
     profile_frames(torch, fs, lambda i: feed(fs, i), FLAG_FRAMES,
                    FLAG_PROF_FRAMES, tag="flagship profile")
+    return dict(kf_ids=kf_ids, scene=scene, calib=calib)
+
+
+def rigid_ate(est, gt):
+    """RMSE of est against gt after the least-squares rigid alignment
+    (Umeyama without scale): the drift gate of the loop-closure scene."""
+    mu_e, mu_g = est.mean(0), gt.mean(0)
+    U, _, Vt = np.linalg.svd((gt - mu_g).T @ (est - mu_e) / len(est))
+    S = np.eye(3)
+    if np.linalg.det(U) * np.linalg.det(Vt) < 0:
+        S[2, 2] = -1
+    R = U @ S @ Vt
+    aligned = (R @ (est - mu_e).T).T + mu_g
+    return float(np.sqrt(np.mean(np.sum((aligned - gt) ** 2, 1))))
+
+
+def se3(lie, torch, xi):
+    """exp of a float32 twist, as float64 numpy (the scenes' convention)."""
+    return lie.se3_exp(torch.tensor(xi, dtype=torch.float32)).numpy() \
+        .astype(np.float64)
+
+
+def pillar_scene(lie, torch):
+    """tests/test_loop_closure_e2e.py's scene: 30 pillars and ground in a
+    60 m square, a closed 16-gon continued three segments, 20 keyframes
+    with odometry drift; each keyframe's points seen from the TRUE pose
+    as pinhole [u, v, idepth] rows. Returns (gt, odo, [pts_uvdi])."""
+    rng = np.random.RandomState(0)
+    env = []
+    for _ in range(30):
+        cx, cz = rng.uniform(-25, 25, 2)
+        h = rng.uniform(4, 15)
+        for _ in range(30):
+            env.append([cx + rng.randn() * 0.4, -rng.uniform(0, h),
+                        cz + rng.randn() * 0.4])
+    while len(env) < 1500:
+        env.append([rng.uniform(-28, 28), 0.0, rng.uniform(-28, 28)])
+    env = np.asarray(env)
+    seg = se3(lie, torch, [2.0, 0.0, 0.0, 0.0, 2 * np.pi / 16, 0.0])
+    drift = se3(lie, torch, [0.06, 0.03, -0.04, 0.004, 0.006, 0.0])
+    gt, odo = [np.eye(4)], [np.eye(4)]
+    for i in range(1, LOOP_KFS):
+        gt.append(gt[-1] @ seg)
+        odo.append(odo[-1] @ np.linalg.inv(gt[i - 1]) @ gt[i] @ drift)
+    rng = np.random.RandomState(42)
+    fx, fy, cx, cy = PILLAR_INTR[0]
+    recs = []
+    for T_wc in gt:
+        T_cw = np.linalg.inv(T_wc)
+        pc = (T_cw[:3, :3] @ env.T).T + T_cw[:3, 3]
+        pc = pc[np.linalg.norm(pc, axis=1) < LOOP_RANGE]
+        pc = pc[rng.choice(len(pc), size=min(1000, len(pc)), replace=False)]
+        pc = pc[pc[:, 2] > 0.5]
+        recs.append(np.stack([pc[:, 0] / pc[:, 2] * fx + cx,
+                              pc[:, 1] / pc[:, 2] * fy + cy,
+                              1.0 / pc[:, 2]], -1))
+    return np.stack(gt), np.stack(odo), recs
+
+
+def pose_graph_scene(lie, torch):
+    """tests/test_loop.py's 1000-keyframe graph: a drifted chain, four
+    loop edges, padded to N=1024, Ec=1024, El=16, the newest vertex fixed.
+    Returns (gt, odo, pairs, the 13 inputs as numpy)."""
+    n, N = 1000, 1024
+    rng = np.random.RandomState(0)
+    gt = [np.eye(4)]
+    for _ in range(1, n):
+        gt.append(gt[-1] @ se3(lie, torch, np.array(
+            [1.0, 0, 0, 0, 2 * np.pi / 360, 0]) + rng.randn(6) * 0.01))
+    drift = se3(lie, torch, [0.01, 0.004, -0.006, 0.0008, 0.0012, 0.0])
+    odo = [np.eye(4)]
+    for i in range(1, n):
+        odo.append(odo[-1] @ np.linalg.inv(gt[i - 1]) @ gt[i] @ drift)
+    pairs = [(5, 360), (200, 560), (400, 760), (30, 930)]
+
+    def pack(edges, E):
+        ef, et = np.zeros(E, np.int32), np.zeros(E, np.int32)
+        em = np.tile(np.eye(4, dtype=np.float32), (E, 1, 1))
+        ei = np.tile(np.eye(6, dtype=np.float32), (E, 1, 1))
+        ev = np.zeros(E, bool)
+        for i, (a, b, m, info) in enumerate(edges):
+            ef[i], et[i], em[i], ei[i], ev[i] = a, b, m, info, True
+        return ef, et, em, ei, ev
+
+    chain = [(i, i + 1, np.linalg.inv(gt[i]) @ gt[i + 1] @ drift, np.eye(6))
+             for i in range(n - 1)]
+    loops = [(a, b, np.linalg.inv(gt[a]) @ gt[b], np.eye(6) * 100.0)
+             for a, b in pairs]
+    T = np.tile(np.eye(4, dtype=np.float32), (N, 1, 1))
+    T[:n] = np.stack(odo)
+    v_valid = np.arange(N) < n
+    fixed = ~v_valid
+    fixed[n - 1] = True
+    return (np.stack(gt), np.stack(odo), pairs,
+            (T, v_valid, fixed, *pack(chain, 1024), *pack(loops, 16)))
+
+
+def loop_error(lie, T, gt, a, b):
+    rel = np.linalg.inv(gt[a]) @ gt[b]
+    return float(np.linalg.norm(lie.np_se3_log(
+        np.linalg.inv(rel) @ np.linalg.inv(T[a]) @ T[b])))
+
+
+def loop_phase(torch, dev, card, kernels, flag):
+    """Phase [loop]: (a) the flagship scene through SlamNode with loop
+    closure on, every launch counter from 0; (b) LoopHandler alone on the
+    pillar scene, synchronously then asynchronously; (c) estimate_direct
+    on a keyframe record of (a), on the card and on the CPU; (d)
+    optimize_pose_graph at 1000 keyframes, first and warm call."""
+    import tempfile
+
+    from sos_slam_tpu_torch.io.node import SlamNode
+    from sos_slam_tpu_torch.loop import handler as LH
+    from sos_slam_tpu_torch.loop import pose_estimator as PE
+    from sos_slam_tpu_torch.loop import pose_graph as PG
+    from sos_slam_tpu_torch.models import window as WIN
+    from sos_slam_tpu_torch.models.full_system import (FrameShell,
+                                                       FullSystem,
+                                                       StereoCalib)
+    from sos_slam_tpu_torch.ops import ba_p as BP
+    from sos_slam_tpu_torch.ops import image as IMG
+    from sos_slam_tpu_torch.utils import lie, synthetic
+    from sos_slam_tpu_torch.utils.config import default_settings
+
+    tag = f"[loop] ({card})"
+    scene, calib = flag["scene"], flag["calib"]
+    # (a) ---- the flagship scene through SlamNode, loop closure on ----
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    cam = f"{tmp}/camera.txt"
+    fx, fy, cx, cy = calib.intrinsics(0)
+    with open(cam, "w") as f:
+        f.write(f"Pinhole {fx} {fy} {cx} {cy} 0\n{W} {H}\nnone\n{W} {H}\n")
+    settings = default_settings(weight_imu_dso=6.0, scale_opt_thres=12.0,
+                                min_g_imu=10, loop_lidar_range=LOOP_LIDAR)
+    reader = [dict(image=scene["left"][i], t=i * FLAG_DT,
+                   image_right=scene["right"][i], imu=scene["imu"][i])
+              for i in range(FLAG_FRAMES)]
+    wrappers = (IMG.pyramid_levels, WIN.template_levels, BP.fused_iteration,
+                BP.act_pass)
+    for w_ in wrappers:
+        w_.launches = 0
+    node = SlamNode(settings, cam, calib1=cam, T_stereo=scene["T_lr"],
+                    device=dev, async_loop=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n_run = node.run(reader)
+    torch.cuda.synchronize()
+    node_s = time.perf_counter() - t0
+    counts = [w_.launches for w_ in wrappers]
+    fs, loop = node.fs, node.loop
+    poses_txt = f"{tmp}/poses.txt"
+    node.save_poses(poses_txt)
+    rows = np.loadtxt(poses_txt, ndmin=2)
+    n_marg = sum(1 for sh in fs.shells if sh.is_kf and sh.marginalized_at >= 0)
+    n_edges = sum(len(f["edges"]) for f in loop.frames)
+    n_scans = sum(1 for f in loop.frames if len(f["pts_sc"]))
+    n_pts = [0 if f["pts_cam"] is None else len(f["pts_cam"])
+             for f in loop.frames]
+    ate, path = synthetic.metric_ate(rows, scene["poses"]) \
+        if len(rows) >= 2 else (float("nan"), 0.0)
+    log(f"{tag} (a) SlamNode over the flagship scene ({n_run} frames, "
+        f"{W}x{H}, loop_lidar_range {LOOP_LIDAR}): keyframes "
+        f"{fs.kf_shell_ids}, {n_marg} marginalized, {len(loop.frames)} "
+        f"records in the loop handler with {n_pts} points, {n_edges} "
+        f"odometry edges, {n_scans} scans, {loop.n_loop_edges} loop edges; "
+        f"poses.txt {rows.shape[0]} rows, metric ATE {ate:.4f} m over "
+        f"{path:.3f} m; {node_s:.2f} s for the run "
+        f"({n_run / node_s:.2f} frames/s); launches K1-K4 {counts}")
+    if not fs.initialized or fs.is_lost or fs.init_failed:
+        raise AssertionError("node run failed: initialized="
+                             f"{fs.initialized} lost={fs.is_lost}")
+    # loop closure changes no odometry result: the same frames as the
+    # node rectified them (the remap zeroes the one-pixel border, where
+    # its sample would leave the image, so the flagship phase's own frames
+    # are not the node's) through a FullSystem with loop closure off give
+    # the node's keyframes
+    ref = FullSystem(calib, default_settings(
+        weight_imu_dso=6.0, scale_opt_thres=12.0, min_g_imu=10), stereo=
+        StereoCalib(T_lr=scene["T_lr"], calib_right=node.stereo.calib_right),
+        device=dev)
+    for i in range(FLAG_FRAMES):
+        ref.add_active_frame(node.und0.undistort(scene["left"][i]),
+                             timestamp=i * FLAG_DT, frame_id=i,
+                             image_right=node.und1.undistort(
+                                 scene["right"][i]),
+                             imu_samples=scene["imu"][i])
+    log(f"{tag} (a) the same rectified frames through a FullSystem without "
+        f"loop closure: keyframes {ref.kf_shell_ids}; the flagship phase's "
+        f"own frames gave {flag['kf_ids']}")
+    if fs.kf_shell_ids != ref.kf_shell_ids:
+        raise AssertionError(f"node keyframes {fs.kf_shell_ids} differ from "
+                             f"the loop-free run's {ref.kf_shell_ids}")
+    del ref
+    if len(loop.frames) != n_marg or n_marg == 0:
+        raise AssertionError(f"{len(loop.frames)} records reached the loop "
+                             f"handler for {n_marg} marginalized keyframes")
+    if n_edges != len(loop.frames) - 1 or not all(
+            np.isfinite(f["dso_error"]) for f in loop.frames):
+        raise AssertionError(f"{n_edges} odometry edges for "
+                             f"{len(loop.frames)} keyframes, dso_error "
+                             f"{[f['dso_error'] for f in loop.frames]}")
+    if n_scans < 1:
+        raise AssertionError("no scan was assembled")
+    if rows.shape != (n_marg, 4) or not ate <= 0.15 * path + 0.03:
+        raise AssertionError(f"poses.txt {rows.shape}: ATE {ate} over "
+                             f"{path}")
+    for name, c in zip(("K1", "K2", "K3", "K4"), counts):
+        if c <= 0:
+            raise AssertionError(f"{name} was not launched on the node path")
+    for k, c in zip(kernels, counts):
+        k["launches_node"] = c
+    phase_done("[loop] (a) node run")
+
+    # (c) ---- estimate_direct on a record of (a): its own pyramid ----
+    rec = max(loop.frames, key=lambda f: 0 if f["pts_cam"] is None
+              else len(f["pts_cam"]))
+    pts, inten, valid = LH._pad_points(rec["pts_cam"], rec["intensities"])
+    T0 = se3(lie, torch, [0.02, 0.0, 0.0, 0.0, np.deg2rad(1.0), 0.0]) \
+        .astype(np.float32)
+    intr = tuple(calib.intrinsics(lvl) for lvl in range(calib.levels))
+
+    def direct(device):
+        return PE.estimate_direct(
+            tuple(p.to(device) for p in rec["pyramid"]),
+            *(torch.as_tensor(a, device=device) for a in (pts, inten, valid,
+                                                          T0)),
+            intr, calib.levels, settings.loop_direct_thres)
+
+    direct(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Tg, okg, rg = direct(dev)
+    torch.cuda.synchronize()
+    direct_ms = (time.perf_counter() - t0) * 1e3
+    Tc, okc, rc = direct("cpu")
+    dT = float((Tg.cpu() - Tc).abs().max())
+    drms = abs(float(rg) - float(rc))
+    log(f"{tag} (c) estimate_direct on record {rec['incoming_id']} "
+        f"({int(valid.sum())} points, its own pyramid, from 2 cm and 1 "
+        f"deg off): ok {bool(okg)} rms {float(rg):.4f} on the card, ok "
+        f"{bool(okc)} rms {float(rc):.4f} on the CPU; |T_card - T_cpu| "
+        f"{dT:.2e}; {direct_ms:.1f} ms on the card")
+    if not (bool(okg) and bool(okc) == bool(okg)):
+        raise AssertionError("estimate_direct refused its own pyramid")
+    if dT > 1e-4 * max(1.0, float(Tc.abs().max())) + 1e-4 * float(
+            Tc.abs().max()) or drms > 1e-3 * max(1.0, abs(float(rc))):
+        raise AssertionError(f"estimate_direct card vs CPU: |dT| {dT}, "
+                             f"|drms| {drms}")
+    phase_done("[loop] (c) estimate_direct")
+
+    # (b) ---- LoopHandler alone on the pillar scene ----
+    gt, odo, recs = pillar_scene(lie, torch)
+    hs = {"sync": None, "async": None}
+    for mode in hs:
+        lh = LH.LoopHandler(
+            default_settings(scale_opt_thres=12.0,
+                             loop_lidar_range=LOOP_RANGE, loop_icp_thres=1.0,
+                             scan_context_thres=0.42),
+            PILLAR_INTR, 1, ringkey_margin=6, async_mode=(mode == "async"),
+            device=dev)
+        t0 = time.perf_counter()
+        for i, pts_uvdi in enumerate(recs):
+            sh = FrameShell(id=i, timestamp=i * 0.5,
+                            cam_to_world=odo[i].copy(), aff=np.zeros(2))
+            sh.cam_to_world_scaled = odo[i].copy()
+            lh.on_keyframe(dict(shell=sh, pts_uvdi=pts_uvdi,
+                                intensities=np.zeros((len(pts_uvdi), 1),
+                                                     np.float32),
+                                pyramid=None, dso_error=1.0,
+                                scale_error=2.0))
+        lh.join()
+        hs[mode] = (lh, time.perf_counter() - t0)
+    lh, sync_s = hs["sync"]
+    traj = lh.trajectory()
+    ids = traj[:, 0].astype(int)
+    r_odo = rigid_ate(odo[ids, :3, 3], gt[ids, :3, 3])
+    r_opt = rigid_ate(traj[:, 1:4], gt[ids, :3, 3])
+    same = np.array_equal(traj, hs["async"][0].trajectory())
+    log(f"{tag} (b) LoopHandler, pillar scene ({LOOP_KFS} keyframes): "
+        f"{lh.n_loop_edges} loop edges, {lh.n_icp} verified by ICP, "
+        f"{lh.n_direct} by direct alignment; rigid-aligned ATE {r_odo:.3f} m"
+        f" -> {r_opt:.3f} m; sync {sync_s:.2f} s, async "
+        f"{hs['async'][1]:.2f} s, same poses: {same}; graph solves "
+        + ", ".join(f"{1e3 * x:.0f} ms" for x in lh.timing["graph"]))
+    if not (lh.n_loop_edges >= 1 and lh.n_icp >= 1):
+        raise AssertionError("no loop closure fired on the pillar scene")
+    if not r_opt < 0.6 * r_odo:
+        raise AssertionError(f"drift not corrected: {r_odo} -> {r_opt}")
+    if not same:
+        raise AssertionError("the async handler's poses differ from sync")
+    phase_done("[loop] (b) handler")
+
+    # (d) ---- the pose graph at 1000 keyframes ----
+    gt, odo, pairs, args = pose_graph_scene(lie, torch)
+    targs = tuple(torch.as_tensor(a, device=dev) for a in args)
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        T_opt = PG.optimize_pose_graph(*targs)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    T_opt = T_opt.cpu().numpy().astype(np.float64)
+    errs = [(loop_error(lie, odo, gt, a, b), loop_error(lie, T_opt, gt, a, b))
+            for a, b in pairs]
+    log(f"{tag} (d) optimize_pose_graph, 1000 keyframes (N=1024, Ec=1024, "
+        f"El=16, 4 loop edges, 25 LM iterations): first call "
+        f"{walls[0]:.2f} s, warm {walls[1]:.2f} s wall; loop errors "
+        + ", ".join(f"{e0:.3f} -> {e1:.4f}" for e0, e1 in errs))
+    for (a, b), (e0, e1) in zip(pairs[:3], errs[:3]):
+        if not e1 < 0.5 * e0:
+            raise AssertionError(f"pose graph: loop ({a}, {b}) {e0} -> {e1}")
+    if not np.isfinite(T_opt).all():
+        raise AssertionError("pose graph: non-finite poses")
+    phase_done("[loop] (d) pose graph")
 
 
 def run(torch):
@@ -1030,8 +1369,11 @@ def run(torch):
         imgs[i], timestamp=i * 0.05, frame_id=i), N_FRAMES, PROF_FRAMES)
     phase_done("mono profile")
     del fs
-    flagship(torch, dev, card, kernels)
+    flag = flagship(torch, dev, card, kernels)
     phase_done("flagship scene")
+    loop_phase(torch, dev, card, kernels, flag)
+    del flag
+    phase_done("loop phase")
     wrapper_stats = time_kernels(torch, kernels, timings)
     phase_done("kernel times")
     n_ops, crossing = wrapper_stats["[K3]"]
@@ -1055,7 +1397,9 @@ def run(torch):
     log("kernels, launches on the mono slice: " + ", ".join(
         f"K{i + 1}={k['launches']}" for i, k in enumerate(kernels))
         + "; on the flagship scene: " + ", ".join(
-        f"K{i + 1}={k['launches_flagship']}" for i, k in enumerate(kernels)))
+        f"K{i + 1}={k['launches_flagship']}" for i, k in enumerate(kernels))
+        + "; through SlamNode with loop closure: " + ", ".join(
+        f"K{i + 1}={k['launches_node']}" for i, k in enumerate(kernels)))
     log(json.dumps({"kernels": kernels}))
     log(f"{card}")
     log(json.dumps({"ok": True, "device": {

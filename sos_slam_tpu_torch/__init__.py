@@ -10,8 +10,11 @@ PyTorch twin when its tensors lie on the CPU.
 
 The port covers the monocular main path (initializer, coarse tracker,
 immature-point trace/activation, windowed BA with FEJ marginalization),
-the stereo 1-DoF metric-scale solve and the continuous-time spline VIO
-with its visual-inertial KKT BA. Loop closure and IO come later.
+the stereo 1-DoF metric-scale solve, the continuous-time spline VIO
+with its visual-inertial KKT BA, loop closure (Scan Context, direct +
+ICP verification, the SE(3) pose graph) and the SlamNode driver with its
+command line (`python -m sos_slam_tpu_torch`). The viewer, snapshots and
+trajectory evaluation come later.
 """
 
 __version__ = "0.1.0"

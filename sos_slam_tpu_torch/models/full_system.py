@@ -31,7 +31,13 @@ the keyframe decision and the marginalization flags are made on the host
 in f64, and the fifth keyframe initializes the IMU (`_make_keyframe_vio`);
 after that every frame takes the fused path.
 
-Loop closure is a later slice: enabling it raises NotImplementedError.
+The export side feeds loop closure and the output wrappers: every frame
+marginalization hands the dying keyframe's record (`_export_kf`: its own
+pyramid, its marginalized points with per-level intensities, dso_error
+from the energy column of the state before the fold, scale_error) to each
+of `marg_callbacks` and publishes it on `output_wrappers`. With no
+consumer attached, the point cache, the energy column and the sampling
+are skipped, so the odometry runs op for op as it does without them.
 """
 
 from __future__ import annotations
@@ -91,6 +97,16 @@ def _np(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
+def _np_bilinear(img: np.ndarray, u: np.ndarray, v: np.ndarray) -> np.ndarray:
+    h, w = img.shape
+    x0 = np.clip(np.floor(u), 0, w - 2).astype(int)
+    y0 = np.clip(np.floor(v), 0, h - 2).astype(int)
+    dx = np.clip(u - x0, 0, 1)
+    dy = np.clip(v - y0, 0, 1)
+    return (img[y0, x0] * (1 - dx) * (1 - dy) + img[y0, x0 + 1] * dx * (1 - dy)
+            + img[y0 + 1, x0] * (1 - dx) * dy + img[y0 + 1, x0 + 1] * dx * dy)
+
+
 def _pad_hyps(hyps, size):
     out = list(hyps)[:size]
     while len(out) < size:
@@ -105,10 +121,6 @@ _STATE_KEYS = ("ba", "imu", "imm", "dI", "min_act", "HdiF", "templates",
 class FullSystem:
     def __init__(self, calib: CalibPyramid, settings: Settings,
                  stereo: Optional[StereoCalib] = None, device=None):
-        if settings.enable_loop_closure:
-            raise NotImplementedError(
-                "the port runs mono, stereo scale and VIO; loop closure is "
-                "not ported yet")
         if settings.enable_scale_opt and stereo is None:
             raise ValueError("enable_scale_opt requires a StereoCalib")
         self.device = dev = resolve_device(device)
@@ -144,6 +156,7 @@ class FullSystem:
             res_state=z(P, F, dtype=torch.int8),
             HM=z(D, D), bM=z(D))
         self.dI = z(F, self.h, self.w, 3)
+        self.frame_pyramids: List = [None] * F        # full pyramid per slot
         self.frame_shell_idx: List[int] = []
         self.HdiF = z(P)
         N = settings.max_immature
@@ -175,7 +188,16 @@ class FullSystem:
         self.shells: List[FrameShell] = []
         self._shell_by_id: dict = {}
         self.kf_shell_ids: List[int] = []
+        # carried-over world pose for reinitialization: when set (by
+        # SlamNode after an init failure), the rebuilt system's first KF
+        # starts here instead of the gravity-aligned origin
+        # (SlamNode.cpp:174-189 curPose carry + FullSystem.cpp:1040-1042)
+        self.initial_pose: Optional[np.ndarray] = None
         self.host_out = np.zeros(F, np.int64)
+        # per-slot caches of marginalized points ([u, v, idepth] rows): the
+        # analog of pointHessiansMarginalized, read by the loop closure
+        self._marg_pts_cache: List[list] = [[] for _ in range(F)]
+        self._last_dso_error = 1e6
         self.key = rng.PRNGKey(3141592)
         self._sel_pot = 3
         self._last_chain = None
@@ -192,6 +214,8 @@ class FullSystem:
         self.imu_initialized = False
         self.imu_queue: List = []   # (t, acc(3,), gyro(3,)) since last KF
         self._last_bg = None        # host copy of the gyro bias (fused VIO)
+        self.marg_callbacks = []     # loop-closure hooks: fn(kf_record)
+        self.output_wrappers = []    # Output3DWrapper publishers
         self.stats = dict(n_kf=0, n_frames=0)
         self.telemetry = Telemetry()
 
@@ -333,6 +357,11 @@ class FullSystem:
                                                  torch.zeros_like(lv0.iR)))
                            / max(int(torch.sum(good)), 1))
         T0 = self._gravity_aligned_pose()
+        # reinitialization: a carried-over pose overrides the fresh origin
+        # (FullSystem.cpp:1040-1042: curPose kept unless ~identity)
+        if self.initial_pose is not None and \
+                np.linalg.norm(lie.np_se3_log(self.initial_pose)) > 1e-3:
+            T0 = np.asarray(self.initial_pose, np.float32)
         first_shell = self.init_first_shell
         self.ba = WIN.insert_frame(
             self.ba, torch.as_tensor(T0, device=dev),
@@ -340,6 +369,7 @@ class FullSystem:
             torch.tensor(float(self.init_first_exposure), device=dev),
             self._prior_row(first=True))
         self.dI[0] = self.init_first_pyr[0]
+        self.frame_pyramids[0] = self.init_first_pyr
         self.frame_shell_idx = [first_shell.shell_idx]
         self.kf_shell_ids.append(first_shell.id)
         first_shell.is_kf = True
@@ -697,6 +727,8 @@ class FullSystem:
         if tres is None:
             self.is_lost = True
             return True
+        for ow in self.output_wrappers:
+            ow.publish_cam_pose(shell, None)
         if not rec["accept"]:
             # fallback tracking was used: decide classically
             need_kf = self._keyframe_decision(tres, shell)
@@ -822,6 +854,8 @@ class FullSystem:
             self.is_lost = True
             return
         need_kf = self._keyframe_decision(tres, shell)
+        for ow in self.output_wrappers:
+            ow.publish_cam_pose(shell, None)
         self._deliver(pyr, shell, exposure, need_kf, traced=accept,
                       stats=stats)
 
@@ -880,6 +914,7 @@ class FullSystem:
         s = self.settings
         shell = rec["shell"]
         slot = rec["slot"]
+        self.frame_pyramids[slot] = rec["pyr"]
         self.frame_shell_idx.append(shell.shell_idx)
         self.kf_shell_ids.append(shell.id)
         shell.is_kf = True
@@ -930,12 +965,21 @@ class FullSystem:
                     rec["imm_pre_select"], rec["pyr"][0], slot, k2, redo)
             self._sel_pot = redo
 
-        for k in rec["marg_ks"]:   # descending: lower slots stay valid
+        exporting = self._exporting()
+        if exporting:
+            self._cache_marg_points(rec["marg"], rec["marg_pts"])
+            self._publish_kf(shell, rec["pyr"])
+            ecols = _np(torch.stack([torch.stack([e, n.to(e.dtype)])
+                                     for e, n in rec["ecols"]])) \
+                if rec["ecols"] else []
+        for j, k in enumerate(rec["marg_ks"]):  # descending: lower slots
             self.shells[self.frame_shell_idx[k]].marginalized_at = \
                 len(self.shells)
-            del self.frame_shell_idx[k]
-            if self.ref_slot > k:
-                self.ref_slot -= 1
+            kf_record = self._export_kf(k, float(ecols[j][0]),
+                                        int(ecols[j][1])) \
+                if exporting else None
+            self._drop_slot(k)
+            self._emit(kf_record)
 
     def _kf_chain(self, imm, pyr, T_cw_new, aff_new, exposure, stats,
                   host_out, n_kf: int, shell_id: int, max_its: int,
@@ -963,19 +1007,21 @@ class FullSystem:
         T_cw_all = B.state_to_pose(ba.T_cw_eval, ba.state)
         affs = B.aff_real(ba.state)
         imm_pre_select = imm
+        marg_pts = (ba.host, ba.u, ba.v, ba.idepth)   # loop-cache source
         ba, marg, died = self._marg_points(ba, dI, HdiF,
                                            self._flag_mask(marg_ks))
         imm, n_have = self._select_insert(imm, pyr[0], slot, key,
                                           self._sel_pot)
         host_out = host_out + died
-        ba, imm, _, dI, host_out = self._marg_frames_chain(
+        ba, imm, _, dI, host_out, ecols = self._marg_frames_chain(
             ba, imm, None, dI, host_out, marg_ks)
         return dict(
             state=dict(ba=ba, imu=self.imu, imm=imm, dI=dI, min_act=min_act,
                        HdiF=HdiF, templates=templates, pc_l0=pc_l0),
             ba_stats=ba_stats, T_cw_all_t=T_cw_all, affs_t=affs,
             marg_ks=marg_ks, n_have=n_have, host_out=host_out,
-            imm_pre_select=imm_pre_select,
+            imm_pre_select=imm_pre_select, marg=marg, marg_pts=marg_pts,
+            ecols=ecols,
             scale_out=self._scale_solve(templates, scale_state))
 
     def _kf_chain_vio(self, imm, pyr, T_cw_new, aff_new, exposure, stats,
@@ -1034,13 +1080,14 @@ class FullSystem:
         # VIO point marginalization + new-trace selection
         marg, drop, died = self._flag_points(ba3, HdiF,
                                              self._flag_mask(marg_ks))
+        marg_pts = (ba3.host, ba3.u, ba3.v, ba3.idepth)
         ba4, imu5 = E.marginalize_points_vio(ba3, imu3, dI, marg, s, self.w,
                                              self.h)
         ba4 = E.drop_points(ba4, drop)
         imm3, n_have = self._select_insert(imm2, pyr[0], slot, key,
                                            self._sel_pot)
         host_out = host_out + _np(died)
-        ba4, imm3, imu5, dI, host_out = self._marg_frames_chain(
+        ba4, imm3, imu5, dI, host_out, ecols = self._marg_frames_chain(
             ba4, imm3, imu5, dI, host_out, marg_ks)
         newest = int(torch.sum(ba4.frame_valid)) - 1
         bg = (imu5.state[newest] * IM._s21(imu5.state))[3:6]
@@ -1049,13 +1096,22 @@ class FullSystem:
                        HdiF=HdiF, templates=templates, pc_l0=pc_l0),
             ba_stats=ba_stats, T_cw_all_t=T_cw_all, affs_t=affs,
             marg_ks=marg_ks, n_have=n_have, host_out=host_out,
-            imm_pre_select=imm2, scale_out=scale_out, bg=bg)
+            imm_pre_select=imm2, scale_out=scale_out, bg=bg, marg=marg,
+            marg_pts=marg_pts, ecols=ecols)
 
     def _marg_frames_chain(self, ba, imm, imu, dI, host_out, marg_ks):
         """The chain's frame marginalizations (descending slots) and the one
-        image-stack compaction after them. `imu` None: vision mode."""
+        image-stack compaction after them. `imu` None: vision mode. With a
+        consumer attached, also each dying slot's energy column on the
+        state before its fold, its image read through the slot -> row
+        map. Returns (ba, imm, imu, dI, host_out, [(e_col, n_col)])."""
         dimap = list(range(self.F))
+        ecols = []
+        exporting = self._exporting()
         for k in marg_ks:
+            if exporting:
+                ecols.append(B.col_energy(ba, dI, k, self.settings, self.w,
+                                          self.h, row=dimap[k]))
             ba, imm, imu = self._marg_frame(ba, imm, imu, k)
             dimap = dimap[:k] + dimap[k + 1:] + [dimap[k]]
             host_out = np.concatenate([host_out[:k], host_out[k + 1:], [0]])
@@ -1063,7 +1119,7 @@ class FullSystem:
         if dimap != list(range(self.F)):
             dI = dI[torch.tensor(dimap, device=self.device)]
         dI[n_live:] = 0.0
-        return ba, imm, imu, dI, host_out
+        return ba, imm, imu, dI, host_out, ecols
 
     def _kf_core_vio(self, ba, imu, dI, pyr, max_its: int):
         """Windowed visual-inertial BA + HdiF + tracker template + poses
@@ -1154,6 +1210,7 @@ class FullSystem:
         if slot >= self.F:
             raise RuntimeError("window overflow — marginalization failed")
         prior_row = self._prior_row(first=len(self.kf_shell_ids) == 0)
+        self.frame_pyramids[slot] = pyr
         self.frame_shell_idx.append(shell.shell_idx)
         self.kf_shell_ids.append(shell.id)
         shell.is_kf = True
@@ -1241,6 +1298,8 @@ class FullSystem:
         self._update_scaled_poses()
 
         self._flag_and_marginalize_points(marg_flags)
+        if self._exporting():
+            self._publish_kf(shell, pyr)
         self._make_new_traces(pyr, slot)
         self._marginalize_frames(marg_flags)
 
@@ -1363,16 +1422,20 @@ class FullSystem:
         classic path."""
         s = self.settings
         flagged = self._flag_mask(frame_marg_flags)
+        ba = self.ba
         if s.enable_imu and self.imu_initialized:
-            marg, drop, died = self._flag_points(self.ba, self.HdiF, flagged)
+            marg, drop, died = self._flag_points(ba, self.HdiF, flagged)
             self.ba, self.imu = E.marginalize_points_vio(
-                self.ba, self.imu, self.dI, marg, s, self.w, self.h)
+                ba, self.imu, self.dI, marg, s, self.w, self.h)
             self.ba = E.drop_points(self.ba, drop)
             died = _np(died)
         else:
-            self.ba, _, died = self._marg_points(self.ba, self.dI, self.HdiF,
-                                                 flagged)
+            self.ba, marg, died = self._marg_points(ba, self.dI, self.HdiF,
+                                                    flagged)
         self.host_out += died
+        if self._exporting():
+            # the pre-marginalization arrays, which `ba` still holds
+            self._cache_marg_points(marg, (ba.host, ba.u, ba.v, ba.idepth))
 
     def _make_new_traces(self, pyr, slot):
         """makeNewTraces (FullSystem.cpp:1071-1097) on the classic path:
@@ -1402,20 +1465,117 @@ class FullSystem:
         """Marginalize flagged window slots on the classic path (highest
         first so that indices hold)."""
         vio = self.settings.enable_imu and self.imu_initialized
+        exporting = self._exporting()
         for k in sorted(flags, reverse=True):
             self.shells[self.frame_shell_idx[k]].marginalized_at = \
                 len(self.shells)
+            kf_record = None
+            if exporting:
+                # dso_error needs the residuals targeting k: export first
+                e_col, n_col = B.col_energy(self.ba, self.dI, k,
+                                            self.settings, self.w, self.h)
+                kf_record = self._export_kf(k, float(e_col), int(n_col))
             self.ba, self.imm, imu = self._marg_frame(
                 self.ba, self.imm, self.imu if vio else None, k)
             if vio:
                 self.imu = imu
             self.dI = torch.cat([self.dI[:k], self.dI[k + 1:],
                                  torch.zeros_like(self.dI[:1])], 0)
-            del self.frame_shell_idx[k]
             self.host_out[k:-1] = self.host_out[k + 1:].copy()
             self.host_out[-1] = 0
-            if self.ref_slot > k:
-                self.ref_slot -= 1
+            self._drop_slot(k)
+            self._emit(kf_record)
+
+    # ------------------------------------------------------------------
+    # the export side: loop-closure records and output wrappers
+    # ------------------------------------------------------------------
+    def _exporting(self) -> bool:
+        """Whether anything consumes keyframe records: without a consumer
+        the point cache, the energy columns and the sampling are skipped."""
+        return bool(self.marg_callbacks or self.output_wrappers)
+
+    def _drop_slot(self, k: int) -> None:
+        """Host bookkeeping of window slot k's marginalization: the slots
+        above it move down one."""
+        self.frame_pyramids = (self.frame_pyramids[:k]
+                               + self.frame_pyramids[k + 1:] + [None])
+        del self.frame_shell_idx[k]
+        del self._marg_pts_cache[k]
+        self._marg_pts_cache.append([])
+        if self.ref_slot > k:
+            self.ref_slot -= 1
+
+    def _emit(self, kf_record) -> None:
+        """publishKeyframes(final=true) of a marginalized keyframe."""
+        if kf_record is None:
+            return
+        for cb in self.marg_callbacks:
+            cb(kf_record)
+        for ow in self.output_wrappers:
+            ow.publish_keyframes(kf_record, final=True)
+
+    def _cache_marg_points(self, marg, marg_pts) -> None:
+        """Append the marginalized points' [u, v, idepth] rows to their
+        host slot's cache (pointHessiansMarginalized)."""
+        m = marg.cpu()
+        if not bool(m.any()):
+            return
+        rows = _np(torch.stack([a[marg].to(torch.float32)
+                                for a in marg_pts], -1))
+        for hh, uu, vv, ii in rows:
+            self._marg_pts_cache[int(hh)].append((uu, vv, ii))
+
+    def _publish_kf(self, shell, pyr) -> None:
+        """Non-final keyframe + the level-0 inverse-depth image of its
+        tracking template, to every output wrapper."""
+        if not self.output_wrappers:
+            return
+        u_t, v_t, id_t, ok_t = (_np(a) for a in self.pc_l0)
+        idmap = np.zeros((self.h, self.w), np.float32)
+        sel = ok_t.astype(bool)
+        idmap[v_t[sel].astype(int), u_t[sel].astype(int)] = id_t[sel]
+        img0 = _np(pyr[0][..., 0])
+        for ow in self.output_wrappers:
+            ow.publish_keyframes(dict(shell=shell), final=False)
+            ow.push_depth_image(img0, idmap)
+
+    def _export_kf(self, k: int, e_col: float, n_col: int) -> dict:
+        """Final-KF record for loop closure / output (publishKeyframes
+        final=true, LoopHandler.cpp:142-220): metric-rescaled [u, v, idepth]
+        points, per-level intensities, the slot's own pyramid, dso_error /
+        scale_error. e_col/n_col: energy/count of the residuals targeting
+        the dying frame on the state before its marginalization
+        (FullSystemMarginalize.cpp:151-187)."""
+        sh = self.shells[self.frame_shell_idx[k]]
+        if n_col > 0:
+            dso_error = e_col / n_col / n_col
+            self._last_dso_error = dso_error
+        else:
+            dso_error = 10.0 * self._last_dso_error
+        pts = np.array(self._marg_pts_cache[k], np.float32).reshape(-1, 3)
+        scale = max(sh.scale, 1e-9)
+        pyramid = self.frame_pyramids[k]
+        if len(pts) and pyramid is not None:
+            pts_uvdi = pts.copy()
+            pts_uvdi[:, 2] = pts[:, 2] / scale    # idepth -> metric
+            inten = np.zeros((len(pts), self.n_levels), np.float32)
+            # the intensity planes in one transfer
+            flat = _np(torch.cat([p[..., 0].reshape(-1) for p in pyramid]))
+            at = 0
+            for lvl, p in enumerate(pyramid):
+                hl, wl = p.shape[0], p.shape[1]
+                img = flat[at:at + hl * wl].reshape(hl, wl)
+                at += hl * wl
+                u = (pts[:, 0] + 0.5) / (1 << lvl) - 0.5
+                v = (pts[:, 1] + 0.5) / (1 << lvl) - 0.5
+                inten[:, lvl] = _np_bilinear(img, u, v)
+        else:
+            pts_uvdi = np.zeros((0, 3), np.float32)
+            inten = np.zeros((0, self.n_levels), np.float32)
+        return dict(shell=sh, slot=k, pts_uvdi=pts_uvdi, intensities=inten,
+                    pyramid=pyramid, dso_error=dso_error,
+                    scale_error=sh.scale_error,
+                    calib=self.calib.intrinsics(0))
 
     # ------------------------------------------------------------------
     # device steps of the chain

@@ -23,7 +23,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from sos_slam_tpu_torch.ops.image import interp_bilinear_frames
+from sos_slam_tpu_torch.ops.image import (interp_bilinear,
+                                          interp_bilinear_frames)
 from sos_slam_tpu_torch.ops.numerics import solve
 from sos_slam_tpu_torch.utils import lie
 from sos_slam_tpu_torch.utils.config import CPARS, PATTERN_OFFSETS, Settings
@@ -322,6 +323,89 @@ def linearize(ba: BAState, pre: Precalc, dI: torch.Tensor,
                    JabF=JabF * m4, JIdx2=JIdx2 * m4, JabJIdx=JabJIdx * m4,
                    Jab2=Jab2 * m4, energy=energy, energy_raw=energy_raw,
                    new_state=new_state, active=active)
+
+
+def linearize_energy_col(ba: BAState, pre: Precalc, dI: torch.Tensor, k: int,
+                         settings: Settings, w: int, h: int,
+                         row: int | None = None):
+    """Energy + residual state of the single target-frame column `k`: the
+    k-column of `linearize(...)`'s (energy, new_state) at 1/F of the
+    gather. Used for the dying frame's dso_error sum inside a frame
+    marginalization (FullSystemMarginalize.cpp:151-187).
+
+    `row` is the dI row holding slot k's image (defaults to k; the chain
+    defers the image-stack compaction and passes its slot -> row map).
+
+    Returns (energy (P,), new_state (P,) int8)."""
+    if row is None:
+        row = k
+    fx, fy, cx, cy = calib_real(ba)
+    H, W = dI.shape[1], dI.shape[2]
+    pat = pattern(ba.u.device)
+    hostP = ba.host.long()
+    R0 = pre.R0[hostP, k]
+    t0 = pre.t0[hostP, k]
+    Rc = pre.R[hostP, k]
+    tc = pre.t[hostP, k]
+    affLL = pre.affLL[hostP, k]
+
+    # geometry at FEJ (center pixel, idepth_zero): the OOB gate
+    KliP = torch.stack([(ba.u - cx) / fx, (ba.v - cy) / fy,
+                        torch.ones_like(ba.u)], -1)
+    ptp = torch.einsum("pij,pj->pi", R0, KliP) + t0 * ba.idepth_zero[:, None]
+    drescale = 1.0 / ptp[..., 2]
+    geo_ok = drescale > 0
+    Ku = ptp[..., 0] * drescale * fx + cx
+    Kv = ptp[..., 1] * drescale * fy + cy
+    geo_ok &= (Ku > 1.1) & (Kv > 1.1) & (Ku < w - 3) & (Kv < h - 3)
+
+    # pattern at the current state
+    up = ba.u[:, None] + pat[None, :, 0]
+    vp = ba.v[:, None] + pat[None, :, 1]
+    KliPp = torch.stack([(up - cx) / fx, (vp - cy) / fy,
+                         torch.ones_like(up)], -1)
+    ptp_c = torch.einsum("pij,pkj->pki", Rc, KliPp) \
+        + tc[:, None, :] * ba.idepth[:, None, None]
+    z = ptp_c[..., 2]
+    pat_ok = z > 1e-6
+    Kup = ptp_c[..., 0] / z * fx + cx
+    Kvp = ptp_c[..., 1] / z * fy + cy
+    pat_ok &= (Kup > 1.1) & (Kvp > 1.1) & (Kup < w - 3) & (Kvp < h - 3)
+    hit = interp_bilinear(dI[row], Kup, Kvp)
+    ok = geo_ok[:, None] & pat_ok & torch.isfinite(hit[..., 0])
+    oob = ~torch.all(ok, -1)
+
+    r = hit[..., 0] - (affLL[..., 0:1] * ba.color + affLL[..., 1:2])
+    gx, gy = hit[..., 1], hit[..., 2]
+    oc = settings.outlier_th_sum_component
+    wgrad = torch.sqrt(oc / (oc + gx * gx + gy * gy))
+    wgt = 0.5 * (wgrad + ba.weight)
+    hw = huber_weights(torch.abs(r), settings.huber_th)
+    energy_raw = torch.sum(wgt * wgt * hw * r * r * (2.0 - hw), -1)
+    hw2 = torch.where(hw < 1.0, torch.sqrt(hw), hw) * wgt
+    wJI2 = torch.sum(hw2 * hw2 * (gx * gx + gy * gy), -1)
+
+    th = torch.maximum(ba.energy_th[hostP], ba.energy_th[k])
+    outlier = (energy_raw > th) | (wJI2 < 2.0)
+    energy = torch.where(outlier, th, energy_raw)
+    prev_oob = ba.res_state[:, k] == RES_OOB
+    new_state = torch.where(
+        oob | prev_oob, RES_OOB,
+        torch.where(outlier, RES_OUTLIER, RES_IN)).to(torch.int8)
+    return energy, new_state
+
+
+def col_energy(ba: BAState, dI: torch.Tensor, k: int, settings: Settings,
+               w: int, h: int, row: int | None = None):
+    """Sum and count of the live residual energies targeting slot k on the
+    state before its marginalization (`_frame_residual_energy`): the
+    ingredients of the exported keyframe's dso_error. Returns two 0-d
+    tensors (e_col, n_col)."""
+    energy, new_state = linearize_energy_col(ba, make_precalc(ba), dI, k,
+                                             settings, w, h, row=row)
+    col = ba.res_exist[:, k] & ba.pt_valid & (new_state == RES_IN)
+    return (torch.sum(torch.where(col, energy, torch.zeros_like(energy))),
+            torch.sum(col))
 
 
 def res_to_zero(ba: BAState, pre: Precalc, lin: LinData) -> torch.Tensor:

@@ -143,6 +143,11 @@ def se3_adj(T: torch.Tensor) -> torch.Tensor:
     return A
 
 
+def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Apply (4,4) transform(s) to (…,3) points."""
+    return pts @ T[..., :3, :3].transpose(-1, -2) + T[..., :3, 3]
+
+
 # ---------------------------------------------------------------------------
 # float64 numpy twins for host-side pose bookkeeping
 # ---------------------------------------------------------------------------

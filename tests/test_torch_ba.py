@@ -241,3 +241,29 @@ def test_marginalize_points_and_frame(win):
         exact(getattr(fj, f), getattr(ft, f))
     for f in ("HM", "bM", "state", "T_cw_eval", "prior", "exposure"):
         close(getattr(fj, f), getattr(ft, f), tol=GN_TOL)
+
+
+@pytest.mark.parametrize("k", [0, 1, 2])
+def test_linearize_energy_col_matches(win, k):
+    """The dying frame's energy column (sos_slam_tpu/ops/ba.py:441), also
+    read through a row map (the chain's deferred image compaction), and
+    the k-column of the full linearization."""
+    ba, dI, pre, bt, dIt, pre_t = win
+    ej, sj = JB.linearize_energy_col(ba, pre, dI, jnp.int32(k), SETTINGS,
+                                     W, H)
+    et, st = TB.linearize_energy_col(bt, pre_t, dIt, k, SETTINGS, W, H)
+    exact(sj, st)
+    close(ej, et)
+    lt = TB.linearize(bt, pre_t, dIt, SETTINGS, W, H)
+    exact(lt.new_state[:, k], st)
+    close(lt.energy[:, k], et)
+    # slot k's image held in another row of a shuffled stack
+    perm = np.roll(np.arange(dIt.shape[0]), 1)
+    et2, st2 = TB.linearize_energy_col(bt, pre_t, dIt[perm], k, SETTINGS,
+                                       W, H, row=int(np.argmax(perm == k)))
+    exact(st, st2)
+    exact(et, et2)
+    e_col, n_col = TB.col_energy(bt, dIt, k, SETTINGS, W, H)
+    col = np.asarray(ba.res_exist[:, k] & ba.pt_valid) & (np.asarray(sj) == 0)
+    exact(n_col, col.sum())
+    close(e_col, np.sum(np.where(col, np.asarray(ej), 0.0)))

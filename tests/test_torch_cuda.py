@@ -403,3 +403,181 @@ def test_k3_on_the_flagship_path(flagship_calls, who):
 def test_k1_on_a_right_image(flagship_calls):
     _, right, n_levels = flagship_calls
     _k1_against_plain(right.contiguous(), n_levels)
+
+
+# ---- loop closure: the pose graph, ICP and the direct alignment on the
+# card against the same calls on the CPU, and one SlamNode run ----
+
+def _se3(xi):
+    from sos_slam_tpu_torch.utils import lie
+    return lie.se3_exp(torch.tensor(xi, dtype=torch.float32)).numpy() \
+        .astype(np.float64)
+
+
+def _pose_graph_inputs(n, N, step, drift_xi, loops, fixed_idx):
+    """A drifted chain of n vertices (padded to N) with loop edges between
+    the true poses, as the 13 numpy inputs of optimize_pose_graph."""
+    gt = [np.eye(4)]
+    for _ in range(1, n):
+        gt.append(gt[-1] @ _se3(step))
+    drift = _se3(drift_xi)
+    odo = [np.eye(4)]
+    for i in range(1, n):
+        odo.append(odo[-1] @ np.linalg.inv(gt[i - 1]) @ gt[i] @ drift)
+    E = 1 << max(4, (n - 2).bit_length())
+    cf, ct = np.zeros(E, np.int32), np.zeros(E, np.int32)
+    cm = np.tile(np.eye(4, dtype=np.float32), (E, 1, 1))
+    ci = np.tile(np.eye(6, dtype=np.float32), (E, 1, 1))
+    cv = np.zeros(E, bool)
+    for i in range(n - 1):
+        cf[i], ct[i], cv[i] = i, i + 1, True
+        cm[i] = np.linalg.inv(gt[i]) @ gt[i + 1] @ drift
+    lf, lt = np.zeros(16, np.int32), np.zeros(16, np.int32)
+    lm = np.tile(np.eye(4, dtype=np.float32), (16, 1, 1))
+    li = np.tile(np.eye(6, dtype=np.float32), (16, 1, 1))
+    lv = np.zeros(16, bool)
+    for j, (a, b) in enumerate(loops):
+        lf[j], lt[j], lv[j] = a, b, True
+        lm[j] = np.linalg.inv(gt[a]) @ gt[b]
+        li[j] = np.eye(6) * 100.0
+    T = np.tile(np.eye(4, dtype=np.float32), (N, 1, 1))
+    T[:n] = np.stack(odo)
+    v = np.arange(N) < n
+    fixed = ~v
+    fixed[fixed_idx] = True
+    return (T, v, fixed, cf, ct, cm, ci, cv, lf, lt, lm, li, lv)
+
+
+@pytest.mark.parametrize("case", ["one_fixed", "both_free"])
+def test_pose_graph_on_the_card(case):
+    """tests/test_loop.py's 16-gon (loop edge from the fixed vertex) and
+    20-vertex Woodbury case: the card's optimization against the CPU's at
+    the repo's 5e-3 for a run of full GN steps."""
+    from sos_slam_tpu_torch.loop import pose_graph as PG
+    dev = _dev()
+    if case == "one_fixed":
+        args = _pose_graph_inputs(16, 16, [1.0, 0, 0, 0, np.pi / 8, 0],
+                                  [0.02, 0.01, -0.015, 0.002, 0.004, 0.0],
+                                  [(0, 15)], 0)
+    else:
+        args = _pose_graph_inputs(20, 32, [1.0, 0, 0, 0, np.pi / 9, 0],
+                                  [0.03, 0.01, -0.02, 0.003, 0.005, 0.0],
+                                  [(1, 18)], 19)
+    cpu = PG.optimize_pose_graph(*(torch.as_tensor(a) for a in args),
+                                 n_iters=30)
+    gpu = PG.optimize_pose_graph(*(torch.as_tensor(a, device=dev)
+                                   for a in args), n_iters=30)
+    assert gpu.device.type == "cuda"
+    close(gpu.cpu(), cpu, tol=5e-3)
+    again = PG.optimize_pose_graph(*(torch.as_tensor(a, device=dev)
+                                     for a in args), n_iters=30)
+    assert _same_bits(gpu, again)
+
+
+def test_icp_on_the_card():
+    from sos_slam_tpu_torch.loop import pose_estimator as PE
+    dev = _dev()
+    rng = np.random.RandomState(0)
+    cloud = np.concatenate([rng.uniform(-20, 20, (300, 3)),
+                            rng.randn(100, 3) * 0.5 + [3.0, -4.0, 8.0]])
+    T_gt = _se3([0.4, -0.2, 0.3, 0.05, 0.08, -0.04])
+    moved = (T_gt[:3, :3] @ cloud.T).T + T_gt[:3, 3]
+    P = np.zeros((1024, 3), np.float32)
+    Q = np.full((1024, 3), 50.0, np.float32)
+    P[:400], Q[:400] = cloud, moved[::-1]
+    v = np.arange(1024) < 400
+    out = [PE.icp(*(torch.as_tensor(a, device=d) for a in
+                    (P, v, Q, v, np.eye(4, dtype=np.float32))))
+           for d in ("cpu", dev)]
+    close(out[1][0].cpu(), out[0][0], tol=1e-4)
+    assert bool(out[1][1]) == bool(out[0][1])
+    close(out[1][2].cpu(), out[0][2], tol=1e-3)
+
+
+def test_estimate_direct_on_the_card():
+    """A 256x192 rendered pair 4 cm / 0.7 deg apart, from ~2 cm and 1 deg
+    off the true relative pose: the card against the CPU on the same
+    pyramid at the tracker's tolerances (tests/test_torch_tracker.py)."""
+    from sos_slam_tpu_torch.loop import pose_estimator as PE
+    from sos_slam_tpu_torch.models.full_system import _np_bilinear
+    from sos_slam_tpu_torch.ops.image import build_pyramid
+    from sos_slam_tpu_torch.utils import synthetic
+    dev = _dev()
+    calib = synthetic.default_calib(256, 192)
+    T_b = _se3([0.03, -0.02, 0.015, 0.006, -0.008, 0.004])
+    img_a, idp_a = synthetic.render_plane(calib, torch.eye(4), 2.0)
+    img_b, _ = synthetic.render_plane(calib, torch.as_tensor(
+        T_b, dtype=torch.float32), 2.0)
+    pyr_a, _ = build_pyramid(img_a, calib.levels)
+    pyr_b, _ = build_pyramid(img_b, calib.levels)
+    fx, fy, cx, cy = calib.intrinsics(0)
+    vv, uu = np.mgrid[16:176:4, 16:240:4]
+    u = uu.reshape(-1).astype(np.float32)[:2048]
+    v = vv.reshape(-1).astype(np.float32)[:2048]
+    idp = idp_a.numpy()[v.astype(int), u.astype(int)]
+    pts = np.stack([(u - cx) / fx / idp, (v - cy) / fy / idp, 1.0 / idp],
+                   -1).astype(np.float32)
+    inten = np.stack([_np_bilinear(pyr_a[l][:, :, 0].numpy(),
+                                   (u + 0.5) / (1 << l) - 0.5,
+                                   (v + 0.5) / (1 << l) - 0.5)
+                      for l in range(calib.levels)], -1).astype(np.float32)
+    T0 = (np.linalg.inv(T_b) @ _se3([0.02, -0.01, 0.01, 0.01, 0.012, -0.008])
+          ).astype(np.float32)
+    intr = tuple(calib.intrinsics(l) for l in range(calib.levels))
+    out = [PE.estimate_direct(tuple(p.to(d) for p in pyr_b),
+                              *(torch.as_tensor(a, device=d) for a in
+                                (pts, inten, np.ones(len(pts), bool), T0)),
+                              intr, calib.levels, 12.0)
+           for d in ("cpu", dev)]
+    close(out[1][0].cpu(), out[0][0], tol=1e-4)
+    assert bool(out[1][1]) and bool(out[0][1])
+    close(out[1][2].cpu(), out[0][2], tol=1e-3)
+
+
+def test_slam_node_with_loop_closure_on_the_card(tmp_path):
+    """tests/test_loop_integration.py's stereo scene (256x192, 24 frames,
+    loop closure on) through the port's SlamNode on the card: every
+    marginalized keyframe reaches the loop handler with a finite
+    dso_error and an odometry edge to the one before, a scan is
+    assembled, poses.txt is metric, and the asynchronous handler gives
+    the synchronous one's poses."""
+    from sos_slam_tpu_torch.io.node import SlamNode
+    from sos_slam_tpu_torch.utils import synthetic
+    from sos_slam_tpu_torch.utils.config import default_settings
+    dev = _dev()
+    calib = synthetic.default_calib(256, 192)
+    imgs, _, poses = synthetic.make_sequence(
+        calib, 24, (0.05, 0.02, 0.03, 0.003, 0.006, 0.002), device=dev)
+    T_lr, T_rl = synthetic.stereo_T_lr(0.11)
+    right = [synthetic.render_plane(calib, p @ torch.as_tensor(
+        T_rl, dtype=torch.float32, device=dev), 2.0)[0] for p in poses]
+    cam = str(tmp_path / "camera.txt")
+    with open(cam, "w") as f:
+        f.write("Pinhole 179.2 179.2 127.5 95.5 0\n256 192\nnone\n256 192\n")
+    s = default_settings(scale_opt_thres=12.0, loop_lidar_range=40.0,
+                         max_window_frames=8, max_points=512,
+                         max_immature=1024, max_track_pts=4096,
+                         desired_point_density=400.0,
+                         desired_immature_density=400.0)
+    trajs = []
+    for async_loop in (False, True):
+        node = SlamNode(s, cam, calib1=cam, T_stereo=T_lr, device=dev,
+                        async_loop=async_loop)
+        for i in range(24):
+            node.process(imgs[i], i * 0.05, image_right=right[i])
+        node.save_poses(str(tmp_path / "poses.txt"))
+        trajs.append(np.loadtxt(str(tmp_path / "poses.txt"), ndmin=2))
+        fs, loop = node.fs, node.loop
+        assert fs.initialized and not fs.is_lost
+        n_marg = sum(1 for sh in fs.shells
+                     if sh.is_kf and sh.marginalized_at >= 0)
+        assert len(loop.frames) == n_marg >= 3
+        assert sum(len(f["edges"]) for f in loop.frames) == n_marg - 1
+        assert all(np.isfinite(f["dso_error"]) for f in loop.frames)
+        assert any(len(f["pts_sc"]) for f in loop.frames)
+        assert loop.frames[-1]["pyramid"][0].device.type == "cuda"
+    rows = trajs[0]
+    assert rows.shape == (n_marg, 4)
+    ate, _ = synthetic.metric_ate(rows, poses.cpu().numpy())
+    assert ate < 0.15, ate
+    np.testing.assert_array_equal(trajs[0], trajs[1])

@@ -95,9 +95,17 @@ def test_port_imports_no_jax_and_runs():
         sys.modules["jaxlib"] = None
         sys.modules["sos_slam_tpu"] = None
         import importlib, sos_slam_tpu_torch
-        for m in pkgutil.walk_packages(sos_slam_tpu_torch.__path__,
-                                       "sos_slam_tpu_torch."):
-            importlib.import_module(m.name)
+        names = [m.name for m in pkgutil.walk_packages(
+            sos_slam_tpu_torch.__path__, "sos_slam_tpu_torch.")]
+        for m in names:
+            importlib.import_module(m)
+        want = {"sos_slam_tpu_torch.__main__"} | {
+            f"sos_slam_tpu_torch.loop.{m}" for m in (
+                "scancontext", "pose_estimator", "pose_graph", "handler")} | {
+            f"sos_slam_tpu_torch.io.{m}" for m in (
+                "undistort", "output_wrapper", "launch", "datasets", "node",
+                "run_synthetic")}
+        assert want <= set(names), want - set(names)
         import torch
         torch.set_num_threads(2)
         from sos_slam_tpu_torch.models.full_system import FullSystem
@@ -122,7 +130,7 @@ def test_port_imports_no_jax_and_runs():
         r.stdout + r.stderr
 
 
-def test_entry_points_default_to_cuda():
+def test_entry_points_default_to_cuda(tmp_path):
     """Without device=, the entry point runs on CUDA or raises; it never
     carries on quietly on the CPU."""
     if torch.cuda.is_available():
@@ -134,20 +142,35 @@ def test_entry_points_default_to_cuda():
         FullSystem(synthetic.default_calib(128, 96), default_settings())
     with pytest.raises(RuntimeError, match="CUDA"):
         synthetic.make_sequence(synthetic.default_calib(128, 96), 1)
+    from sos_slam_tpu_torch.io.node import SlamNode
+    from sos_slam_tpu_torch.loop.handler import LoopHandler
+    settings = default_settings(scale_opt_thres=12.0, loop_lidar_range=40.0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LoopHandler(settings, ((100.0, 100.0, 63.5, 47.5),), 1,
+                    async_mode=False)
+    calib = os.path.join(str(tmp_path), "camera.txt")
+    with open(calib, "w") as f:
+        f.write("Pinhole 89.6 89.6 63.5 47.5 0\n128 96\nnone\n128 96\n")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SlamNode(default_settings(), calib)
 
 
 def test_optional_layers_raise():
-    """Loop closure is the one layer not ported yet; stereo scale and VIO
-    construct, and stereo scale without a StereoCalib is refused."""
+    """Loop closure constructs on the CPU with stereo scale; mono loop
+    closure is refused by default_settings (utils/config.py:181-184, the
+    reference's main.cpp:174-178), as is stereo scale without a
+    StereoCalib; stereo scale and VIO construct."""
     from sos_slam_tpu_torch.models.full_system import FullSystem, StereoCalib
     from sos_slam_tpu_torch.utils import synthetic
     from sos_slam_tpu_torch.utils.config import default_settings
     calib = synthetic.default_calib(128, 96)
     stereo = StereoCalib(T_lr=np.eye(4, dtype=np.float32), calib_right=calib)
-    with pytest.raises(NotImplementedError):
-        FullSystem(calib, default_settings(scale_opt_thres=12.0,
-                                           loop_lidar_range=40.0),
-                   stereo=stereo, device="cpu")
+    fs = FullSystem(calib, default_settings(scale_opt_thres=12.0,
+                                            loop_lidar_range=40.0),
+                    stereo=stereo, device="cpu")
+    assert fs.settings.enable_loop_closure and fs.marg_callbacks == []
+    with pytest.raises(ValueError, match="stereo"):
+        default_settings(loop_lidar_range=40.0)
     with pytest.raises(ValueError):
         FullSystem(calib, default_settings(scale_opt_thres=12.0),
                    device="cpu")
