@@ -28,26 +28,44 @@ In order, failing (exit code != 0, no result line) at the first fault:
      launched once per pyramid built and K2 once per template built;
   5. the breakdown: 4 more frames through the same FullSystem under
      torch.profiler (the card's busy share and its top device ops);
+  5b. the [snapshot] phase: frames 0-23 of the same scene through a new
+     FullSystem, save_snapshot; a fresh FullSystem, load_snapshot and
+     frames 24-47 with every launch counter from 0 (`launches_snapshot`)
+     and a MapViewer and a DebugPlotDumper (mode 0, tracking on) attached:
+     gated on the keyframe ids of step 4's uninterrupted run, its
+     trajectory bit for bit (what tests/test_torch_snapshot.py finds on
+     the CPU) and within 5e-3, K1-K4 launched, one map PNG per render and
+     two debug PNGs per window slot and dump, and the last map PNG
+     decoded with zlib alone equal to render_array(); it prints the
+     snapshot's bytes and the save and load ms. Then the same snapshot
+     in the JAX package's layout (its `port.*` entries dropped): the
+     template rebuilt on load by one K2 launch, frames 24-47 within
+     5e-3;
   6. the flagship scene (bench.py's _bench_full_config: stereo + spline
      VIO, 640x480, 44 frames at 10 Hz on a bounded sinusoidal trajectory,
      200 Hz IMU, right camera at a 0.11 m baseline,
      default_settings(weight_imu_dso=6, scale_opt_thres=12, min_g_imu=10))
      through the port's FullSystem, every launch counter from 0: gated on
      initialized, not lost, the IMU initialized, the stereo scale trapped,
-     the fused VIO chain run, the scaled trajectory's metric ATE (no
-     alignment) <= 0.15 * path + 0.03, K1-K4 each launched, K1 once per
-     pyramid built (left and right) and K2 once per template; it prints
+     the fused VIO chain run, the VIO prior finite after the run and
+     before every VIO frame marginalization, the scaled trajectory's
+     metric ATE (no alignment) <= 0.15 * path + 0.03, K1-K4 each
+     launched, K1 once per pyramid built (left and right) and K2 once per
+     template; it prints
      the keyframe count, ATE, scale, steady fps over frames 30-43 (as
      bench.py measures it) and the keyframe median; then K3 on a VIO GN
      step and a VIO point marginalization, K4 on an activation pass and K1
-     on a right image of this run against their plain twins, and 2 more
-     frames under torch.profiler;
+     on a right image of this run against their plain twins; the same
+     frames through a FullSystem with the JAX package's NaN-prior fold
+     (`jax_form=True`) for the keyframe cost of the working VIO BA; and 2
+     more frames under torch.profiler;
   6b. the [loop] phase: (a) the flagship scene's frames through the port's
      SlamNode (pinhole camera files, no rectification, loop closure on
      at a 40 m LiDAR range, the loop handler synchronous so that its
      errors propagate), every launch counter from 0: gated on the
-     keyframes of a FullSystem without loop closure fed the same
-     rectified frames, one handler record per marginalized keyframe,
+     flagship phase's keyframes (loop closure changes no odometry
+     result, and `none` rectification hands the frames on unchanged),
+     one handler record per marginalized keyframe,
      an odometry edge with a finite dso_error between each consecutive
      pair, at least one scan, poses.txt rows whose metric ATE passes the
      flagship gate, and K1-K4 launched (`launches_node`); (c)
@@ -56,7 +74,7 @@ In order, failing (exit code != 0, no result line) at the first fault:
      tracker's tolerances (1e-4 on T, 1e-3 on the residual); (b)
      LoopHandler alone on tests/test_loop_closure_e2e.py's pillar scene,
      synchronously then asynchronously: a loop edge, ICP-verified, the
-     drift corrected (rigid-aligned ATE < 0.6 x the odometry's), both
+     drift corrected (rigid-aligned ate_rmse < 0.6 x the odometry's), both
      modes the same poses; (d) optimize_pose_graph at 1000 keyframes on
      tests/test_loop.py's graph: its loop-error gates, first and warm
      wall times;
@@ -73,9 +91,10 @@ In order, failing (exit code != 0, no result line) at the first fault:
      K3: two), and for the whole wrappers (build_pyramid,
      build_track_template, fused_iteration, act_pass) the device ops a
      call and the host-device copies among them (K3: none allowed);
-     then the launch counts of the three runs and the kernels line (one
+     then the launch counts of the four runs and the kernels line (one
      JSON object; `launches` counts the mono slice, `launches_flagship`
-     the flagship scene, `launches_node` the SlamNode run);
+     the flagship scene, `launches_node` the SlamNode run,
+     `launches_snapshot` the resumed half of step 5b);
   8. last line: {"ok": true, "device": {...}}.
 
 Needs one card; exits with code 2 when CUDA is unavailable or the port is
@@ -90,6 +109,7 @@ import subprocess
 import sys
 import time
 import traceback
+import zlib
 
 import numpy as np
 
@@ -676,6 +696,182 @@ def capture(torch, calib, settings, imgs, dev, k2_entry="template_levels"):
     return recs, n_pre
 
 
+def png_pixels(path):
+    """The (H, W, 3) uint8 pixels of an RGB8 PNG whose rows all use filter
+    type 0 (what the port's writer, io/png.py, writes), decoded with the
+    standard library's zlib alone."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError(f"{path}: not a PNG")
+    at, idat, hdr = 8, b"", None
+    while at < len(data):
+        n = int.from_bytes(data[at:at + 4], "big")
+        tag, body = data[at + 4:at + 8], data[at + 8:at + 8 + n]
+        if zlib.crc32(tag + body) != int.from_bytes(
+                data[at + 8 + n:at + 12 + n], "big"):
+            raise AssertionError(f"{path}: bad CRC in {tag}")
+        if tag == b"IHDR":
+            hdr = body
+        elif tag == b"IDAT":
+            idat += body
+        at += 12 + n
+    w, h = int.from_bytes(hdr[:4], "big"), int.from_bytes(hdr[4:8], "big")
+    if hdr[8:10] != bytes([8, 2]):
+        raise AssertionError(f"{path}: not RGB8")
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(
+        h, 1 + 3 * w)
+    if rows[:, 0].any():
+        raise AssertionError(f"{path}: a row is filtered")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def snapshot_phase(torch, dev, card, kernels, imgs, mono):
+    """Phase [snapshot]: the mono scene's frames 0-23 through a FullSystem
+    on the card and save_snapshot; a fresh FullSystem on the card
+    load_snapshot and frames 24-47 with every launch counter from 0 and a
+    MapViewer and a DebugPlotDumper (mode 0, tracking on, after each
+    keyframe) attached; against the mono phase's uninterrupted run. Then
+    the same snapshot in the JAX package's layout (its `port.*` entries
+    dropped): the template rebuilt on load (one K2 launch), frames 24-47
+    within 5e-3. The snapshots and PNGs go to a temporary directory that
+    is removed afterwards."""
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_snap_") as tmp:
+        snapshot_checks(torch, dev, card, kernels, imgs, mono, tmp)
+
+
+def snapshot_checks(torch, dev, card, kernels, imgs, mono, tmp):
+    import os
+
+    from sos_slam_tpu_torch.io.debug_plot import DebugPlotDumper
+    from sos_slam_tpu_torch.io.viewer import MapViewer
+    from sos_slam_tpu_torch.models import snapshot as SNAP
+    from sos_slam_tpu_torch.models import window as WIN
+    from sos_slam_tpu_torch.models.full_system import FullSystem
+    from sos_slam_tpu_torch.ops import ba_p as BP
+    from sos_slam_tpu_torch.ops import image as IMG
+    from sos_slam_tpu_torch.utils.config import default_settings
+
+    tag = f"[snapshot] ({card})"
+    calib, half = mono["calib"], N_FRAMES // 2
+    wrappers = (IMG.pyramid_levels, WIN.template_levels, BP.fused_iteration,
+                BP.act_pass)
+
+    def feed(fs, frames, after_kf=None):
+        for i in frames:
+            n_kf = fs.stats["n_kf"]
+            fs.add_active_frame(imgs[i], timestamp=i * 0.05, frame_id=i)
+            if after_kf is not None and fs.stats["n_kf"] > n_kf:
+                after_kf()
+        torch.cuda.synchronize()
+
+    path = os.path.join(tmp, "state.npz")
+    fs = FullSystem(calib, default_settings(), device=dev)
+    feed(fs, range(half))
+    t0 = time.perf_counter()
+    SNAP.save_snapshot(fs, path)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    with np.load(path) as data:
+        raw = sum(data[k].nbytes for k in data.files)
+        n_entries = len(data.files)
+        jax_layout = {k: data[k] for k in data.files
+                      if not k.startswith(SNAP.PORT)}
+    size = os.path.getsize(path)
+    del fs
+
+    for w_ in wrappers:
+        w_.launches = 0
+    fs2 = FullSystem(calib, default_settings(), device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    SNAP.load_snapshot(fs2, path)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    viewer = MapViewer(out_dir=os.path.join(tmp, "map"), size=480)
+    fs2.output_wrappers.append(viewer)
+    dumper = DebugPlotDumper(os.path.join(tmp, "debug"), mode=0,
+                             tracking=True)
+    n_want = []
+
+    def dump():
+        n_want.append(2 * int(fs2.ba.frame_valid.sum()))
+        dumper.dump(fs2)
+
+    t0 = time.perf_counter()
+    feed(fs2, range(half, N_FRAMES), after_kf=dump)
+    resumed_s = time.perf_counter() - t0
+    counts = [w_.launches for w_ in wrappers]
+    traj = fs2.trajectory()
+    bitwise = np.array_equal(traj, mono["traj"]) and all(
+        torch.equal(v, getattr(fs2.ba, k)) for k, v in mono["ba"].items())
+    dev_err = float(np.abs(traj - mono["traj"]).max()) \
+        if traj.shape == mono["traj"].shape else float("inf")
+    log(f"{tag} mono scene {W}x{H}: frames 0-{half - 1}, save_snapshot "
+        f"{save_ms:.1f} ms, {size} bytes compressed ({raw} bytes of "
+        f"arrays, {n_entries} entries); load_snapshot into a fresh "
+        f"FullSystem {load_ms:.1f} ms; frames {half}-{N_FRAMES - 1} in "
+        f"{resumed_s:.2f} s: keyframes {fs2.kf_shell_ids}, the "
+        f"uninterrupted run's {mono['kf_ids']}; trajectory max |diff| "
+        f"{dev_err:.3e}, bitwise {bitwise}; launches K1-K4 of the resumed "
+        f"half {counts}")
+    if fs2.is_lost or fs2.kf_shell_ids != mono["kf_ids"]:
+        raise AssertionError(f"resumed keyframes {fs2.kf_shell_ids} differ "
+                             f"from the uninterrupted {mono['kf_ids']}")
+    if not dev_err <= 5e-3:
+        raise AssertionError(f"resumed trajectory off by {dev_err}")
+    if not bitwise:
+        raise AssertionError("the resumed run is not bit for bit the "
+                             "uninterrupted one (it is on the CPU: "
+                             "tests/test_torch_snapshot.py)")
+    for name, c in zip(("K1", "K2", "K3", "K4"), counts):
+        if c <= 0:
+            raise AssertionError(f"{name} was not launched in the resumed "
+                                 "half")
+    for k, c in zip(kernels, counts):
+        k["launches_snapshot"] = c
+
+    # the PNGs: one map per final keyframe, window + tracking per dump
+    last = viewer.render()
+    maps = sorted(os.listdir(os.path.join(tmp, "map")))
+    debug = os.listdir(os.path.join(tmp, "debug"))
+    n_map = sum(1 for f in maps if f.startswith("map_"))
+    same_png = np.array_equal(png_pixels(last), viewer.render_array())
+    log(f"{tag} MapViewer: {len(viewer.keyframes)} final keyframes, {n_map} "
+        f"map PNGs; DebugPlotDumper: {len(n_want)} dumps, {len(debug)} "
+        f"PNGs (want {sum(n_want)}); the last map PNG decoded with zlib "
+        f"equals render_array(): {same_png}")
+    if n_map != viewer.n_rendered or n_map < 2 or not viewer.keyframes:
+        raise AssertionError(f"{n_map} map PNGs for {viewer.n_rendered} "
+                             "renders")
+    if len(debug) != sum(n_want) or not n_want:
+        raise AssertionError(f"{len(debug)} debug PNGs, {sum(n_want)} "
+                             "wanted")
+    if not same_png:
+        raise AssertionError("the map PNG does not decode to its array")
+    del fs2, viewer, dumper
+
+    # the JAX package's layout: the template rebuilt from the window
+    jpath = os.path.join(tmp, "jax_layout.npz")
+    np.savez_compressed(jpath, **jax_layout)
+    fs3 = FullSystem(calib, default_settings(), device=dev)
+    before = WIN.template_levels.launches
+    SNAP.load_snapshot(fs3, jpath)
+    rebuilt = WIN.template_levels.launches - before
+    feed(fs3, range(half, N_FRAMES))
+    traj3 = fs3.trajectory()
+    err3 = float(np.abs(traj3 - mono["traj"]).max()) \
+        if traj3.shape == mono["traj"].shape else float("inf")
+    log(f"{tag} the same snapshot in the JAX package's layout: template "
+        f"rebuilt on load in {rebuilt} K2 launch(es); keyframes "
+        f"{fs3.kf_shell_ids}; trajectory max |diff| {err3:.3e} (5e-3 "
+        "allowed)")
+    if rebuilt != 1 or fs3.is_lost or not err3 <= 5e-3:
+        raise AssertionError(f"JAX-layout resume: {rebuilt} K2 launches, "
+                             f"lost {fs3.is_lost}, off by {err3}")
+    del fs3
+
+
 def ate_of(fs, poses):
     traj = fs.trajectory()
     ids = traj[:, 0].astype(int)
@@ -709,8 +905,8 @@ def flagship(torch, dev, card, kernels):
 
     def prior_in(args, kw):
         """Whether the VIO prior a frame marginalization starts from is
-        finite (ROADMAP Queue 3: an interior slot without a valid spline
-        leaves it NaN, in both packages)."""
+        finite (the JAX package's fold of a slot without a valid spline
+        leaves it NaN; the port's does not)."""
         return "finite" if bool(torch.isfinite(args[1].HM).all()) else "NaN"
 
     calib = synthetic.default_calib(W, H)
@@ -787,11 +983,18 @@ def flagship(torch, dev, card, kernels):
            or "none")
         + "; the VIO prior after the run is "
         + ("finite" if bool(torch.isfinite(fs.imu.HM).all()) else "NaN")
-        + " (a NaN prior turns every later VIO step into a zero step)")
+        + f"; {n_kf} keyframes, scaled ATE {ate:.4f} m, keyframe median "
+        f"{np.median(kf_ms) if kf_ms else float('nan'):.1f} ms with the "
+        "working VIO BA")
     rep = fs.telemetry.report()["timers_ms"]
     log(f"{tag} host stage timers: " + ", ".join(
         f"{k} n={v['n']} median {v['median']:.1f} ms"
         for k, v in sorted(rep.items())))
+    if not bool(torch.isfinite(fs.imu.HM).all() & torch.isfinite(
+            fs.imu.bM).all()) or mfv.n_of["NaN"]:
+        raise AssertionError(
+            "flagship: the VIO prior is not finite after the run "
+            f"(frame marginalizations by prior: {dict(mfv.n_of)})")
     if not (fs.imu_initialized and fs.scale_trapped):
         raise AssertionError(f"flagship: imu_initialized="
                              f"{fs.imu_initialized} scale_trapped="
@@ -842,25 +1045,43 @@ def flagship(torch, dev, card, kernels):
     for k, c, e in zip(kernels, counts, (err1, (0.0, 0.0), err3, err4)):
         k["launches_flagship"] = c
         k["max_abs_err"] = max(k["max_abs_err"], e[0])
-    del recs, pyr_l, pyr_i, tmpl, k3, k4, mfv, a, kw, a4, kw4
+    del recs, pyr_l, pyr_i, tmpl, k4, mfv, a, kw, a4, kw4
     phase_done("flagship run and checks")
+
+    # the JAX package's fold (a NaN prior from the first VIO frame
+    # marginalization on) over the same frames: what the working VIO BA
+    # costs a keyframe and what it changes
+    k3j = Recorder(BP, "fused_iteration", 1, kind=k3_caller)
+    fj = FSM.FullSystem(calib, settings, stereo=stereo, device=dev,
+                        jax_form=True)
+    kf_j = []
+    for i in range(FLAG_FRAMES):
+        n_kf_j = fj.stats["n_kf"]
+        t0 = time.perf_counter()
+        feed(fj, i)
+        torch.cuda.synchronize()
+        if i >= FLAG_WARMUP and fj.stats["n_kf"] > n_kf_j:
+            kf_j.append((time.perf_counter() - t0) * 1e3)
+    k3j.restore()
+    ate_j, _ = synthetic.metric_ate(fj.trajectory(scaled=True),
+                                    scene["poses"])
+    chain = [f.telemetry.report()["timers_ms"]["kf_chain"] for f in (fs, fj)]
+    log(f"{tag} the same frames with the JAX package's fold (jax_form=True,"
+        f" the prior NaN after the run: "
+        f"{not bool(torch.isfinite(fj.imu.HM).all())}): keyframes "
+        f"{fj.kf_shell_ids}, scaled ATE {ate_j:.4f} m, scale "
+        f"{fj.current_scale:.4f}, keyframe median "
+        f"{np.median(kf_j) if kf_j else float('nan'):.1f} ms, kf_chain "
+        f"median {chain[1]['median']:.1f} ms (n={chain[1]['n']}), "
+        f"{k3j.n_of['gn_step_vio']} VIO GN steps; with the port's fold: "
+        f"keyframe median {np.median(kf_ms) if kf_ms else float('nan'):.1f} "
+        f"ms, kf_chain median {chain[0]['median']:.1f} ms (n="
+        f"{chain[0]['n']}), {k3.n_of['gn_step_vio']} VIO GN steps")
+    del fj, k3j, k3
     kf_ids = list(fs.kf_shell_ids)
     profile_frames(torch, fs, lambda i: feed(fs, i), FLAG_FRAMES,
                    FLAG_PROF_FRAMES, tag="flagship profile")
     return dict(kf_ids=kf_ids, scene=scene, calib=calib)
-
-
-def rigid_ate(est, gt):
-    """RMSE of est against gt after the least-squares rigid alignment
-    (Umeyama without scale): the drift gate of the loop-closure scene."""
-    mu_e, mu_g = est.mean(0), gt.mean(0)
-    U, _, Vt = np.linalg.svd((gt - mu_g).T @ (est - mu_e) / len(est))
-    S = np.eye(3)
-    if np.linalg.det(U) * np.linalg.det(Vt) < 0:
-        S[2, 2] = -1
-    R = U @ S @ Vt
-    aligned = (R @ (est - mu_e).T).T + mu_g
-    return float(np.sqrt(np.mean(np.sum((aligned - gt) ** 2, 1))))
 
 
 def se3(lie, torch, xi):
@@ -963,11 +1184,10 @@ def loop_phase(torch, dev, card, kernels, flag):
     from sos_slam_tpu_torch.loop import pose_estimator as PE
     from sos_slam_tpu_torch.loop import pose_graph as PG
     from sos_slam_tpu_torch.models import window as WIN
-    from sos_slam_tpu_torch.models.full_system import (FrameShell,
-                                                       FullSystem,
-                                                       StereoCalib)
+    from sos_slam_tpu_torch.models.full_system import FrameShell
     from sos_slam_tpu_torch.ops import ba_p as BP
     from sos_slam_tpu_torch.ops import image as IMG
+    from sos_slam_tpu_torch.utils import evaluate as EV
     from sos_slam_tpu_torch.utils import lie, synthetic
     from sos_slam_tpu_torch.utils.config import default_settings
 
@@ -1014,32 +1234,17 @@ def loop_phase(torch, dev, card, kernels, flag):
         f"odometry edges, {n_scans} scans, {loop.n_loop_edges} loop edges; "
         f"poses.txt {rows.shape[0]} rows, metric ATE {ate:.4f} m over "
         f"{path:.3f} m; {node_s:.2f} s for the run "
-        f"({n_run / node_s:.2f} frames/s); launches K1-K4 {counts}")
+        f"({n_run / node_s:.2f} frames/s); launches K1-K4 {counts}; the "
+        f"flagship phase's keyframes {flag['kf_ids']}")
     if not fs.initialized or fs.is_lost or fs.init_failed:
         raise AssertionError("node run failed: initialized="
                              f"{fs.initialized} lost={fs.is_lost}")
-    # loop closure changes no odometry result: the same frames as the
-    # node rectified them (the remap zeroes the one-pixel border, where
-    # its sample would leave the image, so the flagship phase's own frames
-    # are not the node's) through a FullSystem with loop closure off give
-    # the node's keyframes
-    ref = FullSystem(calib, default_settings(
-        weight_imu_dso=6.0, scale_opt_thres=12.0, min_g_imu=10), stereo=
-        StereoCalib(T_lr=scene["T_lr"], calib_right=node.stereo.calib_right),
-        device=dev)
-    for i in range(FLAG_FRAMES):
-        ref.add_active_frame(node.und0.undistort(scene["left"][i]),
-                             timestamp=i * FLAG_DT, frame_id=i,
-                             image_right=node.und1.undistort(
-                                 scene["right"][i]),
-                             imu_samples=scene["imu"][i])
-    log(f"{tag} (a) the same rectified frames through a FullSystem without "
-        f"loop closure: keyframes {ref.kf_shell_ids}; the flagship phase's "
-        f"own frames gave {flag['kf_ids']}")
-    if fs.kf_shell_ids != ref.kf_shell_ids:
+    # loop closure changes no odometry result, and `none` hands the frames
+    # on unchanged: the node gives the keyframes of the flagship phase's
+    # FullSystem (no loop closure, the same frames)
+    if fs.kf_shell_ids != flag["kf_ids"]:
         raise AssertionError(f"node keyframes {fs.kf_shell_ids} differ from "
-                             f"the loop-free run's {ref.kf_shell_ids}")
-    del ref
+                             f"the flagship phase's {flag['kf_ids']}")
     if len(loop.frames) != n_marg or n_marg == 0:
         raise AssertionError(f"{len(loop.frames)} records reached the loop "
                              f"handler for {n_marg} marginalized keyframes")
@@ -1122,8 +1327,8 @@ def loop_phase(torch, dev, card, kernels, flag):
     lh, sync_s = hs["sync"]
     traj = lh.trajectory()
     ids = traj[:, 0].astype(int)
-    r_odo = rigid_ate(odo[ids, :3, 3], gt[ids, :3, 3])
-    r_opt = rigid_ate(traj[:, 1:4], gt[ids, :3, 3])
+    r_odo = EV.ate_rmse(odo[ids, :3, 3], gt[ids, :3, 3])["rmse"]
+    r_opt = EV.ate_rmse(traj[:, 1:4], gt[ids, :3, 3])["rmse"]
     same = np.array_equal(traj, hs["async"][0].trajectory())
     log(f"{tag} (b) LoopHandler, pillar scene ({LOOP_KFS} keyframes): "
         f"{lh.n_loop_edges} loop edges, {lh.n_icp} verified by ICP, "
@@ -1172,6 +1377,7 @@ def run(torch):
     from sos_slam_tpu_torch.ops import ba_p as BP
     from sos_slam_tpu_torch.ops import image as IMG
     from sos_slam_tpu_torch.utils import cuda_build, synthetic
+    from sos_slam_tpu_torch.utils import evaluate as EV
     from sos_slam_tpu_torch.utils.config import default_settings
 
     dev = torch.device("cuda")
@@ -1332,11 +1538,16 @@ def run(torch):
         raise AssertionError(f"slice failed: initialized={fs.initialized} "
                              f"lost={fs.is_lost} init_failed={fs.init_failed}")
     ate, path = ate_of(fs, poses)
+    traj = fs.trajectory()
+    sim3 = EV.ate_rmse(traj[:, 1:4], poses[traj[:, 0].astype(int), :3, 3],
+                       align_scale=True)
     steady = frame_ms[WARMUP:]
     fps = len(steady) / (sum(steady) / 1e3)
     n_kf = len(fs.kf_shell_ids)
     log(f"[slice] {W}x{H} {N_FRAMES} frames on {kind}: n_kf {n_kf} "
-        f"ATE {ate:.4f} m over {path:.3f} m, steady fps {fps:.2f} "
+        f"ATE {ate:.4f} m over {path:.3f} m (Sim(3)-aligned ate_rmse "
+        f"{sim3['rmse']:.4f} m, scale {sim3['scale']:.4f}), steady fps "
+        f"{fps:.2f} "
         f"(frames {WARMUP}-{N_FRAMES - 1}), keyframe median "
         f"{np.median(kf_ms) if kf_ms else float('nan'):.1f} ms, first frame "
         f"{frame_ms[0]:.0f} ms")
@@ -1364,11 +1575,16 @@ def run(torch):
         "launches")
     for k, c in zip(kernels, counts):
         k["launches"] = c
+    mono = dict(calib=calib, traj=traj, kf_ids=list(fs.kf_shell_ids),
+                ba={k: v.clone() for k, v in fs.ba._asdict().items()})
     phase_done("mono slice")
     profile_frames(torch, fs, lambda i: fs.add_active_frame(
         imgs[i], timestamp=i * 0.05, frame_id=i), N_FRAMES, PROF_FRAMES)
     phase_done("mono profile")
     del fs
+    snapshot_phase(torch, dev, card, kernels, imgs, mono)
+    del mono
+    phase_done("[snapshot] phase")
     flag = flagship(torch, dev, card, kernels)
     phase_done("flagship scene")
     loop_phase(torch, dev, card, kernels, flag)
@@ -1399,7 +1615,9 @@ def run(torch):
         + "; on the flagship scene: " + ", ".join(
         f"K{i + 1}={k['launches_flagship']}" for i, k in enumerate(kernels))
         + "; through SlamNode with loop closure: " + ", ".join(
-        f"K{i + 1}={k['launches_node']}" for i, k in enumerate(kernels)))
+        f"K{i + 1}={k['launches_node']}" for i, k in enumerate(kernels))
+        + "; the resumed half of the snapshot phase: " + ", ".join(
+        f"K{i + 1}={k['launches_snapshot']}" for i, k in enumerate(kernels)))
     log(json.dumps({"kernels": kernels}))
     log(f"{card}")
     log(json.dumps({"ok": True, "device": {

@@ -12,9 +12,11 @@ The port covers the monocular main path (initializer, coarse tracker,
 immature-point trace/activation, windowed BA with FEJ marginalization),
 the stereo 1-DoF metric-scale solve, the continuous-time spline VIO
 with its visual-inertial KKT BA, loop closure (Scan Context, direct +
-ICP verification, the SE(3) pose graph) and the SlamNode driver with its
-command line (`python -m sos_slam_tpu_torch`). The viewer, snapshots and
-trajectory evaluation come later.
+ICP verification, the SE(3) pose graph), the SlamNode driver with its
+command line (`python -m sos_slam_tpu_torch`), state snapshots
+(`models/snapshot.py`), trajectory evaluation (`utils/evaluate.py`), the
+headless map viewer (`io/viewer.py`) and the debug plots
+(`io/debug_plot.py`).
 """
 
 __version__ = "0.1.0"

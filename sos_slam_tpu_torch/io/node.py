@@ -38,11 +38,16 @@ class SlamNode:
                  T_stereo: Optional[np.ndarray] = None,   # left -> right
                  gamma0: Optional[str] = None,
                  vignette0: Optional[str] = None,
-                 device=None, async_loop: bool = True):
+                 device=None, async_loop: bool = True,
+                 jax_form: bool = False):
+        """`jax_form=True` reproduces the JAX package's remap of `none`
+        rectification and its VIO prior fold (`load_undistorter`,
+        `FullSystem`; for the parity tests only)."""
         self.device = resolve_device(device)
         self.settings = settings
-        self.und0 = load_undistorter(calib0)
-        self.und1 = load_undistorter(calib1) if calib1 else None
+        self.jax_form = jax_form
+        self.und0 = load_undistorter(calib0, jax_form)
+        self.und1 = load_undistorter(calib1, jax_form) if calib1 else None
         self.photo0 = PhotometricUndistorter(
             gamma0, vignette0, w=self.und0.w_org, h=self.und0.h_org,
             mode=settings.photometric_calibration) \
@@ -83,7 +88,7 @@ class SlamNode:
 
     def _new_system(self):
         self.fs = FullSystem(self.calib, self.settings, stereo=self.stereo,
-                             device=self.device)
+                             device=self.device, jax_form=self.jax_form)
         self.fs.marg_callbacks.append(self._on_marginalized_kf)
         self.fs.output_wrappers.append(self.pose_recorder)
         self.fs.output_wrappers.extend(self.extra_wrappers)

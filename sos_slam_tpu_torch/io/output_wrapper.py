@@ -11,7 +11,7 @@ Implementations:
   * `PoseRecorder` — the `pose_cam0_in_world/{current,marginalized}` topics
     as in-memory streams (and optional files).
   * `DepthImageDumper` — debug depth/residual overlays as PNGs
-    (FullSystemDebugStuff analog, dev-only).
+    (FullSystemDebugStuff analog, dev-only), through io/png.py.
 """
 
 from __future__ import annotations
@@ -20,6 +20,8 @@ import os
 from typing import List, Optional
 
 import numpy as np
+
+from sos_slam_tpu_torch.io.png import write_png
 
 
 class Output3DWrapper:
@@ -104,11 +106,11 @@ class DepthImageDumper(Output3DWrapper):
         self.n += 1
         if self.n % self.every:
             return
-        import imageio.v2 as iio
         img = np.asarray(image)
         idp = np.asarray(idepth_map)
         rgb = np.stack([img, img, img], -1)
-        rgb = (255 * (rgb - rgb.min()) / max(rgb.ptp(), 1e-6)).astype(np.uint8)
+        rgb = (255 * (rgb - rgb.min()) / max(np.ptp(rgb), 1e-6)).astype(
+            np.uint8)
         has = idp > 0
         if has.any():
             lo, hi = np.percentile(idp[has], [5, 95])
@@ -116,4 +118,4 @@ class DepthImageDumper(Output3DWrapper):
             rgb[has, 0] = (255 * t[has]).astype(np.uint8)
             rgb[has, 1] = (255 * (1 - t[has])).astype(np.uint8)
             rgb[has, 2] = 60
-        iio.imwrite(os.path.join(self.out_dir, f"depth_{self.n:06d}.png"), rgb)
+        write_png(os.path.join(self.out_dir, f"depth_{self.n:06d}.png"), rgb)

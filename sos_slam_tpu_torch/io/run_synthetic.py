@@ -6,9 +6,13 @@ sos_slam_tpu/io/run_synthetic.py):
 Renders a constant-twist trajectory over an analytic textured scene, runs
 the full pipeline (initializer -> tracking -> keyframes -> windowed BA ->
 marginalization) on the device (CUDA unless `--device` names another),
-writes `poses.txt` (`id x y z` per keyframe, the reference's output
-contract, LoopHandler::savePose, LoopHandler.cpp:62-76) and prints the
-scale-aligned ATE against ground truth.
+writes
+
+  poses.txt       — `id x y z` per keyframe (the reference's output
+                    contract, LoopHandler::savePose, LoopHandler.cpp:62-76)
+  map_*.png       — headless viewer frames (with --viewer)
+
+and prints the scale-aligned ATE against ground truth.
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ def main(argv=None):
     ap.add_argument("--width", type=int, default=256)
     ap.add_argument("--height", type=int, default=192)
     ap.add_argument("--out", default="out_synthetic")
+    ap.add_argument("--viewer", action="store_true",
+                    help="render headless map views per keyframe")
     ap.add_argument("--device", default=None,
                     help="torch device (default: CUDA; 'cpu' runs the plain "
                          "PyTorch twins)")
@@ -47,6 +53,9 @@ def main(argv=None):
         max_track_pts=4096, desired_point_density=400.0,
         desired_immature_density=400.0)
     fs = FullSystem(calib, settings, device=imgs.device)
+    if args.viewer:
+        from sos_slam_tpu_torch.io.viewer import MapViewer
+        fs.output_wrappers.append(MapViewer(out_dir=args.out, size=480))
 
     t0 = time.time()
     for i in range(args.frames):

@@ -105,6 +105,8 @@ class Undistorter:
     remap_x: np.ndarray        # (h, w) sample coords into the original image
     remap_y: np.ndarray
     remap_valid: np.ndarray
+    # `none` with equal input and output sizes: no remap (load_undistorter)
+    passthrough: bool = False
     # the remap tables on each device they were used on
     _on: Dict = field(default_factory=dict, repr=False, compare=False)
 
@@ -116,6 +118,8 @@ class Undistorter:
         """The rectified float32 image on `image`'s device (a numpy image
         is taken to the CPU)."""
         img = torch.as_tensor(image).to(torch.float32)
+        if self.passthrough:
+            return img
         if img.device not in self._on:
             self._on[img.device] = tuple(
                 torch.as_tensor(a, device=img.device)
@@ -254,9 +258,19 @@ def make_optimal_K_full(model, pars, w_org, h_org, w, h) -> np.ndarray:
     return K_out
 
 
-def load_undistorter(calib_file: str) -> Undistorter:
+def load_undistorter(calib_file: str, jax_form: bool = False) -> Undistorter:
     """Parse the reference's camera.txt (Undistort::getUndistorterForFile +
-    readFromFile, Undistort.cpp:240-360,679-860)."""
+    readFromFile, Undistort.cpp:240-360,679-860).
+
+    `none` with equal input and output sizes is a passthrough: the image
+    comes back as given, with no remap. This follows upstream DSO, from
+    which the reference's Undistort.cpp derives, as recalled and not read
+    (the reference's source is not in this repository): its readFromFile
+    sets `passthrough` for `none` and requires equal sizes, and its
+    undistort then copies the photometrically corrected image. The JAX
+    package remaps `none` through the identity, whose validity test
+    zeroes the one-pixel border; `jax_form=True` keeps that remap (for the
+    parity tests only)."""
     with open(calib_file) as f:
         lines = [f.readline().strip() for _ in range(4)]
 
@@ -313,7 +327,9 @@ def load_undistorter(calib_file: str) -> Undistorter:
                        w=w, h=h, K=K,
                        remap_x=rx.astype(np.float32),
                        remap_y=ry.astype(np.float32),
-                       remap_valid=valid)
+                       remap_valid=valid,
+                       passthrough=(out_mode[0] == "none" and not jax_form
+                                    and (w, h) == (w_org, h_org)))
 
 
 class PhotometricUndistorter:

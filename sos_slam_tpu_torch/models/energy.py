@@ -302,10 +302,19 @@ def optimize_vio(ba: B.BAState, imu: IM.ImuState, dI, settings: Settings,
 
 
 def marginalize_frame_vio(ba: B.BAState, imu: IM.ImuState, k: int,
-                          settings: Settings):
+                          settings: Settings, jax_form: bool = False):
     """VIO-mode frame marginalization (EnergyFunctional::marginalizeFrame,
     IMU branch): fold the dying frame's IMU links into HM, Schur out its
-    29-dim block, compact both states. Returns (ba, imu)."""
+    29-dim block, compact both states. Returns (ba, imu).
+
+    A dim of the dying block that carries no information (its row is
+    zero: the 15 spline dims, which are zeroed when the slot's spline is
+    not valid, or the translation of a frame no marginalized point
+    constrains) is folded out without it: a 1 on its diagonal of the
+    inverted block keeps the block regular, and its zero couplings keep
+    it out of the fold. `jax_form=True` inverts the block as the JAX
+    package does, singular with such dims, which leaves the whole prior
+    NaN (for the parity tests only)."""
     F = ba.F
     D = IM.vio_dim(F)
     dev = ba.state.device
@@ -356,6 +365,9 @@ def marginalize_frame_vio(ba: B.BAState, imu: IM.ImuState, k: int,
     bs = bMp * svec_i
     Hmm = Hs[sl:sl + 29, sl:sl + 29]
     Hmm = 0.5 * (Hmm + Hmm.T)
+    if not jax_form:
+        uninformed = torch.diag((Hs[sl:sl + 29] == 0).all(1))
+        Hmm = torch.where(uninformed, torch.ones_like(Hmm), Hmm)
     Hmm_inv = inv(Hmm)
     Hmm_inv = 0.5 * (Hmm_inv + Hmm_inv.T)
     keep = (~in_marg).to(torch.float32)

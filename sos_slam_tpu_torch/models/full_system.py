@@ -82,6 +82,7 @@ class FrameShell:
     scale: float = 1.0
     scale_error: float = -1.0
     cam_to_world_scaled: Optional[np.ndarray] = None
+    dso_error: float = np.nan   # the JAX shell's field: its snapshots load
     shell_idx: int = -1
 
 
@@ -120,10 +121,15 @@ _STATE_KEYS = ("ba", "imu", "imm", "dI", "min_act", "HdiF", "templates",
 
 class FullSystem:
     def __init__(self, calib: CalibPyramid, settings: Settings,
-                 stereo: Optional[StereoCalib] = None, device=None):
+                 stereo: Optional[StereoCalib] = None, device=None,
+                 jax_form: bool = False):
+        """`jax_form=True` folds out a VIO frame whose block holds dims
+        without information as the JAX package does, into a NaN prior
+        (`E.marginalize_frame_vio`; for the parity tests only)."""
         if settings.enable_scale_opt and stereo is None:
             raise ValueError("enable_scale_opt requires a StereoCalib")
         self.device = dev = resolve_device(device)
+        self.jax_form = jax_form
         self.calib = calib
         self.settings = settings
         self.n_levels = calib.levels
@@ -1840,5 +1846,6 @@ class FullSystem:
                                             imm.host))
         if imu is None:
             return E.marginalize_frame(ba, k), imm, None
-        ba, imu = E.marginalize_frame_vio(ba, imu, k, self.settings)
+        ba, imu = E.marginalize_frame_vio(ba, imu, k, self.settings,
+                                          jax_form=self.jax_form)
         return ba, imm, imu

@@ -581,3 +581,48 @@ def test_slam_node_with_loop_closure_on_the_card(tmp_path):
     ate, _ = synthetic.metric_ate(rows, poses.cpu().numpy())
     assert ate < 0.15, ate
     np.testing.assert_array_equal(trajs[0], trajs[1])
+
+
+def test_snapshot_from_the_card(tmp_path):
+    """tests/test_torch_snapshot.py's scenario on the card: a snapshot of a
+    CUDA system after frame 12 loads into a CUDA system and into a CPU
+    system with every array equal (dtypes too) and on the loader's
+    device; the CUDA system resumed from it gives the uninterrupted run
+    bit for bit."""
+    from sos_slam_tpu_torch.models import snapshot as SNAP
+    from sos_slam_tpu_torch.models.full_system import FullSystem
+    from sos_slam_tpu_torch.utils import synthetic
+    from sos_slam_tpu_torch.utils.config import default_settings
+    dev = _dev()
+    calib = synthetic.default_calib(256, 192)
+    s = default_settings(max_points=512, max_immature=1024,
+                         max_track_pts=4096, desired_point_density=400.0,
+                         desired_immature_density=400.0)
+    imgs, _, _ = synthetic.make_sequence(
+        calib, 18, (0.05, 0.02, 0.03, 0.003, 0.006, 0.002), device=dev)
+    fs = FullSystem(calib, s, device=dev)
+    path = str(tmp_path / "state.npz")
+    for i in range(18):
+        fs.add_active_frame(imgs[i], timestamp=0.05 * i, frame_id=i)
+        if i == 11:
+            SNAP.save_snapshot(fs, path)
+            saved = [t.to("cpu", copy=True) for t in (
+                *fs.ba, *fs.imm, fs.dI, fs.HdiF, *(
+                    lv for pyr in fs.frame_pyramids if pyr is not None
+                    for lv in pyr), *(x for tp in fs.templates for x in tp))]
+    for device in (dev, torch.device("cpu")):
+        fl = SNAP.load_snapshot(FullSystem(calib, s, device=device), path)
+        got = [*fl.ba, *fl.imm, fl.dI, fl.HdiF] \
+            + [lv for pyr in fl.frame_pyramids if pyr is not None
+               for lv in pyr] \
+            + [x for tp in fl.templates for x in tp]
+        assert len(got) == len(saved)
+        for a, b in zip(got, saved):
+            assert a.device.type == device.type and a.dtype == b.dtype
+            exact(a.cpu(), b)
+    fl = SNAP.load_snapshot(FullSystem(calib, s, device=dev), path)
+    for i in range(12, 18):
+        fl.add_active_frame(imgs[i], timestamp=0.05 * i, frame_id=i)
+    exact(fl.trajectory(), fs.trajectory())
+    for a, b in zip(fl.ba, fs.ba):
+        exact(a.cpu(), b.cpu())

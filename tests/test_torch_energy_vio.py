@@ -19,6 +19,7 @@ states, masks and counters exact."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from sos_slam_tpu.models import energy as JE
 from sos_slam_tpu.models import imu as JIM
@@ -121,25 +122,34 @@ def test_marginalize_points_vio(win):
     close(ij.bM, i2.bM)
 
 
-def _marg_frame(win, k, spline_valid_k=True):
+def _marg_frame(win, k, spline_valid_k=True, no_translation=False, **kw):
     """Both packages' marginalize_frame_vio of slot k, after the window
     drops what the fold requires: the points hosted in k and the residuals
-    into k."""
+    into k. `no_translation`: the prior holds nothing on slot k's
+    translation (as when no marginalized point constrained it). `kw` goes
+    to the port's."""
     (ba, imu, dI), (bt, it, dIt), _ = win
     strag = np.asarray(ba.pt_valid & (ba.host == k))
     keep = ~strag[:, None] & (np.arange(F)[None, :] != k)
+    prior = np.full(8, 10.0, np.float32)
+    HM, bM = np.array(imu.HM), np.array(imu.bM)
+    if no_translation:
+        prior[:3] = 0.0
+        tr = JIM.CPARS + 1 + 29 * k + np.arange(3)
+        HM[tr, :] = HM[:, tr] = bM[tr] = 0.0
     ba = ba._replace(pt_valid=ba.pt_valid & ~jnp.asarray(strag),
                      res_exist=ba.res_exist & jnp.asarray(keep),
-                     prior=ba.prior.at[k].set(10.0))
+                     prior=ba.prior.at[k].set(jnp.asarray(prior)))
     bt = bt._replace(pt_valid=bt.pt_valid & ~t(strag),
                      res_exist=bt.res_exist & t(keep),
                      prior=t(np.asarray(ba.prior)))
     sv = np.asarray(imu.spline_valid).copy()
     sv[k] = spline_valid_k
-    imu = imu._replace(spline_valid=jnp.asarray(sv))
-    it = it._replace(spline_valid=t(sv))
+    imu = imu._replace(spline_valid=jnp.asarray(sv), HM=jnp.asarray(HM),
+                       bM=jnp.asarray(bM))
+    it = it._replace(spline_valid=t(sv), HM=t(HM), bM=t(bM))
     return (JE.marginalize_frame_vio(ba, imu, jnp.int32(k), SJ),
-            TE.marginalize_frame_vio(bt, it, k, ST))
+            TE.marginalize_frame_vio(bt, it, k, ST, **kw))
 
 
 @pytest.mark.parametrize("k", [1, 3])
@@ -163,13 +173,63 @@ def test_marginalize_frame_vio(win, k):
     close(ij.bM, i2.bM, tol=GN_TOL)
 
 
-def test_marginalize_frame_vio_without_spline(win):
-    """The fault both packages share (ROADMAP Queue 3): at a slot whose
+def _live_inv(A):
+    """The float64 inverse of the rows and columns of A that are not all
+    zero, with zeros in the others: a fold with it leaves those dims out."""
+    a = A.double()
+    idx = torch.nonzero((a != 0).any(1))[:, 0]
+    out = torch.zeros_like(a)
+    out[idx[:, None], idx] = torch.linalg.inv(a[idx][:, idx])
+    return out.to(A.dtype)
+
+
+def test_marginalize_frame_vio_without_spline(win, monkeypatch):
+    """A fault of the JAX package (ROADMAP Queue 3): at a slot whose
     spline is not valid, the fold zeroes the slot's 15 spline dims but
     keeps them in the 29x29 block it inverts, which is then singular, and
     the prior comes out NaN (all of HM, and bM); every later VIO step is
-    then a zero step. Held here as it stands, so that a
-    fix in the port shows up as a difference from the JAX package."""
-    (_, ij), (_, i2) = _marg_frame(win, 2, spline_valid_k=False)
+    then a zero step. The port's `jax_form=True` keeps that fold and gives
+    the JAX package's prior, NaN included: all of HM, and bM wherever the
+    JAX package's is NaN (the port's all-NaN inverse also fills the 29
+    entries of the freed last block, which the JAX package's leaves at
+    0); the rest of bM at the fold's tolerance. The port's own fold is
+    finite and equals the fold computed without the dead dims (the block
+    inverted over its live dims only, in float64)."""
+    (_, ij), (_, i2) = _marg_frame(win, 2, spline_valid_k=False,
+                                   jax_form=True)
     assert np.isnan(np.asarray(ij.HM)).all() and i2.HM.isnan().all()
-    assert np.isnan(np.asarray(ij.bM)).any() and i2.bM.isnan().any()
+    nan_j, nan_t = np.isnan(np.asarray(ij.bM)), i2.bM.isnan().numpy()
+    assert nan_j.any() and nan_t[nan_j].all()
+    both = ~nan_j & ~nan_t
+    close(np.asarray(ij.bM)[both], i2.bM.numpy()[both], tol=GN_TOL)
+
+    (_, _), (b3, i3) = _marg_frame(win, 2, spline_valid_k=False)
+    assert i3.HM.isfinite().all() and i3.bM.isfinite().all()
+    monkeypatch.setattr(TE, "inv", _live_inv)
+    (_, _), (b4, i4) = _marg_frame(win, 2, spline_valid_k=False,
+                                   jax_form=True)
+    close(i4.HM, i3.HM, tol=GN_TOL)
+    close(i4.bM, i3.bM, tol=GN_TOL)
+    for f in ("state", "state_zero", "spline_valid", "bias_valid"):
+        exact(getattr(i4, f), getattr(i3, f))
+    exact(b4.frame_valid, b3.frame_valid)
+
+
+def test_marginalize_frame_vio_without_translation_info(win, monkeypatch):
+    """The same fault with a valid spline, as it arises on the flagship
+    scene (chip_smoke.py, at its first VIO frame marginalization): the
+    prior holds nothing on the dying slot's translation, whose three rows
+    of the inverted block are then zero. The JAX package's fold (and the
+    port's `jax_form=True`) is NaN; the port's is finite and equals the
+    fold without those dims."""
+    (_, ij), (_, i2) = _marg_frame(win, 2, no_translation=True,
+                                   jax_form=True)
+    assert np.isnan(np.asarray(ij.HM)).all() and i2.HM.isnan().all()
+    (_, _), (b3, i3) = _marg_frame(win, 2, no_translation=True)
+    assert i3.HM.isfinite().all() and i3.bM.isfinite().all()
+    monkeypatch.setattr(TE, "inv", _live_inv)
+    (_, _), (b4, i4) = _marg_frame(win, 2, no_translation=True,
+                                   jax_form=True)
+    close(i4.HM, i3.HM, tol=GN_TOL)
+    close(i4.bM, i3.bM, tol=GN_TOL)
+    exact(b4.frame_valid, b3.frame_valid)

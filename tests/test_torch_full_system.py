@@ -104,8 +104,13 @@ def test_port_imports_no_jax_and_runs():
                 "scancontext", "pose_estimator", "pose_graph", "handler")} | {
             f"sos_slam_tpu_torch.io.{m}" for m in (
                 "undistort", "output_wrapper", "launch", "datasets", "node",
-                "run_synthetic")}
+                "run_synthetic", "png", "viewer", "debug_plot")} | {
+            "sos_slam_tpu_torch.models.snapshot",
+            "sos_slam_tpu_torch.utils.evaluate"}
         assert want <= set(names), want - set(names)
+        # a GPU host need have no imaging package: importing the port
+        # (the viewer and the debug plots included) pulls in none
+        assert not {"imageio", "PIL", "matplotlib"} & set(sys.modules)
         import torch
         torch.set_num_threads(2)
         from sos_slam_tpu_torch.models.full_system import FullSystem

@@ -16,10 +16,20 @@ poses.txt rows within 1e-3 (tests/test_torch_stereo.py's tolerance on
 positions). A record handed to the loop handler holds tensors the
 odometry never writes again: it is unchanged after the later frames.
 
+The JAX package remaps `none` rectification through the identity, whose
+validity test zeroes the one-pixel border; the port passes the image
+through (io/undistort.py). Both packages' nodes are compared with the
+port's `jax_form=True`, which keeps that remap (and the JAX package's VIO
+prior fold). The port's own form is held on its own: `none` returns the
+photometrically corrected image bit for bit, and the flagship scene of
+chip_smoke.py at 256x192 (stereo + VIO, 30 frames) through the node gives
+the keyframes of a FullSystem fed the raw frames (with the remap they part
+from the sixth keyframe on).
+
 Undistortion: each distortion model's K_new and remap tables exactly
-(float64 numpy in both), the rectified image at 2e-4; the photometric
-response + vignette on the device against the numpy form at 2e-4.
-Launch files: the same settings and paths.
+(float64 numpy in both), the rectified image at 2e-4 (the port's remap
+form); the photometric response + vignette on the device against the
+numpy form at 2e-4. Launch files: the same settings and paths.
 """
 
 
@@ -98,7 +108,7 @@ def nodes(tmp_path_factory):
     jn = JNode(j_settings(**KW), cam, calib1=cam, T_stereo=T_stereo)
     sj, _ = run_node(jn, left, right)
     tn = TNode(t_settings(**KW), cam, calib1=cam, T_stereo=T_stereo,
-               device="cpu")
+               device="cpu", jax_form=True)
     st, first = run_node(tn, left, right)
     pj, pt = str(tmp / "poses_jax.txt"), str(tmp / "poses_port.txt")
     jn.save_poses(pj)
@@ -157,8 +167,61 @@ def test_record_unchanged_after_later_frames(nodes):
     assert kept["pyramid"] is rec["pyramid"]
 
 
+def test_node_none_gives_the_raw_frames_keyframes(tmp_path):
+    from sos_slam_tpu_torch.models.full_system import FullSystem, \
+        StereoCalib
+    from sos_slam_tpu_torch.utils import synthetic
+    n = 30
+    calib = synthetic.default_calib(W, H)
+    sc = synthetic.stereo_vio_scene(calib, n, 0.1, synthetic.sine_pose,
+                                    synthetic.sine_acc, device="cpu")
+    cam = str(tmp_path / "camera.txt")
+    fx, fy, cx, cy = calib.intrinsics(0)
+    with open(cam, "w") as f:
+        f.write(f"Pinhole {fx} {fy} {cx} {cy} 0\n{W} {H}\nnone\n{W} {H}\n")
+    kw = dict(KW, weight_imu_dso=6.0, min_g_imu=10)
+    node = TNode(t_settings(**kw), cam, calib1=cam, T_stereo=sc["T_lr"],
+                 device="cpu", async_loop=False)
+    node.run([dict(image=sc["left"][i], t=i * 0.1,
+                   image_right=sc["right"][i], imu=sc["imu"][i])
+              for i in range(n)])
+    kw.pop("loop_lidar_range")
+    fs = FullSystem(calib, t_settings(**kw), stereo=StereoCalib(
+        T_lr=sc["T_lr"], calib_right=calib), device="cpu")
+    for i in range(n):
+        fs.add_active_frame(sc["left"][i], timestamp=i * 0.1, frame_id=i,
+                            image_right=sc["right"][i],
+                            imu_samples=sc["imu"][i])
+    assert node.fs.imu_initialized and len(fs.kf_shell_ids) >= 6
+    assert node.fs.kf_shell_ids == fs.kf_shell_ids
+
+
 # ----------------------------------------------------------------------
 # undistortion
+# ----------------------------------------------------------------------
+def test_none_is_a_passthrough(tmp_path):
+    """`none` with equal sizes: the node hands the photometrically
+    corrected image on bit for bit; the remap form (`jax_form=True`, and
+    `none` between unequal sizes) zeroes the one-pixel border."""
+    cam = tmp_path / "camera.txt"
+    cam.write_text(PINHOLE)
+    gamma = str(tmp_path / "pcalib.txt")
+    np.savetxt(gamma, 255.0 * np.linspace(0, 1, 256)[None] ** 1.3)
+    node = TNode(t_settings(**dict(KW, loop_lidar_range=0.0,
+                                   scale_opt_thres=0.0)),
+                 str(cam), gamma0=gamma, device="cpu")
+    img = np.random.RandomState(7).uniform(1, 255, (H, W)).astype(np.uint8)
+    out = node._preprocess(img, node.und0, node.photo0)
+    exact(out, node.photo0.process_tensor(torch.as_tensor(
+        img.astype(np.float32))))
+    assert node.und0.passthrough and out.abs().min() > 0
+    remapped = TU.load_undistorter(str(cam), jax_form=True).undistort(out)
+    assert not remapped[0].any() and not remapped[:, -1].any()
+    exact(remapped[1:-1, 1:-1], out[1:-1, 1:-1])
+    cam.write_text(PINHOLE.replace(f"none\n{W} {H}", f"none\n{W} {H - 2}"))
+    assert not TU.load_undistorter(str(cam)).passthrough
+
+
 # ----------------------------------------------------------------------
 CAMERAS = {
     "FOV": "FOV 0.5 0.6 0.5 0.5 0.9\n64 48\ncrop\n48 40\n",
@@ -179,7 +242,8 @@ def test_undistort_matches(name, tmp_path):
     path = str(tmp_path / "camera.txt")
     with open(path, "w") as f:
         f.write(CAMERAS[name])
-    uj, ut = JU.load_undistorter(path), TU.load_undistorter(path)
+    uj, ut = JU.load_undistorter(path), TU.load_undistorter(path,
+                                                             jax_form=True)
     assert (uj.model, uj.w, uj.h, uj.w_org, uj.h_org) \
         == (ut.model, ut.w, ut.h, ut.w_org, ut.h_org)
     for f in ("pars", "K", "remap_x", "remap_y", "remap_valid"):
