@@ -22,7 +22,9 @@ In order, failing (exit code != 0, no result line) at the first fault:
      launched twice and required to repeat bit for bit;
   4. the slice: the full bench main scene (48 frames, twist
      (0.03, 0.012, 0.02, 0.002, 0.004, 0.001), plane_z 2.0) through the
-     port's FullSystem on the card, with every launch counter set to 0
+     port's FullSystem on the card, at its default (the pipelined fused
+     driver, 3 frames in flight, drained with finish_pending at the end),
+     with every launch counter set to 0
      just before and read just after; initialized, not lost, and the
      scale-aligned ATE <= 0.05 * path + 0.02, as bench.py gates it; K1
      launched once per pyramid built and K2 once per template built;
@@ -48,17 +50,38 @@ In order, failing (exit code != 0, no result line) at the first fault:
      through the port's FullSystem, every launch counter from 0: gated on
      initialized, not lost, the IMU initialized, the stereo scale trapped,
      the fused VIO chain run, the VIO prior finite after the run and
-     before every VIO frame marginalization, the scaled trajectory's
-     metric ATE (no alignment) <= 0.15 * path + 0.03, K1-K4 each
+     before every VIO frame marginalization, the stereo scale after every
+     keyframe from frame 35 on within 1% of the first one's, the scaled
+     trajectory's metric ATE (no alignment) <= 0.15 * path + 0.03, K1-K4
+     each
      launched, K1 once per pyramid built (left and right) and K2 once per
      template; it prints
      the keyframe count, ATE, scale, steady fps over frames 30-43 (as
-     bench.py measures it) and the keyframe median; then K3 on a VIO GN
+     bench.py measures it) and the median of the frames that dispatch a
+     keyframe chain; then K3 on a VIO GN
      step and a VIO point marginalization, K4 on an activation pass and K1
      on a right image of this run against their plain twins; the same
-     frames through a FullSystem with the JAX package's NaN-prior fold
-     (`jax_form=True`) for the keyframe cost of the working VIO BA; and 2
-     more frames under torch.profiler;
+     frames twice more with every VIO frame marginalization folded both by
+     the port (`energy.fold_vio_block`, the live subspace of the block
+     without an eigendecomposition) and by the float64 fold from an
+     eigendecomposition (`live_fold64`), the runs going on with the one
+     and with the other: one line a marginalization (the block's zero
+     rows, its smallest and largest eigenvalue, the scale row of both
+     folds), one a keyframe from frame 35 on (its scale and the scale's
+     GN steps, the wall ms of both folds), gated on the port's fold
+     within 1e-4 of the reference; the same frames once with the port's
+     fold and once with the JAX package's NaN-prior fold (`jax_form=True`),
+     the keyframe chain's stages timed, for the cost of the working VIO
+     BA; and 2 more frames under torch.profiler;
+  6a. the [pipeline] phase: the mono scene at depth 0 (synchronous) and
+     depth 3 in turns (the order alternating), three times each, every
+     run bit for bit the pipelined slice of step 4, with its steady fps,
+     its host stage timers, the frames dispatched again after a rung
+     change and the card's busy share under the profiler; the flagship
+     scene's first 36 frames (the IMU initialization and two VIO frame
+     marginalizations) at depth 0
+     and 3, each drained, bit for bit on the trajectories, the window and
+     the VIO prior; the most frames seen in flight (at least 2);
   6b. the [loop] phase: (a) the flagship scene's frames through the port's
      SlamNode (pinhole camera files, no rectification, loop closure on
      at a 40 m LiDAR range, the loop handler synchronous so that its
@@ -68,7 +91,8 @@ In order, failing (exit code != 0, no result line) at the first fault:
      one handler record per marginalized keyframe,
      an odometry edge with a finite dso_error between each consecutive
      pair, at least one scan, poses.txt rows whose metric ATE passes the
-     flagship gate, and K1-K4 launched (`launches_node`); (c)
+     flagship gate, and K1-K4 launched (`launches_node`), and the loop
+     handler's scan timer as a share of the run's wall time; (c)
      estimate_direct on the record of (a) with the most points, against
      its own pyramid from 2 cm and 1 deg off, accepted, card = CPU at the
      tracker's tolerances (1e-4 on T, 1e-3 on the residual); (b)
@@ -84,7 +108,9 @@ In order, failing (exit code != 0, no result line) at the first fault:
      sleeping kernel (device time a launch with the queue full, no
      profiler; three times, SM and memory clocks before and after: the
      `ms` of the kernels line is their median), the card's time per call
-     from torch.profiler over 30 calls, and the CUDA-event wall time of a
+     from torch.profiler over 30 calls (every profiler window opens with
+     throwaway launches of a spin kernel, because the profiler drops the
+     first events of a window), and the CUDA-event wall time of a
      single call; beside them the plain twin's times and the bound worked
      out from the bytes and operations. For K1, K2 and K3 also each
      launch's device time by kernel name (K1 and K2: one launch a call,
@@ -104,6 +130,7 @@ not importable beside this script.
 from __future__ import annotations
 
 import collections
+import gc
 import json
 import subprocess
 import sys
@@ -121,7 +148,14 @@ FLAG_PROF_FRAMES = 2   # the same after the flagship scene
 TWIST = (0.03, 0.012, 0.02, 0.002, 0.004, 0.001)
 TOL = 2e-4
 REPS = 30
-PROFILE_TRIES = 5  # windows of the profiler before an empty one stands
+PROFILE_TRIES = 3  # windows of the profiler before a cut one is an error
+# torch.profiler on the H100's machine (torch 2.11, CUDA 12.8) drops the
+# first device events of every window, more the longer the process has run
+# (255 by 370 s of this script): every window opens with PRELUDE[0] launches
+# of the spin kernel, which no measured function launches, and counts as
+# whole only if the profiler kept at least one of them; the prelude doubles
+# for later windows once a window drops half of it
+PRELUDE = [1000]
 QUEUED = 200      # back-to-back launches under one pair of events
 # device ops a call of the whole K3 wrapper in the first Hopper design
 # (five launches, float copies of the masks; scripts/torch_kernel_times.py
@@ -137,6 +171,11 @@ JAX_REFERENCE = "JAX package on the same scene: 22 keyframes, ATE 0.0103 m " \
 # the flagship scene (bench.py's _bench_full_config): stereo + spline VIO
 # on the bounded sinusoidal trajectory, 10 Hz frames, 200 Hz IMU
 FLAG_FRAMES, FLAG_WARMUP, FLAG_DT = 44, 30, 0.1
+FLAG_SCALE_FROM = 35   # the flagship's stereo scale holds within 1% from here
+# the [pipeline] phase: depth 0 and 3 in turns, steady fps over frames
+# WARMUP..PIPE_PROF_FROM-1 and the busy share over the rest; the flagship
+# frames up to two VIO frame marginalizations after the IMU initialization
+PIPE_PAIRS, PIPE_PROF_FROM, PIPE_FLAG_FRAMES = 3, 46, 36
 JAX_FLAGSHIP = "JAX package on the same scene: 11 keyframes in 44 frames " \
                "(BENCH_r05.json, a TPU v5e run; history, not asserted)"
 # the loop phase: the flagship scene through SlamNode at this LiDAR range,
@@ -199,6 +238,29 @@ class Recorder:
 
     def restore(self):
         setattr(self.module, self.name, self.orig)
+
+
+class StageTimer:
+    """Wraps a module-level function (or an instance's method) and adds up
+    its wall ms a call, the card synchronized before and after: the host
+    dispatch and the device work of the stage."""
+
+    def __init__(self, torch, owner, name):
+        self.torch, self.owner, self.name = torch, owner, name
+        self.orig = getattr(owner, name)
+        self.ms = []
+        setattr(owner, name, self)
+
+    def __call__(self, *args, **kw):
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.orig(*args, **kw)
+        self.torch.cuda.synchronize()
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def restore(self):
+        setattr(self.owner, self.name, self.orig)
 
 
 def gram_form(k, p):
@@ -315,26 +377,46 @@ def time_ms(torch, fn):
     return dev_us / REPS / 1e3, float(np.median(times))
 
 
-def profiled(torch, fn, at_least=1):
-    """The device events of REPS calls of `fn` under torch.profiler. The
-    profiler may lose the first events of a window, at times all of them:
-    a window that shows fewer than `at_least` kinds of device event is
-    taken again, PROFILE_TRIES times at most, and the last one is
-    returned as it is for the caller to judge."""
+# the most device events a profiler window dropped (all of them from its
+# prelude), logged with the kernel times
+PROFILER_DROPPED = [0]
+
+
+def prof_window(torch, body, tries=PROFILE_TRIES):
+    """Runs body() under torch.profiler behind PRELUDE[0] launches of the
+    spin kernel: (what body returned, the device events of body). The
+    profiler drops events only from the start of a window, so a window that
+    kept one of the prelude's launches kept all of body's; a window cut
+    into body is taken again with twice the prelude, `tries` windows in
+    all, then an error."""
     from torch.profiler import ProfilerActivity, profile
-    for attempt in range(PROFILE_TRIES):
+    for _ in range(tries):
+        n = PRELUDE[0]
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(REPS):
-                fn()
+            for _ in range(n):
+                torch.cuda._sleep(0)
+            torch.cuda.synchronize()
+            out = body()
             torch.cuda.synchronize()
         ev = device_events(prof)
-        if len(ev) >= at_least:
-            break
-        log(f"[profiler] window {attempt + 1} of {PROFILE_TRIES} showed "
-            f"{len(ev)} kind(s) of device event, {at_least} wanted")
-    return ev
+        kept = sum(e.count for e in ev if "spin_kernel" in e.key)
+        PROFILER_DROPPED[0] = max(PROFILER_DROPPED[0], n - kept)
+        if 2 * (n - kept) > n:
+            PRELUDE[0] = 2 * n
+        if kept:
+            return out, [e for e in ev if "spin_kernel" not in e.key]
+        log(f"[profiler] a window dropped all {n} launches of its prelude; "
+            "taken again")
+    raise AssertionError(f"{tries} profiler window(s) in a row dropped "
+                         "every launch of their prelude")
+
+
+def profiled(torch, fn):
+    """The device events of REPS calls of `fn` under torch.profiler, every
+    one of them kept (`prof_window`)."""
+    return prof_window(torch, lambda: [fn() for _ in range(REPS)])[1]
 
 
 def device_ops(torch, fn):
@@ -467,15 +549,14 @@ def time_kernels(torch, kernels, timings):
             f"({k['bound_by']}: {nbytes / 1e6:.2f} MB, {flops / 1e6:.2f} "
             f"MFLOP), {100 * k['bound_ms'] / k['ms']:.2f}% of the bound")
         if launches_a_call is not None:
-            ev = profiled(torch, kernel_fn, at_least=launches_a_call)
+            ev = profiled(torch, kernel_fn)
             log(f"{tag} its launches by kernel name, device ms a call "
                 "(launches a call): " + "; ".join(
                     f"{e.key.split('(')[0][:40]} "
                     f"{e.self_device_time_total / 1e3 / REPS:.5f} "
                     f"({e.count / REPS:.0f})" for e in ev))
-            # the profiler may drop the first events of a window, so a
-            # kernel is counted at most, not exactly, REPS times
-            if len(ev) != launches_a_call or any(e.count > REPS for e in ev):
+            if len(ev) != launches_a_call or any(e.count != REPS
+                                                 for e in ev):
                 raise AssertionError(
                     f"{tag} a call is not {launches_a_call} launch(es): "
                     f"the profiler saw {[(e.key, e.count) for e in ev]} in "
@@ -490,28 +571,35 @@ def time_kernels(torch, kernels, timings):
     return wrappers
 
 
-def profile_frames(torch, fs, feed, first, n, tag="profile"):
-    """Where a frame's time goes: n more frames of the scene (`feed(i)`
-    hands frame i to the same FullSystem) under torch.profiler. Logs the
-    wall and device time per frame, the card's busy share, its launches
-    per frame and the device ops that take the most time. The profiler
-    slows the host, so the busy share is a lower bound."""
-    from torch.profiler import ProfilerActivity, profile
-    n_kf = fs.stats["n_kf"]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+def busy_window(torch, fs, feed, first, n):
+    """n frames of the scene from `first` (`feed(i)` hands frame i to the
+    same FullSystem) under torch.profiler, the frames in flight completed
+    inside the window: (wall ms a frame, device ms a frame, device ops a
+    frame, the window's device events). The profiler slows the host, so
+    the busy share dev / wall is a lower bound."""
+    def body():
         t0 = time.perf_counter()
         for i in range(first, first + n):
             feed(i)
+        fs.finish_pending()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / n
-    ev = device_events(prof)
+        return (time.perf_counter() - t0) * 1e3 / n
+    wall, ev = prof_window(torch, body, tries=1)   # body feeds the frames
     dev_ms = sum(e.self_device_time_total for e in ev) / 1e3 / n
+    return wall, dev_ms, sum(e.count for e in ev) / n, ev
+
+
+def profile_frames(torch, fs, feed, first, n, tag="profile"):
+    """Where a frame's time goes: n more frames of the scene through the
+    same FullSystem under torch.profiler (`busy_window`). Logs the wall
+    and device time per frame, the card's busy share, its launches per
+    frame and the device ops that take the most time."""
+    n_kf = fs.stats["n_kf"]
+    wall, dev_ms, ops, ev = busy_window(torch, fs, feed, first, n)
     log(f"[{tag}] frames {first}-{first + n - 1} ({fs.stats['n_kf'] - n_kf} "
         f"keyframes), profiler on: wall {wall:.1f} ms/frame, device "
         f"{dev_ms:.2f} ms/frame, card busy {100 * dev_ms / wall:.1f}%, "
-        f"{sum(e.count for e in ev) / n:.0f} device ops/frame")
+        f"{ops:.0f} device ops/frame")
     top = sorted(ev, key=lambda e: -e.self_device_time_total)[:8]
     log(f"[{tag}] top device ops, ms/frame (count/frame): " + "; ".join(
         f"{e.key[:48]} {e.self_device_time_total / 1e3 / n:.3f} "
@@ -764,6 +852,7 @@ def snapshot_checks(torch, dev, card, kernels, imgs, mono, tmp):
             fs.add_active_frame(imgs[i], timestamp=i * 0.05, frame_id=i)
             if after_kf is not None and fs.stats["n_kf"] > n_kf:
                 after_kf()
+        fs.finish_pending()
         torch.cuda.synchronize()
 
     path = os.path.join(tmp, "state.npz")
@@ -872,6 +961,19 @@ def snapshot_checks(torch, dev, card, kernels, imgs, mono, tmp):
     del fs3
 
 
+def median(v):
+    return float(np.median(v)) if len(v) else float("nan")
+
+
+def split_by_keyframe(frame_ms, kf_ids, first):
+    """Frame times from `first` on, split into the frames that dispatched
+    a keyframe chain (a frame's id is its index) and the others."""
+    kf = set(kf_ids)
+    steady = range(first, len(frame_ms))
+    return ([frame_ms[i] for i in steady if i in kf],
+            [frame_ms[i] for i in steady if i not in kf])
+
+
 def ate_of(fs, poses):
     traj = fs.trajectory()
     ids = traj[:, 0].astype(int)
@@ -883,6 +985,144 @@ def ate_of(fs, poses):
         np.linalg.norm(est / max(scale, 1e-9) - gt, axis=1) ** 2)))
     path = float(np.sum(np.linalg.norm(np.diff(gt, axis=0), axis=1)))
     return ate, path
+
+
+def live_fold64(torch, Hs, bs, sl, in_marg, cut):
+    """The reference of energy.fold_vio_block: the Schur fold in float64
+    over the live subspace of the scaled 29x29 block from an
+    eigendecomposition (eigenvalues above `cut` times the largest)."""
+    H, b = Hs.double(), bs.double()
+    blk = H[sl:sl + 29, sl:sl + 29]
+    w, V = torch.linalg.eigh(0.5 * (blk + blk.T))
+    live = w > cut * w.abs().max()
+    blk_inv = (V[:, live] / w[live]) @ V[:, live].T
+    keep = (~in_marg).double()
+    Hxm = H[:, sl:sl + 29] * keep[:, None]
+    bli = Hxm @ blk_inv
+    H_new = (H - bli @ Hxm.T) * keep[:, None] * keep[None, :]
+    b_new = (b - bli @ b[sl:sl + 29]) * keep
+    return H_new.float(), b_new.float()
+
+
+class FoldProbe:
+    """Stands in for energy.fold_vio_block and models/imu.solve_vio. At
+    every VIO frame marginalization it records the block's exactly-zero
+    rows, the smallest and largest eigenvalue of the scaled 29x29 block
+    (float64, the zero rows left out), and the norm of the folded prior's
+    scale row (scaled form) under the port's fold and under
+    `live_fold64`; the run goes on with the fold `use` names ("port" or
+    "f64"). With `f32=True` the port's fold is the f32 inverse of the
+    whole block with its exactly-zero rows patched (the fold before the
+    live-subspace one). `plant` (a share of the block's largest
+    diagonal) replaces each exactly-zero row, before either fold, by a
+    rank-one term with that diagonal and couplings of a tenth of the
+    others' scale. At every VIO GN step it records the frame (`frame`,
+    which the caller sets), the scale the step starts from and the
+    scale's GN step."""
+
+    def __init__(self, torch, E, IM, use="port", plant=0.0, f32=False):
+        self.torch, self.E, self.IM = torch, E, IM
+        self.use, self.plant, self.f32 = use, plant, f32
+        self.fold_orig, self.solve_orig = E.fold_vio_block, IM.solve_vio
+        E.fold_vio_block, IM.solve_vio = self.fold, self.solve
+        self.frame = -1
+        self.margs, self.steps = [], []
+
+    def restore(self):
+        self.E.fold_vio_block = self.fold_orig
+        self.IM.solve_vio = self.solve_orig
+
+    def f32_fold(self, Hs, bs, sl, in_marg):
+        """The fold before the live-subspace one: the f32 inverse of the
+        whole block, a 1 on the diagonal of each exactly-zero row."""
+        torch = self.torch
+        Hmm = Hs[sl:sl + 29, sl:sl + 29]
+        Hmm = 0.5 * (Hmm + Hmm.T)
+        zero = torch.diag((Hs[sl:sl + 29] == 0).all(1))
+        Hmm_inv = torch.linalg.inv(torch.where(zero, torch.ones_like(Hmm),
+                                               Hmm))
+        Hmm_inv = 0.5 * (Hmm_inv + Hmm_inv.T)
+        keep = (~in_marg).float()
+        Hxm = Hs[:, sl:sl + 29] * keep[:, None]
+        bli = Hxm @ Hmm_inv
+        return ((Hs - bli @ Hxm.T) * keep[:, None] * keep[None, :],
+                (bs - bli @ bs[sl:sl + 29]) * keep)
+
+    def fold(self, Hs, bs, sl, in_marg, jax_form=False):
+        torch = self.torch
+        zero = (Hs[sl:sl + 29] == 0).all(1)
+        if self.plant and bool(zero.any()):
+            big = float(torch.diagonal(Hs)[sl:sl + 29].max())
+            g = torch.Generator(device="cpu").manual_seed(len(self.margs))
+            cpl = torch.randn(Hs.shape[0], generator=g).to(Hs.device)
+            cpl = cpl * torch.sqrt(torch.diagonal(Hs).abs()) * 0.1
+            for i in torch.nonzero(zero)[:, 0].tolist():
+                v = cpl.clone()
+                v[sl + i] = (self.plant * big) ** 0.5
+                Hs = Hs + v[:, None] * v[None, :]
+        ms = {}
+        for name, fn in (
+                ("port", lambda: self.f32_fold(Hs, bs, sl, in_marg)
+                 if self.f32 else self.fold_orig(Hs, bs, sl, in_marg,
+                                                 jax_form)),
+                ("f64", lambda: live_fold64(torch, Hs, bs, sl, in_marg,
+                                            self.E.LIVE_CUT))):
+            # the second of two calls, the card synchronized around it
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn()
+                torch.cuda.synchronize()
+                ms[name] = (time.perf_counter() - t0) * 1e3
+            if name == "port":
+                port = out
+            else:
+                ref = out
+        blk = Hs[sl:sl + 29, sl:sl + 29].double()
+        live_rows = ~(Hs[sl:sl + 29] == 0).all(1)
+        w = torch.linalg.eigvalsh(0.5 * (blk + blk.T)[live_rows][:, live_rows])
+        cp = self.IM.CPARS
+        self.margs.append(dict(
+            frame=self.frame, slot=(sl - cp - 1) // 29,
+            zero_rows=torch.nonzero(~live_rows)[:, 0].tolist(),
+            eig_min=float(w.min()), eig_max=float(w.max()),
+            n_cut=int((w <= self.E.LIVE_CUT * w.abs().max()).sum()
+                      + (~live_rows).sum()),
+            scale_row=float(torch.linalg.norm(port[0][cp])),
+            scale_row_ref=float(torch.linalg.norm(ref[0][cp])),
+            finite=bool(torch.isfinite(port[0]).all()),
+            ms=ms["port"], ms_f64=ms["f64"],
+            dH=float((port[0] - ref[0]).abs().max()
+                     / ref[0].abs().max().clamp(min=1e-30))))
+        return port if self.use == "port" else ref
+
+    def solve(self, ba, imu, *a, **kw):
+        x8, x_scale, x_imu = self.solve_orig(ba, imu, *a, **kw)
+        self.steps.append((self.frame, float(imu.scale) * self.IM.SCALE_SCALE,
+                           float(x_scale) * self.IM.SCALE_SCALE))
+        return x8, x_scale, x_imu
+
+    def lines(self, tag, from_frame):
+        """One line a VIO frame marginalization, then one a keyframe from
+        `from_frame` on."""
+        out = [f"{tag} VIO frame marginalization at frame {m['frame']} "
+               f"(slot {m['slot']}): zero rows {m['zero_rows']}, scaled "
+               f"block eigenvalues {m['eig_min']:.3e} .. {m['eig_max']:.3e} "
+               f"({m['n_cut']} of 29 under the live cut), scale row |port| "
+               f"{m['scale_row']:.6e} |f64 live| {m['scale_row_ref']:.6e}, "
+               f"max |port - f64 live| / max |f64 live| {m['dH']:.3e}, port "
+               f"finite {m['finite']}; wall ms of the port's fold "
+               f"{m['ms']:.3f}, of the float64 eigh fold {m['ms_f64']:.3f}"
+               for m in self.margs]
+        by = collections.defaultdict(list)
+        for f, sc, dx in self.steps:
+            if f >= from_frame:
+                by[f].append((sc, dx))
+        for f, st in sorted(by.items()):
+            out.append(f"{tag} keyframe at frame {f}: scale {st[0][0]:.6f} "
+                       f"at its first VIO GN step, GN steps of the scale "
+                       + ", ".join(f"{dx:+.3e}" for _, dx in st))
+        return out
 
 
 def flagship(torch, dev, card, kernels):
@@ -933,22 +1173,28 @@ def flagship(torch, dev, card, kernels):
     for w_ in wrappers:
         w_.launches = 0
     fs = FSM.FullSystem(calib, settings, stereo=stereo, device=dev)
-    frame_ms, kf_ms, t_steady = [], [], None
+    kf_scale = {}       # the stereo scale after each fused keyframe
+    finish_kf = fs._finish_kf
+
+    def scale_of(rec, got, classic):
+        finish_kf(rec, got, classic)
+        kf_scale[rec["shell"].id] = fs.current_scale
+
+    fs._finish_kf = scale_of
+    frame_ms, t_steady = [], None
     for i in range(FLAG_FRAMES):
         if i == FLAG_WARMUP:
             torch.cuda.synchronize()
             t_steady = time.perf_counter()
-        n_kf = fs.stats["n_kf"]
         t0 = time.perf_counter()
         feed(fs, i)
         torch.cuda.synchronize()
         frame_ms.append((time.perf_counter() - t0) * 1e3)
-        if i >= FLAG_WARMUP and fs.stats["n_kf"] > n_kf:
-            kf_ms.append(frame_ms[-1])
         if fs.is_lost or fs.init_failed:
             break
     fs.finish_pending()
     torch.cuda.synchronize()
+    kf_ms, nonkf = split_by_keyframe(frame_ms, fs.kf_shell_ids, FLAG_WARMUP)
     steady_s = time.perf_counter() - t_steady if t_steady else float("nan")
     counts = [w_.launches for w_ in wrappers]
     for r in recs:
@@ -964,28 +1210,22 @@ def flagship(torch, dev, card, kernels):
                                      scene["poses"])
     n_kf = len(fs.kf_shell_ids)
     fps = (FLAG_FRAMES - FLAG_WARMUP) / steady_s
-    kf_ids = set(fs.kf_shell_ids)
-    nonkf = [frame_ms[i] for i in range(FLAG_WARMUP, len(frame_ms))
-             if i not in kf_ids]
     log(f"{tag} {W}x{H} {FLAG_FRAMES} frames, stereo + VIO on {card}: n_kf "
         f"{n_kf}, metric ATE of the scaled trajectory (no alignment) "
         f"{ate:.4f} m over {path:.3f} m, stereo scale {fs.current_scale:.4f}"
         f", IMU scale {float(fs.imu.scale) * IM.SCALE_SCALE:.4f}, steady fps "
         f"{fps:.2f} (frames {FLAG_WARMUP}-{FLAG_FRAMES - 1}, {steady_s:.3f} "
-        f"s), keyframe median "
-        f"{np.median(kf_ms) if kf_ms else float('nan'):.1f} ms "
-        f"({len(kf_ms)} keyframes in the window), non-keyframe median "
-        f"{np.median(nonkf) if nonkf else float('nan'):.1f} ms, first "
-        f"frame {frame_ms[0]:.0f} ms")
+        f"s), frames dispatching a keyframe chain: median "
+        f"{median(kf_ms):.1f} ms ({len(kf_ms)} in the window), the other "
+        f"frames: median {median(nonkf):.1f} ms, first frame "
+        f"{frame_ms[0]:.0f} ms")
     log(f"{tag} reference: {JAX_FLAGSHIP}")
     log(f"{tag} VIO frame marginalizations by the prior they started from: "
         + (", ".join(f"{k} {v}" for k, v in sorted(mfv.n_of.items()))
            or "none")
         + "; the VIO prior after the run is "
         + ("finite" if bool(torch.isfinite(fs.imu.HM).all()) else "NaN")
-        + f"; {n_kf} keyframes, scaled ATE {ate:.4f} m, keyframe median "
-        f"{np.median(kf_ms) if kf_ms else float('nan'):.1f} ms with the "
-        "working VIO BA")
+        + f"; {n_kf} keyframes, scaled ATE {ate:.4f} m")
     rep = fs.telemetry.report()["timers_ms"]
     log(f"{tag} host stage timers: " + ", ".join(
         f"{k} n={v['n']} median {v['median']:.1f} ms"
@@ -1004,6 +1244,17 @@ def flagship(torch, dev, card, kernels):
     if not ate <= 0.15 * path + 0.03:
         raise AssertionError(f"flagship ATE gate: {ate} > 0.15 * {path} "
                              "+ 0.03")
+    late = sorted(f for f in kf_scale if f >= FLAG_SCALE_FROM)
+    drift = max((abs(kf_scale[f] / kf_scale[late[0]] - 1.0) for f in late),
+                default=float("inf"))
+    log(f"{tag} the stereo scale after each keyframe from frame "
+        f"{FLAG_SCALE_FROM} on: " + ", ".join(
+            f"{f} {kf_scale[f]:.6f}" for f in late)
+        + f"; the most it moves from the first: {100 * drift:.3f}% (1% "
+        "allowed)")
+    if not drift <= 0.01:
+        raise AssertionError(f"flagship: the stereo scale moves {drift} "
+                             f"from frame {FLAG_SCALE_FROM}'s: {kf_scale}")
     for name, c in zip(("K1", "K2", "K3", "K4"), counts):
         if c <= 0:
             raise AssertionError(f"{name} was not launched on the flagship "
@@ -1048,40 +1299,204 @@ def flagship(torch, dev, card, kernels):
     del recs, pyr_l, pyr_i, tmpl, k4, mfv, a, kw, a4, kw4
     phase_done("flagship run and checks")
 
+    # the VIO fold at every frame marginalization, the port's against the
+    # float64 fold from an eigendecomposition, then the run on each
+    for use in ("port", "f64"):
+        probe = FoldProbe(torch, E, IM, use=use)
+        fp = FSM.FullSystem(calib, settings, stereo=stereo, device=dev)
+        for i in range(FLAG_FRAMES):
+            probe.frame = i
+            feed(fp, i)
+        fp.finish_pending()
+        probe.restore()
+        ptag = f"{tag} [{use} fold]"
+        for line in probe.lines(ptag, FLAG_SCALE_FROM):
+            log(line)
+        ate_p, _ = synthetic.metric_ate(fp.trajectory(scaled=True),
+                                        scene["poses"])
+        log(f"{ptag} keyframes {fp.kf_shell_ids}, stereo scale "
+            f"{fp.current_scale:.6f}, scaled ATE {ate_p:.5f} m")
+        worst = max((m["dH"] for m in probe.margs), default=float("inf"))
+        if use == "port" and not (probe.margs and worst <= 1e-4 and all(
+                m["finite"] for m in probe.margs)):
+            raise AssertionError(f"flagship: the port's VIO fold is off its "
+                                 f"float64 reference by {worst}")
+    del probe, fp
+    phase_done("flagship VIO folds")
+
     # the JAX package's fold (a NaN prior from the first VIO frame
-    # marginalization on) over the same frames: what the working VIO BA
-    # costs a keyframe and what it changes
-    k3j = Recorder(BP, "fused_iteration", 1, kind=k3_caller)
-    fj = FSM.FullSystem(calib, settings, stereo=stereo, device=dev,
-                        jax_form=True)
-    kf_j = []
-    for i in range(FLAG_FRAMES):
-        n_kf_j = fj.stats["n_kf"]
-        t0 = time.perf_counter()
-        feed(fj, i)
-        torch.cuda.synchronize()
-        if i >= FLAG_WARMUP and fj.stats["n_kf"] > n_kf_j:
-            kf_j.append((time.perf_counter() - t0) * 1e3)
-    k3j.restore()
-    ate_j, _ = synthetic.metric_ate(fj.trajectory(scaled=True),
-                                    scene["poses"])
-    chain = [f.telemetry.report()["timers_ms"]["kf_chain"] for f in (fs, fj)]
-    log(f"{tag} the same frames with the JAX package's fold (jax_form=True,"
-        f" the prior NaN after the run: "
-        f"{not bool(torch.isfinite(fj.imu.HM).all())}): keyframes "
-        f"{fj.kf_shell_ids}, scaled ATE {ate_j:.4f} m, scale "
-        f"{fj.current_scale:.4f}, keyframe median "
-        f"{np.median(kf_j) if kf_j else float('nan'):.1f} ms, kf_chain "
-        f"median {chain[1]['median']:.1f} ms (n={chain[1]['n']}), "
-        f"{k3j.n_of['gn_step_vio']} VIO GN steps; with the port's fold: "
-        f"keyframe median {np.median(kf_ms) if kf_ms else float('nan'):.1f} "
-        f"ms, kf_chain median {chain[0]['median']:.1f} ms (n="
-        f"{chain[0]['n']}), {k3.n_of['gn_step_vio']} VIO GN steps")
-    del fj, k3j, k3
+    # marginalization on) against the port's over the same frames: what
+    # the working VIO BA costs a keyframe chain, stage by stage (each stage
+    # timed with the card synchronized around it)
+    chains = {}
+    for form in ("port", "jax"):
+        k3j = Recorder(BP, "fused_iteration", 1, kind=k3_caller)
+        fj = FSM.FullSystem(calib, settings, stereo=stereo, device=dev,
+                            jax_form=form == "jax")
+        stages = [StageTimer(torch, *o) for o in (
+            (E, "optimize_vio"), (WIN, "build_track_template"),
+            (E, "marginalize_points_vio"), (E, "marginalize_frame_vio"),
+            (E, "fold_vio_block"), (fj, "_activate"), (fj, "_scale_solve"),
+            (fj, "_select_insert"))]
+        for i in range(FLAG_FRAMES):
+            feed(fj, i)
+        fj.finish_pending()
+        for st_ in stages:
+            st_.restore()
+        k3j.restore()
+        ate_j, _ = synthetic.metric_ate(fj.trajectory(scaled=True),
+                                        scene["poses"])
+        kc = fj.telemetry.timers["kf_chain"]
+        chains[form] = (sum(kc), len(kc))
+        log(f"{tag} [{form} fold, stages timed] keyframes "
+            f"{fj.kf_shell_ids}, scaled ATE {ate_j:.4f} m, scale "
+            f"{fj.current_scale:.4f}, VIO prior after the run "
+            + ("finite" if bool(torch.isfinite(fj.imu.HM).all()) else "NaN")
+            + f", {k3j.n_of['gn_step_vio']} VIO GN steps; {len(kc)} fused "
+            f"keyframe chains: {sum(kc):.1f} ms in all (median "
+            f"{median(kc):.1f}); of which, in all: " + ", ".join(
+                f"{st_.name} {sum(st_.ms):.1f} ms (n={len(st_.ms)})"
+                for st_ in stages)
+            + " (the classic bootstrap's calls included; the fold within "
+            "marginalize_frame_vio)")
+        del fj, k3j, stages
+    log(f"{tag} fused keyframe chains, the port's fold against the JAX "
+        f"package's: {chains['port'][0] - chains['jax'][0]:.1f} ms more in "
+        f"all over {chains['port'][1]} and {chains['jax'][1]} chains")
+    del k3
     kf_ids = list(fs.kf_shell_ids)
     profile_frames(torch, fs, lambda i: feed(fs, i), FLAG_FRAMES,
                    FLAG_PROF_FRAMES, tag="flagship profile")
-    return dict(kf_ids=kf_ids, scene=scene, calib=calib)
+    return dict(kf_ids=kf_ids, scene=scene, calib=calib, settings=settings)
+
+
+def pipeline_phase(torch, dev, card, mono, flag):
+    """Phase [pipeline]: the mono scene's 48 frames at depth 0 (the
+    synchronous driver) and depth 3, in turns, PIPE_PAIRS times each, every
+    run bit for bit the pipelined mono slice (keyframes, trajectory, the
+    whole window); each prints its steady fps (frames WARMUP to
+    PIPE_PROF_FROM - 1) and the card's busy share under the profiler over
+    the rest. Then the flagship scene's first PIPE_FLAG_FRAMES frames (the
+    IMU initialization and two VIO frame marginalizations) at depth 0 and
+    3, each drained, bit for bit on the trajectories, the window and the
+    VIO prior. Gated on at least two frames seen in flight."""
+    from sos_slam_tpu_torch.models import energy as E
+    from sos_slam_tpu_torch.models import full_system as FSM
+    from sos_slam_tpu_torch.utils.config import default_settings
+
+    tag = f"[pipeline] ({card})"
+    imgs, most = mono["imgs"], mono["in_flight"]
+    fps = {0: [], 3: []}
+    busy = {0: [], 3: []}
+    redo = []           # each depth-3 run's rung re-dispatches: (n, ms)
+    window = {0: [], 3: []}     # ms of the fps window
+    stages = {0: [], 3: []}     # host stage timers summed over the window
+    names = ("frame", "step", "kf_chain", "complete", "redispatch")
+    for p in range(PIPE_PAIRS):
+        # the order alternates (0, 3), (3, 0), ...: neither depth always
+        # runs second
+        for depth in ((0, 3), (3, 0))[p % 2]:
+            gc.collect()
+            fs = FSM.FullSystem(mono["calib"], default_settings(), device=dev)
+            fs.pipeline, fs.pipeline_depth = depth > 0, depth
+
+            def feed(i, fs=fs):
+                fs.add_active_frame(imgs[i], timestamp=i * 0.05, frame_id=i)
+
+            for i in range(WARMUP):
+                feed(i)
+            torch.cuda.synchronize()
+            timers = fs.telemetry.timers
+            at = {k: len(timers[k]) for k in names}
+            t0 = time.perf_counter()
+            for i in range(WARMUP, PIPE_PROF_FROM):
+                feed(i)
+                most = max(most, len(fs._pending_fused))
+            torch.cuda.synchronize()
+            window[depth].append((time.perf_counter() - t0) * 1e3)
+            stages[depth].append({k: (len(timers[k]) - at[k],
+                                      sum(timers[k][at[k]:]))
+                                  for k in names})
+            fps[depth].append((PIPE_PROF_FROM - WARMUP) * 1e3
+                              / window[depth][-1])
+            rd = fs.telemetry.timers.get("redispatch", [])
+            if depth:
+                redo.append((len(rd), sum(rd)))
+            wall, dev_ms, _, _ = busy_window(torch, fs, feed, PIPE_PROF_FROM,
+                                             N_FRAMES - PIPE_PROF_FROM)
+            busy[depth].append(dev_ms / wall)
+            same = (fs.kf_shell_ids == mono["kf_ids"]
+                    and np.array_equal(fs.trajectory(), mono["traj"])
+                    and all(torch.equal(v, getattr(fs.ba, k))
+                            for k, v in mono["ba"].items()))
+            log(f"{tag} mono {W}x{H} depth {depth}: steady fps "
+                f"{fps[depth][-1]:.2f} (frames {WARMUP}-"
+                f"{PIPE_PROF_FROM - 1}), frames {PIPE_PROF_FROM}-"
+                f"{N_FRAMES - 1} under the profiler: wall {wall:.1f} "
+                f"ms/frame, device {dev_ms:.2f} ms/frame, card busy "
+                f"{100 * busy[depth][-1]:.1f}%; host stage timers over "
+                f"the fps window: " + ", ".join(
+                    f"{k} n={n} {ms:.1f} ms"
+                    for k, (n, ms) in stages[depth][-1].items())
+                + "; frames dispatched again "
+                f"after a rung change: {len(rd)} in {sum(rd):.1f} ms (the "
+                f"whole run); bit for bit the pipelined mono slice: {same}")
+            if not same:
+                raise AssertionError(f"mono at depth {depth} is not bit for "
+                                     "bit the pipelined mono slice")
+            del fs, feed
+    log(f"{tag} mono, {PIPE_PAIRS} pairs in turns: steady fps depth 0 "
+        + ", ".join(f"{v:.2f}" for v in fps[0]) + "; depth 3 "
+        + ", ".join(f"{v:.2f}" for v in fps[3]) + "; busy depth 0 "
+        + ", ".join(f"{100 * v:.1f}%" for v in busy[0]) + "; depth 3 "
+        + ", ".join(f"{100 * v:.1f}%" for v in busy[3])
+        + f"; depth 3 / depth 0 fps, pair by pair: "
+        + ", ".join(f"{b / a:.3f}" for a, b in zip(fps[0], fps[3]))
+        + "; depth 3 - depth 0 ms of the fps window, pair by pair: "
+        + ", ".join(f"{b - a:+.1f}" for a, b in zip(window[0], window[3]))
+        + "; the depth-3 runs' rung re-dispatches (whole run): "
+        + ", ".join(f"{n} frames {ms:.1f} ms" for n, ms in redo))
+    phase_done("[pipeline] mono pairs")
+
+    scene, calib = flag["scene"], flag["calib"]
+    stereo = FSM.StereoCalib(T_lr=scene["T_lr"], calib_right=calib)
+    runs = {}
+    for depth in (0, 3):
+        margs = Recorder(E, "marginalize_frame_vio", 1)
+        fs = FSM.FullSystem(calib, flag["settings"], stereo=stereo,
+                            device=dev)
+        fs.pipeline, fs.pipeline_depth = depth > 0, depth
+        for i in range(PIPE_FLAG_FRAMES):
+            fs.add_active_frame(scene["left"][i], timestamp=i * FLAG_DT,
+                                frame_id=i, image_right=scene["right"][i],
+                                imu_samples=scene["imu"][i])
+            most = max(most, len(fs._pending_fused))
+        fs.finish_pending()
+        margs.restore()
+        runs[depth] = fs
+        if not fs.imu_initialized or margs.n_calls < 2 or fs.is_lost:
+            raise AssertionError(f"flagship at depth {depth}: IMU "
+                                 f"initialized {fs.imu_initialized}, "
+                                 f"{margs.n_calls} VIO frame "
+                                 "marginalizations")
+    a, b = runs[0], runs[3]
+    same = (a.kf_shell_ids == b.kf_shell_ids
+            and np.array_equal(a.trajectory(), b.trajectory())
+            and np.array_equal(a.trajectory(scaled=True),
+                               b.trajectory(scaled=True))
+            and torch.equal(a.ba.state, b.ba.state)
+            and torch.equal(a.ba.pt_valid, b.ba.pt_valid)
+            and torch.equal(a.imu.HM, b.imu.HM)
+            and torch.equal(a.imu.bM, b.imu.bM))
+    log(f"{tag} flagship frames 0-{PIPE_FLAG_FRAMES - 1} at depth 0 and 3, "
+        f"each drained: keyframes {a.kf_shell_ids}, bit for bit (both "
+        f"trajectories, ba.state, pt_valid, imu.HM, imu.bM): {same}; the "
+        f"most frames in flight seen in this run's pipelined phases: {most}")
+    if not same:
+        raise AssertionError("the pipelined flagship run is not bit for bit "
+                             "the synchronous one")
+    if most < 2:
+        raise AssertionError(f"at most {most} frames were in flight")
 
 
 def se3(lie, torch, xi):
@@ -1236,6 +1651,11 @@ def loop_phase(torch, dev, card, kernels, flag):
         f"{path:.3f} m; {node_s:.2f} s for the run "
         f"({n_run / node_s:.2f} frames/s); launches K1-K4 {counts}; the "
         f"flagship phase's keyframes {flag['kf_ids']}")
+    scan_s = sum(loop.timing["scan"])
+    log(f"{tag} (a) the loop handler's scan timer (Scan Context's numpy "
+        f"voxel filter and scan assembly): {len(loop.timing['scan'])} "
+        f"calls, {scan_s * 1e3:.1f} ms, {100 * scan_s / node_s:.3f}% of the "
+        "node run's wall time")
     if not fs.initialized or fs.is_lost or fs.init_failed:
         raise AssertionError("node run failed: initialized="
                              f"{fs.initialized} lost={fs.is_lost}")
@@ -1515,19 +1935,22 @@ def run(torch):
     for w_ in wrappers:
         w_.launches = 0
     fs = FullSystem(calib, settings, device=dev)
-    frame_ms, kf_ms = [], []
+    frame_ms, in_flight = [], 0
     for i in range(N_FRAMES):
-        n_kf = fs.stats["n_kf"]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fs.add_active_frame(imgs[i], timestamp=i * 0.05, frame_id=i)
         torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        frame_ms.append(dt * 1e3)
-        if i >= WARMUP and fs.stats["n_kf"] > n_kf:
-            kf_ms.append(dt * 1e3)
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        in_flight = max(in_flight, len(fs._pending_fused))
         if fs.is_lost or fs.init_failed:
             break
+    fs.finish_pending()
+    torch.cuda.synchronize()
+    # a keyframe's time is that of the frame that dispatched its chain (the
+    # frame id is the frame's index); its completion lands pipeline_depth
+    # frames later
+    kf_ms, nonkf = split_by_keyframe(frame_ms, fs.kf_shell_ids, WARMUP)
     counts = [w_.launches for w_ in wrappers]
     for r in callers:
         r.restore()
@@ -1544,22 +1967,21 @@ def run(torch):
     steady = frame_ms[WARMUP:]
     fps = len(steady) / (sum(steady) / 1e3)
     n_kf = len(fs.kf_shell_ids)
-    log(f"[slice] {W}x{H} {N_FRAMES} frames on {kind}: n_kf {n_kf} "
-        f"ATE {ate:.4f} m over {path:.3f} m (Sim(3)-aligned ate_rmse "
+    log(f"[slice] {W}x{H} {N_FRAMES} frames on {kind}, pipelined at depth "
+        f"{fs.pipeline_depth} ({in_flight} frames in flight at most): n_kf "
+        f"{n_kf} ATE {ate:.4f} m over {path:.3f} m (Sim(3)-aligned ate_rmse "
         f"{sim3['rmse']:.4f} m, scale {sim3['scale']:.4f}), steady fps "
         f"{fps:.2f} "
-        f"(frames {WARMUP}-{N_FRAMES - 1}), keyframe median "
-        f"{np.median(kf_ms) if kf_ms else float('nan'):.1f} ms, first frame "
+        f"(frames {WARMUP}-{N_FRAMES - 1}), frames dispatching a keyframe "
+        f"chain: median {median(kf_ms):.1f} ms, first frame "
         f"{frame_ms[0]:.0f} ms")
     log(f"[slice] reference: {JAX_REFERENCE}")
     rep = fs.telemetry.report()["timers_ms"]
-    nonkf = [t for t, i in zip(steady, range(WARMUP, N_FRAMES))
-             if not fs.shells[i].is_kf]
     log("[slice] host stage timers (each stage ends in a host read): "
         + ", ".join(f"{k} n={v['n']} median {v['median']:.1f} ms"
                     for k, v in sorted(rep.items()))
-        + f"; steady non-keyframe median "
-        f"{np.median(nonkf) if nonkf else float('nan'):.1f} ms")
+        + f"; steady frames dispatching no keyframe: median "
+        f"{median(nonkf):.1f} ms")
     if not ate <= 0.05 * path + 0.02:
         raise AssertionError(f"ATE gate: {ate} > 0.05 * {path} + 0.02")
     for (name, c) in zip(("K1", "K2", "K3", "K4"), counts):
@@ -1576,22 +1998,28 @@ def run(torch):
     for k, c in zip(kernels, counts):
         k["launches"] = c
     mono = dict(calib=calib, traj=traj, kf_ids=list(fs.kf_shell_ids),
-                ba={k: v.clone() for k, v in fs.ba._asdict().items()})
+                ba={k: v.clone() for k, v in fs.ba._asdict().items()},
+                imgs=imgs, poses=poses, in_flight=in_flight)
     phase_done("mono slice")
     profile_frames(torch, fs, lambda i: fs.add_active_frame(
         imgs[i], timestamp=i * 0.05, frame_id=i), N_FRAMES, PROF_FRAMES)
     phase_done("mono profile")
     del fs
     snapshot_phase(torch, dev, card, kernels, imgs, mono)
-    del mono
     phase_done("[snapshot] phase")
     flag = flagship(torch, dev, card, kernels)
     phase_done("flagship scene")
+    pipeline_phase(torch, dev, card, mono, flag)
+    del mono
+    phase_done("[pipeline] phase")
     loop_phase(torch, dev, card, kernels, flag)
     del flag
     phase_done("loop phase")
     wrapper_stats = time_kernels(torch, kernels, timings)
     phase_done("kernel times")
+    log(f"[profiler] every window opened with launches of the spin kernel, "
+        f"{PRELUDE[0]} in the last; the profiler dropped up to "
+        f"{PROFILER_DROPPED[0]} of them and none of the measured events")
     n_ops, crossing = wrapper_stats["[K3]"]
     log(f"[K3] whole wrapper: {n_ops:.1f} device ops a call; the first "
         f"Hopper design ran {K3_WRAPPER_OPS_FIRST_DESIGN}")

@@ -151,6 +151,8 @@ class SlamNode:
                 break
             if max_frames and n >= max_frames:
                 break
+        # the end of the sequence: complete the frames in flight
+        self.fs.finish_pending()
         return n
 
     def save_poses(self, path: str):

@@ -1,7 +1,7 @@
 """End-to-end synthetic odometry demo (port of
 sos_slam_tpu/io/run_synthetic.py):
 
-    python -m sos_slam_tpu_torch.io.run_synthetic [--device cpu]
+    python -m sos_slam_tpu_torch.io.run_synthetic [--device cpu] [--classic]
 
 Renders a constant-twist trajectory over an analytic textured scene, runs
 the full pipeline (initializer -> tracking -> keyframes -> windowed BA ->
@@ -31,6 +31,8 @@ def main(argv=None):
     ap.add_argument("--out", default="out_synthetic")
     ap.add_argument("--viewer", action="store_true",
                     help="render headless map views per keyframe")
+    ap.add_argument("--classic", action="store_true",
+                    help="host-decided keyframe path instead of fused")
     ap.add_argument("--device", default=None,
                     help="torch device (default: CUDA; 'cpu' runs the plain "
                          "PyTorch twins)")
@@ -53,6 +55,8 @@ def main(argv=None):
         max_track_pts=4096, desired_point_density=400.0,
         desired_immature_density=400.0)
     fs = FullSystem(calib, settings, device=imgs.device)
+    if args.classic:
+        fs.fused_kf = False
     if args.viewer:
         from sos_slam_tpu_torch.io.viewer import MapViewer
         fs.output_wrappers.append(MapViewer(out_dir=args.out, size=480))
@@ -64,6 +68,7 @@ def main(argv=None):
             print(f"tracking {'lost' if fs.is_lost else 'init failed'} "
                   f"at frame {i}", file=sys.stderr)
             break
+    fs.finish_pending()
     wall = time.time() - t0
 
     traj = fs.trajectory()

@@ -21,7 +21,7 @@ import torch
 from sos_slam_tpu_torch.models import imu as IM
 from sos_slam_tpu_torch.ops import ba as B
 from sos_slam_tpu_torch.ops import ba_p as BP
-from sos_slam_tpu_torch.ops.numerics import inv
+from sos_slam_tpu_torch.ops.numerics import inv, live_pinv
 from sos_slam_tpu_torch.utils.config import CPARS, Settings
 
 
@@ -307,12 +307,11 @@ def marginalize_frame_vio(ba: B.BAState, imu: IM.ImuState, k: int,
     IMU branch): fold the dying frame's IMU links into HM, Schur out its
     29-dim block, compact both states. Returns (ba, imu).
 
-    A dim of the dying block that carries no information (its row is
-    zero: the 15 spline dims, which are zeroed when the slot's spline is
-    not valid, or the translation of a frame no marginalized point
-    constrains) is folded out without it: a 1 on its diagonal of the
-    inverted block keeps the block regular, and its zero couplings keep
-    it out of the fold. `jax_form=True` inverts the block as the JAX
+    Directions of the dying block that carry no information (the 15
+    spline dims, which are zeroed when the slot's spline is not valid,
+    the translation of a frame no marginalized point constrains, or any
+    combination of dims at f32 rounding) are folded out without it
+    (`fold_vio_block`). `jax_form=True` inverts the block as the JAX
     package does, singular with such dims, which leaves the whole prior
     NaN (for the parity tests only)."""
     F = ba.F
@@ -363,18 +362,7 @@ def marginalize_frame_vio(ba: B.BAState, imu: IM.ImuState, k: int,
     svec_i = 1.0 / svec
     Hs = HMp * svec_i[:, None] * svec_i[None, :]
     bs = bMp * svec_i
-    Hmm = Hs[sl:sl + 29, sl:sl + 29]
-    Hmm = 0.5 * (Hmm + Hmm.T)
-    if not jax_form:
-        uninformed = torch.diag((Hs[sl:sl + 29] == 0).all(1))
-        Hmm = torch.where(uninformed, torch.ones_like(Hmm), Hmm)
-    Hmm_inv = inv(Hmm)
-    Hmm_inv = 0.5 * (Hmm_inv + Hmm_inv.T)
-    keep = (~in_marg).to(torch.float32)
-    Hxm = Hs[:, sl:sl + 29] * keep[:, None]
-    bli = Hxm @ Hmm_inv
-    Hs_new = (Hs - bli @ Hxm.T) * keep[:, None] * keep[None, :]
-    bs_new = (bs - bli @ bs[sl:sl + 29]) * keep
+    Hs_new, bs_new = fold_vio_block(Hs, bs, sl, in_marg, jax_form)
     HM2 = Hs_new * svec[:, None] * svec[None, :]
     HM2 = 0.5 * (HM2 + HM2.T)
     bM2 = bs_new * svec
@@ -397,6 +385,41 @@ def marginalize_frame_vio(ba: B.BAState, imu: IM.ImuState, k: int,
     prior = ba.prior.clone()
     prior[k] = 0.0
     return marginalize_frame(ba._replace(prior=prior), k), imu
+
+
+# the VIO fold keeps the eigen-directions of the scaled 29x29 block whose
+# eigenvalue exceeds LIVE_CUT times the largest (the block is summed in f32:
+# below ~1e-7 of the largest an eigenvalue is rounding)
+LIVE_CUT = 1e-6
+
+
+def fold_vio_block(Hs, bs, sl: int, in_marg, jax_form: bool = False):
+    """The Schur fold of the scaled VIO prior (Hs, bs) over its 29 dims
+    from `sl` (`in_marg`). Returns the folded (Hs, bs), zero on the folded
+    dims.
+
+    The fold runs in float64 over the numerically live subspace of the
+    block only (`numerics.live_pinv`): a direction the marginalized
+    points and IMU terms do not inform (a zero row, the dead spline's,
+    or a combination of dims with an eigenvalue at f32 rounding) is left
+    out, where an f32 inverse of the whole block would flood the prior
+    with its rounding. `jax_form=True` inverts the whole block in f32 as
+    the JAX package does, which leaves the prior NaN when the block is
+    singular (for the parity tests only)."""
+    keep = ~in_marg
+    if jax_form:
+        Hmm = Hs[sl:sl + 29, sl:sl + 29]
+        Hmm_inv = inv(0.5 * (Hmm + Hmm.T))
+        Hmm_inv = 0.5 * (Hmm_inv + Hmm_inv.T)
+        keep = keep.to(Hs.dtype)
+    else:
+        Hs, bs, keep = Hs.double(), bs.double(), keep.double()
+        Hmm_inv = live_pinv(Hs[sl:sl + 29, sl:sl + 29], LIVE_CUT)
+    Hxm = Hs[:, sl:sl + 29] * keep[:, None]
+    bli = Hxm @ Hmm_inv
+    Hs_new = (Hs - bli @ Hxm.T) * keep[:, None] * keep[None, :]
+    bs_new = (bs - bli @ bs[sl:sl + 29]) * keep
+    return Hs_new.float(), bs_new.float()
 
 
 def marginalize_points_vio(ba: B.BAState, imu: IM.ImuState, dI, marg,

@@ -3,7 +3,7 @@ full_system.py; reference FullSystem.cpp): monocular, stereo scale and
 spline VIO.
 
 One frame after initialization runs the JAX package's fused per-frame
-program as synchronous PyTorch:
+program in PyTorch:
   * `_frame_step`: pyramid (K1), primary-hypothesis coarse track, a retry
     over the standard hypotheses when the primary misses the achieve
     threshold, the immature-point trace (applied only if the track is
@@ -25,6 +25,19 @@ keyframe. When the step refuses a frame, the host fallback runs the
 rotation-perturbed restarts (`_finish_step_host`) and the classic
 keyframe path, exactly as the JAX package does after `_complete_fused`.
 
+The fused path is pipelined as the JAX package's driver is (`pipeline`,
+`pipeline_depth`): `_dispatch_fused` enqueues a frame from the record of
+the frame before it (its chained device state and next-frame inputs) and
+stages the values its completion reads into a pinned host buffer of the
+record's own; `_complete_fused` makes the host bookkeeping up to
+`pipeline_depth` frames later, from that one readback. A frame that the
+step refused invalidates the frames in flight after it, and a
+selector-rung change those from the first keyframe among them on (only a
+keyframe's chain reads the rung); `_drain_pending` dispatches them again,
+as the synchronous driver would. The host reads that choose which kernels
+run (the tracker's accept tests, the keyframe decision, the loop exits)
+stay in the dispatch.
+
 With VIO the system bootstraps on the classic path, as the JAX package
 does: frames wait for `min_g_imu` samples before the first one is used,
 the keyframe decision and the marginalization flags are made on the host
@@ -42,7 +55,9 @@ are skipped, so the odometry runs op for op as it does without them.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import os
 from typing import List, Optional
 
 import numpy as np
@@ -116,7 +131,9 @@ def _pad_hyps(hyps, size):
 
 
 _STATE_KEYS = ("ba", "imu", "imm", "dI", "min_act", "HdiF", "templates",
-               "pc_l0")
+               "pc_l0", "key")
+# the tracker outputs that a frame's completion reads back
+_OUT_KEYS = ("T", "aff", "residuals", "flow", "good")
 
 
 class FullSystem:
@@ -206,7 +223,17 @@ class FullSystem:
         self._last_dso_error = 1e6
         self.key = rng.PRNGKey(3141592)
         self._sel_pot = 3
-        self._last_chain = None
+        self._last_chain = None      # the last completed frame's record
+        # pipelining of the fused path (the JAX package's driver): up to
+        # `pipeline_depth` dispatched frames wait for their completion while
+        # later frames dispatch from their records; a pipelined run
+        # computes what a synchronous one does, bit for bit
+        self.pipeline = True
+        self.pipeline_depth = int(os.environ.get("SOS_SLAM_PIPE_DEPTH", "3"))
+        self._pending_fused = collections.deque()
+        # the fused per-frame path after the bootstrap; False keeps every
+        # frame on the classic host-decided path
+        self.fused_kf = True
 
         # stereo scale optimization state (FullSystem.cpp:1117-1180)
         self.stereo = stereo
@@ -261,11 +288,9 @@ class FullSystem:
             return
         if self._fused_active():
             with self.telemetry.timed("frame"):
-                rec = self._fused_frame(img, shell, exposure,
-                                        self._last_chain)
-                redo = self._complete_fused(rec)
-            self._last_chain = None if redo else rec
+                self._add_frame_fused(img, shell, exposure)
             return
+        self.finish_pending()
         with self.telemetry.timed("track"):
             self._track_classic(img, shell, exposure)
 
@@ -275,14 +300,85 @@ class FullSystem:
                                dtype=torch.float32).to(self.device)
 
     def _fused_active(self) -> bool:
-        """The fused per-frame path runs from initialization on, and with
-        VIO once the IMU is initialized (the bootstrap is classic)."""
-        if not self.initialized:
+        """The fused per-frame path runs from initialization on (unless
+        `fused_kf` is False), and with VIO once the IMU is initialized (the
+        bootstrap is classic)."""
+        if not (self.fused_kf and self.initialized):
             return False
         return self.imu_initialized if self.settings.enable_imu else True
 
+    def _pipeline_ready(self) -> bool:
+        """Frames stay in flight from the first fused frame on, with VIO
+        once the IMU is initialized: the chain takes every input it
+        changes from the record it dispatches from (the BA budget from the
+        chained keyframe count), and the host's gates (lost, the
+        bootstrap's RMSE gates) clear the queue at completion."""
+        if not self.pipeline:
+            return False
+        return (not self.settings.enable_imu) or self.imu_initialized
+
+    def _add_frame_fused(self, img, shell, exposure):
+        """Dispatch this frame from the newest record in flight (or the
+        last completed one), then complete the oldest frames until at most
+        `pipeline_depth` stay in flight."""
+        q = self._pending_fused
+        q.append(self._dispatch_fused(img, shell, exposure,
+                                      q[-1] if q else self._last_chain,
+                                      self._pending_right))
+        self._drain_pending(self.pipeline_depth if self._pipeline_ready()
+                            else 0)
+
+    def _drain_pending(self, depth: int) -> None:
+        """Complete frames in flight until at most `depth` remain. A
+        completion that invalidates the newer frames (fallback tracking, a
+        loss) reprocesses them one by one: the first from the host state,
+        each later one chained from the one completed before it. A
+        selector-rung change dispatches them again from the first keyframe
+        among them on, chained, with the new rung. A lost system or a
+        failed bootstrap clears the queue."""
+        q = self._pending_fused
+        while len(q) > depth:
+            pot_before = self._sel_pot
+            rec = q.popleft()
+            with self.telemetry.timed("complete"):
+                redo = self._complete_fused(rec)
+            self._last_chain = None if redo else rec
+            if self.is_lost or self.init_failed:
+                q.clear()
+                return
+            if redo:
+                stale = list(q)
+                q.clear()
+                for r in stale:
+                    again = self._dispatch_fused(
+                        r["image"], r["shell"], r["exposure"],
+                        self._last_chain, r["stereo_right"])
+                    with self.telemetry.timed("complete"):
+                        redo2 = self._complete_fused(again)
+                    self._last_chain = None if redo2 else again
+                    if self.is_lost or self.init_failed:
+                        return
+                continue
+            if self._sel_pot != pot_before:
+                # only a keyframe's chain reads the rung: the frames in
+                # flight before the first keyframe among them stand
+                stale = list(q)
+                first = next((j for j, r in enumerate(stale)
+                              if r["need_kf"]), len(stale))
+                q.clear()
+                q.extend(stale[:first])
+                src = stale[first - 1] if first else self._last_chain
+                for r in stale[first:]:
+                    with self.telemetry.timed("redispatch"):
+                        src = self._dispatch_fused(r["image"], r["shell"],
+                                                   r["exposure"], src,
+                                                   r["stereo_right"])
+                    q.append(src)
+
     def finish_pending(self) -> None:
-        """No frames are ever in flight: the port runs synchronously."""
+        """Complete every frame in flight. Call it before reading the
+        trajectory or the state at the end of a sequence."""
+        self._drain_pending(0)
 
     def trajectory(self, scaled: bool = False) -> np.ndarray:
         """poses.txt contract: one row `id x y z` per keyframe
@@ -302,13 +398,49 @@ class FullSystem:
     # state hand-over between the chains and the system
     # ------------------------------------------------------------------
     def _state(self) -> dict:
+        """The state a dispatch reads and a keyframe chain replaces. A
+        record holds its own; nothing writes into its tensors after it was
+        made."""
         return dict(ba=self.ba, imu=self.imu, imm=self.imm, dI=self.dI,
                     min_act=self.current_min_act_dist, HdiF=self.HdiF,
-                    templates=self.templates, pc_l0=self.pc_l0)
+                    templates=self.templates, pc_l0=self.pc_l0, key=self.key)
 
     def _adopt(self, st: dict) -> None:
         (self.ba, self.imu, self.imm, self.dI, self.current_min_act_dist,
-         self.HdiF, self.templates, self.pc_l0) = (st[k] for k in _STATE_KEYS)
+         self.HdiF, self.templates, self.pc_l0, self.key) = (
+            st[k] for k in _STATE_KEYS)
+
+    def _stage_readback(self, vals: dict):
+        """Start the copy of the device values a completion reads (float32,
+        bool) into one host buffer of this record's own: on a card, one
+        non-blocking copy into pinned memory behind an event on the
+        current stream. Returns the handle `_fetch` reads."""
+        spec = [(k, tuple(v.shape), v.dtype) for k, v in vals.items()]
+        flat = torch.cat([v.reshape(-1).to(torch.float32)
+                          for v in vals.values()])
+        if not flat.is_cuda:
+            return spec, flat, None
+        host = torch.empty(flat.shape, dtype=torch.float32, pin_memory=True)
+        host.copy_(flat, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return spec, host, done
+
+    @staticmethod
+    def _fetch(staged) -> dict:
+        """Wait for a staged readback and unpack it into numpy arrays of
+        the staged shapes (bool where the value was bool)."""
+        spec, host, done = staged
+        if done is not None:
+            done.synchronize()
+        flat = host.numpy()
+        out, at = {}, 0
+        for k, shape, dtype in spec:
+            n = int(np.prod(shape))
+            a = flat[at:at + n].reshape(shape)
+            out[k] = a.astype(bool) if dtype == torch.bool else a.copy()
+            at += n
+        return out
 
     # ------------------------------------------------------------------
     # initialization
@@ -410,7 +542,8 @@ class FullSystem:
         shell.cam_to_world = T0 @ T_nf
         shell.tracking_ref = first_shell.id
         self.initialized = True
-        self._deliver(pyr, shell, exposure, need_kf=True)
+        self._deliver(pyr, shell, exposure, need_kf=True,
+                      right=self._pending_right)
 
     def _prior_row(self, first: bool) -> torch.Tensor:
         s = self.settings
@@ -528,22 +661,23 @@ class FullSystem:
     def _t(self, a, dtype=torch.float32) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
 
-    def _frame_step(self, img, T_primary, T_hyps, T_cw_ref, aff0, ref_aff,
-                    ref_exp, exposure, achieve_th):
-        """The fused steady-state frame step (`_frame_step_jit`)."""
+    def _frame_step(self, st, img, T_primary, T_hyps, T_cw_ref, aff0,
+                    ref_aff, ref_exp, exposure, achieve_th):
+        """The fused steady-state frame step (`_frame_step_jit`) on the
+        state `st`."""
         s = self.settings
         pyr, _ = build_pyramid(img, self.n_levels)
         exposures = torch.stack([ref_exp, exposure])
         kw = dict(coarse_cutoff_th=s.coarse_cutoff_th, huber=s.huber_th)
         nan6 = torch.full((6,), float("nan"), device=self.device)
-        out = TK.track_newest_coarse(pyr, self.templates, T_primary[None],
+        out = TK.track_newest_coarse(pyr, st["templates"], T_primary[None],
                                      aff0, ref_aff, exposures, nan6,
                                      self._intr, self.n_levels, **kw)
         res0 = out["residuals"][0, 0]
         prim_ok = bool(out["good"][0] & torch.isfinite(res0)
                        & (res0 < achieve_th))
         if not prim_ok:
-            outb = TK.track_hypotheses(pyr, self.templates, T_hyps, aff0,
+            outb = TK.track_hypotheses(pyr, st["templates"], T_hyps, aff0,
                                        ref_aff, exposures, self._intr,
                                        self.n_levels, **kw)
             resb = outb["residuals"][:, 0]
@@ -558,10 +692,11 @@ class FullSystem:
         accept = bool(out["good"][0] & torch.isfinite(res_best)
                       & (res_best < achieve_th * s.re_track_escalation))
         T_cw_new = T_cw_ref @ inv(out["T"][0])
-        imm = self.imm
+        imm = st["imm"]
         if accept:
-            imm = self._trace(pyr[0], T_cw_new, out["aff"][0], exposures[1])
-        stats = self._frame_stats(self.ba, imm)
+            imm = self._trace(st["ba"], imm, pyr[0], T_cw_new, out["aff"][0],
+                              exposures[1])
+        stats = self._frame_stats(st["ba"], imm)
         return pyr, out, imm, accept, T_cw_new, stats
 
     def _need_kf(self, out, accept, exposure_new, ref_exposure, first_rmse,
@@ -585,13 +720,21 @@ class FullSystem:
         first_eff = torch.where(first_rmse < 0, res0, first_rmse)
         return bool((score > 1.0) | (2.0 * first_eff < res0)) or n_kf == 0
 
-    def _fused_frame(self, img, shell, exposure, chain):
-        """One frame of the fused path: step, decision, keyframe chain and
-        the next frame's chained inputs. Returns the completion record."""
+    def _dispatch_fused(self, img, shell, exposure, chain, right=None):
+        """Enqueue one frame of the fused path: step, decision, keyframe
+        chain and the next frame's chained inputs, all from `chain` (the
+        record of the frame before: its device state and `nxt` inputs) or,
+        with None, from the host state. Stages the values its completion
+        reads and makes no host bookkeeping: returns the record that
+        `_complete_fused` completes. `right`: this frame's right image
+        (stereo)."""
         s = self.settings
         dev = self.device
         vio = s.enable_imu
         if chain is None:
+            st = self._state()
+            # the predecessor by shell index, never [-2]: a frame that is
+            # dispatched again has newer shells after it
             prev_sh = self.shells[shell.shell_idx - 1] \
                 if shell.shell_idx >= 1 else None
             hyps, _ = self._motion_hypotheses(
@@ -619,16 +762,17 @@ class FullSystem:
                 host_out=self.host_out.copy(),
                 scale_state=(np.float32(self.current_scale),
                              self.scale_trapped, self.scale_opt_fails),
-                # the host queue is reconciled here: nothing to mask
-                t_last_kf=np.float32(-1e30))
+                # the host queue is reconciled here: nothing to leave out
+                t_last_kf=float("-inf"))
             prev_was_kf = bool(prev_sh.is_kf) if prev_sh is not None \
                 else False
         else:
+            st = chain["state"]
             inp = chain["nxt"]
             prev_was_kf = chain["need_kf"]
         exp_t = self._t(np.float32(exposure))
         T_primary, T_hyps = inp["T_primary"], inp["T_hyps"]
-        staged = None
+        staged = bg = None
         if vio:
             if chain is not None:
                 t_prev_frame = chain["shell"].timestamp
@@ -637,8 +781,9 @@ class FullSystem:
             else:
                 t_prev_frame = shell.timestamp - 1.0
             staged = self._stage_imu(shell, inp["t_last_kf"])
-            newest = max(int(torch.sum(self.ba.frame_valid)) - 1, 0)
-            bg = (self.imu.state[newest] * IM._s21(self.imu.state))[3:6]
+            imu = st["imu"]
+            newest = max(int(torch.sum(st["ba"].frame_valid)) - 1, 0)
+            bg = (imu.state[newest] * IM._s21(imu.state))[3:6]
             T_primary, T_hyps = self._imu_hyp_device(
                 inp["T_cw_prev"], inp["T_cw_ref"], T_primary, T_hyps,
                 staged["gyro"], staged["ts"], staged["valid"],
@@ -646,26 +791,30 @@ class FullSystem:
 
         with self.telemetry.timed("step"):
             pyr, out, imm_new, accept, T_cw_new, stats_dev = \
-                self._frame_step(img, T_primary, T_hyps, inp["T_cw_ref"],
-                                 inp["aff"], inp["ref_aff"], inp["ref_exp"],
-                                 exp_t, inp["th"])
+                self._frame_step(st, img, T_primary, T_hyps,
+                                 inp["T_cw_ref"], inp["aff"], inp["ref_aff"],
+                                 inp["ref_exp"], exp_t, inp["th"])
         need_kf = self._need_kf(out, accept, exp_t, inp["ref_exp"],
                                 inp["first_rmse"], inp["n_kf"])
-        slot = int(torch.sum(self.ba.frame_valid))
+        slot = int(torch.sum(st["ba"].frame_valid))
         aff_new = out["aff"][0]
         n_kf = inp["n_kf"]
-        rec = dict(shell=shell, exposure=exposure, pyr=pyr, out=out,
-                   accept=accept, T_cw_new=T_cw_new, need_kf=need_kf,
-                   slot=slot, pot=self._sel_pot)
+        rec = dict(shell=shell, exposure=exposure, image=img,
+                   stereo_right=right, pyr=pyr, accept=accept,
+                   need_kf=need_kf, slot=slot, pot=self._sel_pot)
+        back = dict(T_cw_new=T_cw_new,
+                    **{"out." + k: out[k] for k in _OUT_KEYS})
         if need_kf:
-            args = (imm_new, pyr, T_cw_new, aff_new, exp_t, stats_dev,
+            args = (st, imm_new, pyr, T_cw_new, aff_new, exp_t, stats_dev,
                     inp["host_out"], n_kf, shell.id, self._max_its(n_kf + 1),
-                    inp["scale_state"])
+                    inp["scale_state"], self._sel_pot, right)
             with self.telemetry.timed("kf_chain"):
                 chain_out = self._kf_chain_vio(*args, staged,
                                                np.float32(shell.timestamp)) \
                     if vio else self._kf_chain(*args)
             rec.update(chain_out)
+            back.update(self._kf_readback(chain_out))
+            bg = chain_out.get("bg")
             T_kf = chain_out["T_cw_all_t"][slot]
             aff_kf = chain_out["affs_t"][slot]
             T_me, T_ref_n = T_kf, T_kf
@@ -674,13 +823,9 @@ class FullSystem:
             aff_n, ref_aff_n, ref_exp_n = aff_kf, aff_kf, exp_t
             host_out_n = chain_out["host_out"]
             scale_n = chain_out["scale_out"][:3]
-            t_last_kf_n = np.float32(shell.timestamp)
+            t_last_kf_n = shell.timestamp
         else:
-            st = self._state()
-            st["imm"] = imm_new
-            rec["state"] = st
-            if vio:
-                rec["bg"] = bg
+            rec["state"] = dict(st, imm=imm_new)
             T_me, T_ref_n, T_prev_f = T_cw_new, inp["T_cw_ref"], \
                 inp["T_cw_prev"]
             aff_n, ref_aff_n, ref_exp_n = aff_new, inp["ref_aff"], \
@@ -689,6 +834,8 @@ class FullSystem:
             scale_n = inp["scale_state"]
             t_last_kf_n = inp["t_last_kf"]
         rec["host_out"] = host_out_n
+        if vio:
+            back["bg"] = bg
 
         # next-frame chaining inputs (FullSystem.cpp:148-173), in f32
         res0 = out["residuals"][0, 0]
@@ -711,25 +858,39 @@ class FullSystem:
             first_rmse=torch.where((first < 0) & finite
                                    & torch.tensor(accept, device=dev),
                                    res0, first))
+        rec["readback"] = self._stage_readback(back)
         return rec
 
+    @staticmethod
+    def _kf_readback(chain_out) -> dict:
+        """The device values of a keyframe chain that `_finish_kf`
+        reads."""
+        st = chain_out["ba_stats"]
+        return dict(T_cw_all_t=chain_out["T_cw_all_t"],
+                    affs_t=chain_out["affs_t"], rmse=st["rmse"],
+                    is_lost=st["is_lost"])
+
     def _complete_fused(self, rec) -> bool:
-        """Host bookkeeping of one fused frame. Returns True when the next
-        frame must not chain from this one (fallback tracking or lost)."""
+        """Host bookkeeping of one dispatched fused frame from its one
+        readback: the adopted state, the IMU queue, the shell's pose and
+        affine, the keyframe's window bookkeeping, rung adaptation and
+        exports. Returns True when the frames chained from this record
+        are invalid (fallback tracking, or lost)."""
         shell, exposure = rec["shell"], rec["exposure"]
+        got = self._fetch(rec["readback"])
         self._adopt(rec["state"])
         if self.settings.enable_imu:
             # gyro bias for the host IMU hypothesis of the fallback path
-            self._last_bg = _np(rec["bg"]).astype(np.float64)
+            self._last_bg = got["bg"].astype(np.float64)
             if rec["need_kf"]:
                 # the chain consumed the staged sample block; mirror it on
                 # the host queue (setImuData's split)
                 self.imu_queue = [q for q in self.imu_queue
                                   if q[0] > shell.timestamp]
-        self.host_out = np.asarray(rec["host_out"], np.int64)
-        out_np = {k: _np(v) for k, v in rec["out"].items()}
+        self.host_out = np.array(rec["host_out"], np.int64)
+        out_np = {k: got["out." + k] for k in _OUT_KEYS}
         tres = self._finish_step_host(rec, out_np, rec["accept"],
-                                      _np(rec["T_cw_new"]))
+                                      got["T_cw_new"])
         if tres is None:
             self.is_lost = True
             return True
@@ -738,12 +899,13 @@ class FullSystem:
         if not rec["accept"]:
             # fallback tracking was used: decide classically
             need_kf = self._keyframe_decision(tres, shell)
-            self._deliver(rec["pyr"], shell, exposure, need_kf)
+            self._deliver(rec["pyr"], shell, exposure, need_kf,
+                          right=rec["stereo_right"])
             return True
         if rec["need_kf"]:
             if rec["slot"] >= self.F:
                 raise RuntimeError("window overflow — marginalization failed")
-            self._finish_kf(rec, classic=False)
+            self._finish_kf(rec, got, classic=False)
         return False
 
     def _finish_step_host(self, p, out, accept, T_cw_new):
@@ -839,12 +1001,13 @@ class FullSystem:
         keyframe or the trace (`_track_new_coarse` + `_finish_tracked`)."""
         s = self.settings
         ref_shell = self.shells[self.frame_shell_idx[self.ref_slot]]
-        aff0 = np.asarray(self.shells[-2].aff, np.float32) \
-            if len(self.shells) >= 2 else np.zeros(2, np.float32)
-        hyps, _ = self._motion_hypotheses(lag=0)
+        aff0 = np.asarray(self.shells[shell.shell_idx - 1].aff, np.float32) \
+            if shell.shell_idx >= 1 else np.zeros(2, np.float32)
+        hyps, _ = self._motion_hypotheses(
+            lag=len(self.shells) - 1 - shell.shell_idx)
         exp_t = self._t(np.float32(exposure))
         pyr, out, imm_new, accept, T_cw_new, stats = self._frame_step(
-            img, self._t(np.asarray(hyps[0], np.float32)),
+            self._state(), img, self._t(np.asarray(hyps[0], np.float32)),
             self._t(np.stack(_pad_hyps(hyps[1:], 5)).astype(np.float32)),
             self._t(np.asarray(ref_shell.cam_to_world, np.float32)),
             self._t(aff0), self._t(self.ref_aff),
@@ -863,20 +1026,23 @@ class FullSystem:
         for ow in self.output_wrappers:
             ow.publish_cam_pose(shell, None)
         self._deliver(pyr, shell, exposure, need_kf, traced=accept,
-                      stats=stats)
+                      stats=stats, right=self._pending_right)
 
     def _deliver(self, pyr, shell, exposure, need_kf: bool,
-                 traced: bool = False, stats=None):
+                 traced: bool = False, stats=None, right=None):
         """A tracked frame's classic completion: a keyframe, or the trace
-        when the step did not already run it."""
+        when the step did not already run it. `right`: the frame's right
+        image (stereo)."""
         if need_kf:
             if self.settings.enable_imu:
-                self._make_keyframe_vio(pyr, shell, exposure, traced, stats)
+                self._make_keyframe_vio(pyr, shell, exposure, traced, stats,
+                                        right)
             else:
-                self._make_keyframe(pyr, shell, exposure)
+                self._make_keyframe(pyr, shell, exposure, right)
         elif not traced:
             self.imm = self._trace(
-                pyr[0], self._t(np.asarray(shell.cam_to_world, np.float32)),
+                self.ba, self.imm, pyr[0],
+                self._t(np.asarray(shell.cam_to_world, np.float32)),
                 self._t(np.asarray(shell.aff, np.float32)),
                 self._t(np.float32(exposure)))
 
@@ -891,14 +1057,14 @@ class FullSystem:
             return 15
         return self.settings.max_opt_iterations
 
-    def _make_keyframe(self, pyr, shell, exposure):
+    def _make_keyframe(self, pyr, shell, exposure, right=None):
         """The classic vision keyframe path (first keyframe after
         initialization and refused frames): trace + stats, then the same
         chain."""
         T_cw = self._t(np.asarray(shell.cam_to_world, np.float32))
         aff = self._t(np.asarray(shell.aff, np.float32))
         exp_t = self._t(np.float32(exposure))
-        imm = self._trace(pyr[0], T_cw, aff, exp_t)
+        imm = self._trace(self.ba, self.imm, pyr[0], T_cw, aff, exp_t)
         stats = self._frame_stats(self.ba, imm)
         slot = len(self.frame_shell_idx)
         if slot >= self.F:
@@ -907,16 +1073,18 @@ class FullSystem:
         rec = dict(shell=shell, exposure=exposure, pyr=pyr, slot=slot,
                    pot=self._sel_pot)
         rec.update(self._kf_chain(
-            imm, pyr, T_cw, aff, exp_t, stats, self.host_out.copy(), n_kf,
-            shell.id, self._max_its(n_kf + 1),
+            self._state(), imm, pyr, T_cw, aff, exp_t, stats,
+            self.host_out.copy(), n_kf, shell.id, self._max_its(n_kf + 1),
             (np.float32(self.current_scale), self.scale_trapped,
-             self.scale_opt_fails)))
+             self.scale_opt_fails), self._sel_pot, right))
+        got = self._fetch(self._stage_readback(self._kf_readback(rec)))
         self._adopt(rec["state"])
-        self.host_out = np.asarray(rec["host_out"], np.int64)
-        self._finish_kf(rec, classic=True)
+        self.host_out = np.array(rec["host_out"], np.int64)
+        self._finish_kf(rec, got, classic=True)
 
-    def _finish_kf(self, rec, classic: bool):
-        """Host bookkeeping of a keyframe from its chain's values."""
+    def _finish_kf(self, rec, got, classic: bool):
+        """Host bookkeeping of a keyframe from its chain's values and their
+        readback `got`."""
         s = self.settings
         shell = rec["shell"]
         slot = rec["slot"]
@@ -926,17 +1094,15 @@ class FullSystem:
         shell.is_kf = True
         self.stats["n_kf"] += 1
         n_kf = len(self.kf_shell_ids)
-        st = rec["ba_stats"]
-        rmse = float(st["rmse"])
-        if bool(st["is_lost"]):
+        rmse = float(got["rmse"])
+        if bool(got["is_lost"]):
             self.is_lost = True
             return
         if (n_kf == 2 and rmse > 25) or (n_kf == 3 and rmse > 15) or \
                 (n_kf == 4 and rmse > 10):
             self.init_failed = True
             return
-        T_cw = _np(rec["T_cw_all_t"])
-        affs = _np(rec["affs_t"])
+        T_cw, affs = got["T_cw_all_t"], got["affs_t"]
         for i, sh_idx in enumerate(self.frame_shell_idx):
             self.shells[sh_idx].cam_to_world = T_cw[i]
             self.shells[sh_idx].aff = affs[i]
@@ -987,24 +1153,26 @@ class FullSystem:
             self._drop_slot(k)
             self._emit(kf_record)
 
-    def _kf_chain(self, imm, pyr, T_cw_new, aff_new, exposure, stats,
+    def _kf_chain(self, st, imm, pyr, T_cw_new, aff_new, exposure, stats,
                   host_out, n_kf: int, shell_id: int, max_its: int,
-                  scale_state):
-        """The vision keyframe chain (`_kf_chain_jit`'s run branch): flags,
-        the mega-step, point marginalization + selection, the flagged
-        frames' marginalizations, the image-stack compaction and, with
-        stereo, the scale solve on the fresh template."""
+                  scale_state, pot: int, right):
+        """The vision keyframe chain (`_kf_chain_jit`'s run branch) on the
+        state `st`: flags, the mega-step, point marginalization +
+        selection at rung `pot`, the flagged frames' marginalizations, the
+        image-stack compaction and, with stereo, the scale solve on the
+        fresh template and the right image `right`. The image stack is
+        copied before the new slot is written: the record it came from
+        may be dispatched from again."""
         s = self.settings
-        ba, dI = self.ba, self.dI
+        ba, dI = st["ba"], st["dI"].clone()
         slot = int(torch.sum(ba.frame_valid))
-        key = rng.fold_in(self.key, shell_id)
+        key = rng.fold_in(st["key"], shell_id)
         marg_ks = self._flag_frames(stats, ba.exposure, ba.frame_valid,
                                     host_out, n_kf)
         ba = WIN.insert_frame(ba, T_cw_new, aff_new, exposure,
                               self._prior_row(first=False))
         dI[slot] = pyr[0]
-        ba, imm, min_act = self._activate(ba, imm, dI,
-                                          self.current_min_act_dist)
+        ba, imm, min_act = self._activate(ba, imm, dI, st["min_act"])
         ba, ba_stats = E.optimize(ba, dI, s, self.w, self.h, max_its=max_its,
                                   min_its=s.min_opt_iterations)
         HdiF = ba_stats["HdiF"]
@@ -1016,33 +1184,33 @@ class FullSystem:
         marg_pts = (ba.host, ba.u, ba.v, ba.idepth)   # loop-cache source
         ba, marg, died = self._marg_points(ba, dI, HdiF,
                                            self._flag_mask(marg_ks))
-        imm, n_have = self._select_insert(imm, pyr[0], slot, key,
-                                          self._sel_pot)
+        imm, n_have = self._select_insert(imm, pyr[0], slot, key, pot)
         host_out = host_out + died
         ba, imm, _, dI, host_out, ecols = self._marg_frames_chain(
             ba, imm, None, dI, host_out, marg_ks)
         return dict(
-            state=dict(ba=ba, imu=self.imu, imm=imm, dI=dI, min_act=min_act,
+            state=dict(st, ba=ba, imm=imm, dI=dI, min_act=min_act,
                        HdiF=HdiF, templates=templates, pc_l0=pc_l0),
             ba_stats=ba_stats, T_cw_all_t=T_cw_all, affs_t=affs,
             marg_ks=marg_ks, n_have=n_have, host_out=host_out,
             imm_pre_select=imm_pre_select, marg=marg, marg_pts=marg_pts,
             ecols=ecols,
-            scale_out=self._scale_solve(templates, scale_state))
+            scale_out=self._scale_solve(templates, scale_state, right))
 
-    def _kf_chain_vio(self, imm, pyr, T_cw_new, aff_new, exposure, stats,
-                      host_out, n_kf: int, shell_id: int, max_its: int,
-                      scale_state, staged, timestamp):
-        """The VIO keyframe chain (`_kf_chain_vio_jit`'s run branch):
-        insert + IMU-sample intake + spline propagation + activation + the
-        visual-inertial KKT BA + the stereo scale solve or the scale
-        trapping + VIO point/frame marginalization + new-trace
-        selection."""
+    def _kf_chain_vio(self, st, imm, pyr, T_cw_new, aff_new, exposure,
+                      stats, host_out, n_kf: int, shell_id: int,
+                      max_its: int, scale_state, pot: int, right, staged,
+                      timestamp):
+        """The VIO keyframe chain (`_kf_chain_vio_jit`'s run branch) on the
+        state `st`: insert + IMU-sample intake + spline propagation +
+        activation + the visual-inertial KKT BA + the stereo scale solve or
+        the scale trapping + VIO point/frame marginalization + new-trace
+        selection (the image stack copied as in `_kf_chain`)."""
         s = self.settings
         dev = self.device
-        ba, imu, dI = self.ba, self.imu, self.dI
+        ba, imu, dI = st["ba"], st["imu"], st["dI"].clone()
         slot = int(torch.sum(ba.frame_valid))
-        key = rng.fold_in(self.key, shell_id)
+        key = rng.fold_in(st["key"], shell_id)
         marg_ks = self._flag_frames(stats, ba.exposure, ba.frame_valid,
                                     host_out, n_kf)
         ba2 = WIN.insert_frame(ba, T_cw_new, aff_new, exposure,
@@ -1063,14 +1231,13 @@ class FullSystem:
         imu2 = IM.propagate_imu_state(
             imu2, slot, imu2.timestamps[prev], imu2.vel[prev],
             T_all[prev, :3, :3], last_bias, s)
-        ba2, imm2, min_act = self._activate(ba2, imm, dI,
-                                            self.current_min_act_dist)
+        ba2, imm2, min_act = self._activate(ba2, imm, dI, st["min_act"])
         ba3, imu3, ba_stats, HdiF, templates, pc_l0, T_cw_all, affs = \
             self._kf_core_vio(ba2, imu2, dI, pyr, max_its)
 
         # scale: the stereo solve in the chain, or the mono trapping queue
         if self.stereo is not None and s.enable_scale_opt:
-            scale_out = self._scale_solve(templates, scale_state)
+            scale_out = self._scale_solve(templates, scale_state, right)
             imu3 = imu3._replace(
                 scale=torch.tensor(scale_out[0], dtype=torch.float32,
                                    device=dev) / IM.SCALE_SCALE,
@@ -1090,16 +1257,16 @@ class FullSystem:
         ba4, imu5 = E.marginalize_points_vio(ba3, imu3, dI, marg, s, self.w,
                                              self.h)
         ba4 = E.drop_points(ba4, drop)
-        imm3, n_have = self._select_insert(imm2, pyr[0], slot, key,
-                                           self._sel_pot)
+        imm3, n_have = self._select_insert(imm2, pyr[0], slot, key, pot)
         host_out = host_out + _np(died)
         ba4, imm3, imu5, dI, host_out, ecols = self._marg_frames_chain(
             ba4, imm3, imu5, dI, host_out, marg_ks)
         newest = int(torch.sum(ba4.frame_valid)) - 1
         bg = (imu5.state[newest] * IM._s21(imu5.state))[3:6]
         return dict(
-            state=dict(ba=ba4, imu=imu5, imm=imm3, dI=dI, min_act=min_act,
-                       HdiF=HdiF, templates=templates, pc_l0=pc_l0),
+            state=dict(st, ba=ba4, imu=imu5, imm=imm3, dI=dI,
+                       min_act=min_act, HdiF=HdiF, templates=templates,
+                       pc_l0=pc_l0),
             ba_stats=ba_stats, T_cw_all_t=T_cw_all, affs_t=affs,
             marg_ks=marg_ks, n_have=n_have, host_out=host_out,
             imm_pre_select=imm2, scale_out=scale_out, bg=bg, marg=marg,
@@ -1140,18 +1307,18 @@ class FullSystem:
         return (ba, imu, ba_stats, HdiF, templates, pc_l0,
                 B.state_to_pose(ba.T_cw_eval, ba.state), B.aff_real(ba.state))
 
-    def _scale_solve(self, templates, scale_state):
-        """The stereo 1-DoF scale solve on the keyframe's template with
-        trapping and fail counting (FullSystem::optimizeScale and the
-        chains' in-chain solve). Returns (scale, trapped, fails, error);
-        without a right image (or without stereo) the state passes through
-        with error -1."""
+    def _scale_solve(self, templates, scale_state, right):
+        """The stereo 1-DoF scale solve of the right image `right` on the
+        keyframe's template with trapping and fail counting
+        (FullSystem::optimizeScale and the chains' in-chain solve).
+        Returns (scale, trapped, fails, error); without a right image (or
+        without stereo) the state passes through with error -1."""
         s_cur, trapped, fails = scale_state
         if self.stereo is None or not self.settings.enable_scale_opt \
-                or self._pending_right is None:
+                or right is None:
             return (s_cur, trapped, fails, -1.0)
         dev = self.device
-        pyr_r, _ = build_pyramid(self._pending_right, self.n_levels)
+        pyr_r, _ = build_pyramid(right, self.n_levels)
         T_lr = torch.as_tensor(np.asarray(self.stereo.T_lr, np.float32),
                                device=dev)
         R01, t01 = T_lr[:3, :3], T_lr[:3, 3]
@@ -1194,7 +1361,7 @@ class FullSystem:
     # the classic VIO keyframe (the bootstrap; _make_keyframe's IMU branch)
     # ------------------------------------------------------------------
     def _make_keyframe_vio(self, pyr, shell, exposure, traced=False,
-                           stats=None):
+                           stats=None, right=None):
         """FullSystem::makeKeyFrame with the IMU enabled, step by step as
         the JAX package's classic path runs it: host flags, insertion,
         IMU-sample intake (+ propagation once initialized), activation,
@@ -1205,7 +1372,8 @@ class FullSystem:
         dev = self.device
         if not traced:
             self.imm = self._trace(
-                pyr[0], self._t(np.asarray(shell.cam_to_world, np.float32)),
+                self.ba, self.imm, pyr[0],
+                self._t(np.asarray(shell.cam_to_world, np.float32)),
                 self._t(np.asarray(shell.aff, np.float32)),
                 self._t(np.float32(exposure)))
             stats = self._frame_stats(self.ba, self.imm)
@@ -1228,6 +1396,7 @@ class FullSystem:
             self.ba, self._t(np.asarray(shell.cam_to_world, np.float32)),
             self._t(np.asarray(shell.aff, np.float32)),
             self._t(np.float32(exposure)), prior_row)
+        self.dI = self.dI.clone()   # a record may hold the stack
         self.dI[slot] = pyr[0]
         self._set_imu_data(slot, shell)
         if self.imu_initialized:
@@ -1278,7 +1447,8 @@ class FullSystem:
         if s.enable_scale_opt:
             sv, trapped, fails, err = self._scale_solve(
                 self.templates, (np.float32(self.current_scale),
-                                 self.scale_trapped, self.scale_opt_fails))
+                                 self.scale_trapped, self.scale_opt_fails),
+                right)
             shell.scale_error = float(err)
             self.current_scale = float(sv)
             self.scale_trapped, self.scale_opt_fails = trapped, fails
@@ -1353,20 +1523,21 @@ class FullSystem:
             self._t(valid, torch.bool),
             self._t(np.float32(shell.timestamp)), sv)
 
-    def _stage_imu(self, shell, t_last_kf):
+    def _stage_imu(self, shell, t_last_kf: float):
         """The fused path's candidate IMU block (`_imu_candidate`): the
         samples this frame WOULD consume if it becomes a keyframe, without
-        touching the host queue, masked by the chained last-keyframe time
-        and compacted to the front in a stable order (`_fused_frame_vio_jit`,
-        a no-op on a reconciled queue)."""
-        samples = [q for q in self.imu_queue if q[0] <= shell.timestamp]
+        touching the host queue. The samples of a keyframe still in flight
+        (at or before the chained last-keyframe time) are left out on the
+        host, in float64, exactly as the completion's reconciliation of
+        the queue drops them; the JAX package masks them on the device in
+        f32, which keeps a sample at the keyframe's own time when the f32
+        roundings of the two times fall so (the flagship scene's frame 29
+        at 640x480)."""
+        samples = [q for q in self.imu_queue
+                   if t_last_kf < q[0] <= shell.timestamp]
         acc, gyro, ts, valid = self._imu_block(samples, shell.timestamp)
-        acc, gyro, ts = self._t(acc), self._t(gyro), self._t(ts)
-        valid = self._t(valid, torch.bool) & (
-            ts > float(np.float32(t_last_kf) - np.float32(shell.timestamp)))
-        order = torch.argsort((~valid).to(torch.int8), stable=True)
-        return dict(acc=acc[order], gyro=gyro[order], ts=ts[order],
-                    valid=valid[order])
+        return dict(acc=self._t(acc), gyro=self._t(gyro), ts=self._t(ts),
+                    valid=self._t(valid, torch.bool))
 
     def _propagate_imu(self, slot: int, shell):
         """propagateImuState for the incoming KF (HessianBlocks.cpp:357-404)."""
@@ -1600,14 +1771,14 @@ class FullSystem:
         Kt = torch.einsum("ij,fj->fi", K, rel[:, :3, 3])
         return KRKi, Kt
 
-    def _trace(self, dI0_new, T_cw_new, aff_new, exposure_new):
-        """Trace every immature point onto a new frame (traceNewCoarse)."""
-        ba = self.ba
+    def _trace(self, ba, imm, dI0_new, T_cw_new, aff_new, exposure_new):
+        """Trace every immature point of `imm` onto a new frame
+        (traceNewCoarse) against the window `ba`."""
         KRKi, Kt = self._host_to_new_transforms(ba, T_cw_new)
         aff_cur = B.aff_real(ba.state)
         affs = TK.aff_from_to(ba.exposure, exposure_new, aff_cur.T,
                               aff_new[:, None].expand(2, ba.F)).T
-        return TR.trace_points(self.imm, dI0_new, KRKi, Kt, affs, self.w,
+        return TR.trace_points(imm, dI0_new, KRKi, Kt, affs, self.w,
                                self.h, self.settings)
 
     def _frame_stats(self, ba, imm):

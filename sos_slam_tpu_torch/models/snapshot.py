@@ -86,8 +86,9 @@ def _get(data, name: str, desc, device):
 
 
 def save_snapshot(fs: FullSystem, path: str) -> None:
-    # the JAX package drains its frames in flight here; the port runs none
-    # yet, and a pipelined port drains at the same place
+    """Complete the frames in flight, then write the state to `path`."""
+    # complete the frames in flight (as the JAX package does): the chained
+    # next-frame inputs kept below are then the last completed frame's
     fs.finish_pending()
     out: dict = {}
     for prefix, st in (("ba", fs.ba), ("imm", fs.imm), ("imu", fs.imu)):
@@ -179,6 +180,9 @@ def load_snapshot(fs: FullSystem, path: str) -> FullSystem:
         if port is not None:
             _load_port(fs, port, data)
 
+    if fs._last_chain is not None:
+        # the record the next frame dispatches from: the restored state
+        fs._last_chain["state"] = fs._state()
     n = len(fs.frame_shell_idx)
     if fs.initialized and fs.frame_pyramids[max(n - 1, 0)] is not None:
         if port is None:

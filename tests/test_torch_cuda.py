@@ -626,3 +626,53 @@ def test_snapshot_from_the_card(tmp_path):
     exact(fl.trajectory(), fs.trajectory())
     for a, b in zip(fl.ba, fs.ba):
         exact(a.cpu(), b.cpu())
+
+
+def test_live_pinv_on_the_card():
+    """The VIO fold's pseudo-inverse over the live eigen-directions
+    (ops/numerics.py, no host read) on the card against numpy's
+    eigendecomposition: a 29x29 float64 block with four eigenvalues at f32
+    rounding and one at the cut's order."""
+    from sos_slam_tpu_torch.ops.numerics import live_pinv
+    dev = _dev()
+    r = np.random.RandomState(7)
+    Q, _ = np.linalg.qr(r.randn(29, 29))
+    w = np.exp(r.uniform(np.log(5e-6), np.log(5.0), 29))
+    w[:4] = r.uniform(-4e-7, 4e-7, 4)
+    A = (Q * w) @ Q.T
+    live = w > 1e-6 * np.abs(w).max()
+    ref = (Q[:, live] / w[live]) @ Q[:, live].T
+    got = live_pinv(torch.tensor(A, device=dev), 1e-6).cpu().numpy()
+    assert np.abs(got - ref).max() <= 1e-8 * np.abs(ref).max()
+
+
+def test_pipelined_driver_on_the_card():
+    """The pipelined fused driver (depth 3, its completions read from
+    pinned buffers behind events) bit for bit the synchronous one on the
+    card, mono at 256x192."""
+    from sos_slam_tpu_torch.models.full_system import FullSystem
+    from sos_slam_tpu_torch.utils import synthetic
+    from sos_slam_tpu_torch.utils.config import default_settings
+    dev = _dev()
+    calib = synthetic.default_calib(256, 192)
+    s = default_settings(max_points=512, max_immature=1024,
+                         max_track_pts=4096, desired_point_density=400.0,
+                         desired_immature_density=400.0)
+    imgs, _, _ = synthetic.make_sequence(
+        calib, 24, (0.05, 0.02, 0.03, 0.003, 0.006, 0.002), device=dev)
+    runs = []
+    for depth in (0, 3):
+        fs = FullSystem(calib, s, device=dev)
+        fs.pipeline, fs.pipeline_depth = depth > 0, depth
+        most = 0
+        for i in range(24):
+            fs.add_active_frame(imgs[i], timestamp=0.05 * i, frame_id=i)
+            most = max(most, len(fs._pending_fused))
+        fs.finish_pending()
+        assert most == depth
+        runs.append(fs)
+    a, b = runs
+    assert a.kf_shell_ids == b.kf_shell_ids
+    exact(a.trajectory(), b.trajectory())
+    exact(a.ba.state.cpu(), b.ba.state.cpu())
+    exact(a.ba.pt_valid.cpu(), b.ba.pt_valid.cpu())

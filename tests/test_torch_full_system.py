@@ -36,6 +36,7 @@ def _run(FullSystem, calib, settings, imgs, **kw):
         fs.add_active_frame(imgs[i], timestamp=i * 0.05, frame_id=i)
         if fs.is_lost or fs.init_failed:
             break
+    fs.finish_pending()
     return fs
 
 

@@ -192,6 +192,7 @@ def test_node_none_gives_the_raw_frames_keyframes(tmp_path):
         fs.add_active_frame(sc["left"][i], timestamp=i * 0.1, frame_id=i,
                             image_right=sc["right"][i],
                             imu_samples=sc["imu"][i])
+    fs.finish_pending()     # as SlamNode.run does at the end of its frames
     assert node.fs.imu_initialized and len(fs.kf_shell_ids) >= 6
     assert node.fs.kf_shell_ids == fs.kf_shell_ids
 

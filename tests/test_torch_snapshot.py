@@ -39,9 +39,12 @@ def _settings(mod):
         desired_immature_density=400.0)
 
 
-def _feed(fs, imgs, frames):
+def _feed(fs, imgs, frames, drain=True):
+    """Feed `frames`; then, with `drain`, complete the frames in flight."""
     for i in frames:
         fs.add_active_frame(imgs[i], timestamp=i * 0.05, frame_id=i)
+    if drain:
+        fs.finish_pending()
 
 
 def _port():
@@ -186,3 +189,30 @@ def test_vio_state_round_trip(tmp_path):
         exact(a0, a1)
         exact(g0, g1)
     exact(fs._last_bg, fl._last_bg)
+
+
+def test_snapshot_with_frames_in_flight_resumes_bitwise(runs, tmp_path):
+    """A snapshot saved while the pipelined driver has frames in flight:
+    saving completes them, and the resumed run (chained from the last
+    completed frame's record) gives the uninterrupted pipelined run bit
+    for bit, drained at the end."""
+    imgs = runs["imgs"]
+    fs = _port()
+    _feed(fs, imgs, range(N))
+
+    half = _port()
+    _feed(half, imgs, range(AT), drain=False)
+    assert len(half._pending_fused) == half.pipeline_depth
+    path = str(tmp_path / "in_flight.npz")
+    TSNAP.save_snapshot(half, path)
+    assert len(half._pending_fused) == 0
+    fs2 = TSNAP.load_snapshot(_port(), path)
+    assert fs2._last_chain["shell"].id == AT - 1
+    _feed(fs2, imgs, range(AT, N))
+    assert not fs2.is_lost
+    exact(fs.trajectory(), fs2.trajectory())
+    for k, v in fs.ba._asdict().items():
+        exact(v, getattr(fs2.ba, k))
+    for k, v in fs.imm._asdict().items():
+        exact(v, getattr(fs2.imm, k))
+    exact(fs.dI, fs2.dI)
