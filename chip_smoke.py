@@ -102,6 +102,25 @@ In order, failing (exit code != 0, no result line) at the first fault:
      modes the same poses; (d) optimize_pose_graph at 1000 keyframes on
      tests/test_loop.py's graph: its loop-error gates, first and warm
      wall times;
+  6c. the [multidevice] phase (parallel/sharded.py, parallel/dryrun.py):
+     (a) NCCL at world size 1 in this process: sharded_gn_step on the
+     window of step 3's last K3 GN call (P = 2048, F = 8, 640x480) and on
+     the dry run's tiny window, bit for bit energy.gn_step, K3's two
+     kernels by name in a sharded step (profiler); sharded_vio_gn_step on
+     the dry run's 5-frame IMU window bit for bit gn_step_vio;
+     sharded_trace of the mono scene's immature pool against its next
+     frame bit for bit trace_new; every launch counter from 0, K3 once a
+     step and no other kernel; gn_step and the one-rank sharded step in
+     ms a step (CUDA events) at P = 2048 and 16384, and the collectives'
+     wall ms a step; (b) dryrun_multichip(2): two spawned gloo ranks on
+     this card (gloo stages the CUDA tensors through host memory), its
+     five jobs plus the main window's step and its scaling line; the
+     gathered states of the BA, main and VIO steps within 1e-4 of (a)'s
+     single-rank steps (relative to max(1, max|x|)), energy rtol 1e-4,
+     res_state exact, every rank's outputs the same bits (each step checks
+     that x agrees on the ranks), K3 launched on every rank; 1 rank
+     against 2 in ms a step at P = 2048 and 16384, and the two ranks'
+     collectives' wall ms a step;
   7. kernel times on the inputs of step 3 (after the slices, so that the
      profiler cannot slow them), three measures of each kernel: one
      pair of CUDA events around 200 back-to-back launches queued behind a
@@ -120,7 +139,8 @@ In order, failing (exit code != 0, no result line) at the first fault:
      then the launch counts of the four runs and the kernels line (one
      JSON object; `launches` counts the mono slice, `launches_flagship`
      the flagship scene, `launches_node` the SlamNode run,
-     `launches_snapshot` the resumed half of step 5b);
+     `launches_snapshot` the resumed half of step 5b,
+     `launches_multidevice` the calls of step 6c: (a)'s and the ranks');
   8. last line: {"ok": true, "device": {...}}.
 
 Needs one card; exits with code 2 when CUDA is unavailable or the port is
@@ -1789,6 +1809,209 @@ def loop_phase(torch, dev, card, kernels, flag):
     phase_done("[loop] (d) pose graph")
 
 
+def bits_equal(a, b) -> bool:
+    import torch
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.reshape(-1).contiguous().view(torch.uint8),
+        b.reshape(-1).contiguous().view(torch.uint8))
+
+
+def differing(first, second):
+    """The fields of two NamedTuple states whose bits differ."""
+    return [f for f in first._fields
+            if not bits_equal(getattr(first, f), getattr(second, f))]
+
+
+def held_to(tag, got, ref, fields, tol=1e-4):
+    """Gate the gathered multi-rank state `got` (numpy, by "ba.<field>")
+    on the single-rank step `ref` (a BAState): floats within
+    tol * max(1, max|ref|) (tests/test_parallel.py's atol on the state),
+    the residual states exact. Returns the largest float difference over
+    its allowance."""
+    worst = 0.0
+    for f in fields:
+        a = getattr(ref, f).cpu().numpy()
+        b = got[f"ba.{f}"]
+        if a.dtype.kind in "biu":
+            if not np.array_equal(a, b):
+                raise AssertionError(f"{tag}: {f} differs from the single-"
+                                     "rank step")
+            continue
+        allow = tol * max(1.0, float(np.max(np.abs(a)))) if a.size else tol
+        d = float(np.max(np.abs(a.astype(np.float64) - b))) if a.size else 0.
+        if not d <= allow:
+            raise AssertionError(f"{tag}: {f} off the single-rank step by "
+                                 f"{d} > {allow}")
+        worst = max(worst, d / allow)
+    return worst
+
+
+def multidevice_phase(torch, dev, card, kernels, md):
+    """Phase [multidevice]: (a) NCCL at world size 1 in this process: the
+    sharded BA step on the main scene's captured window bit for bit
+    energy.gn_step (K3's two kernels by name a step), the sharded VIO step
+    on the dry run's 5-frame IMU window bit for bit gn_step_vio, the
+    sharded trace of the mono scene's immature pool bit for bit trace_new;
+    (b) dryrun_multichip(2): two gloo ranks on this card, K3 on each
+    rank's half, the gathered states held to (a)'s single-rank steps
+    (atol 1e-4, energy rtol 1e-4, res_state exact; x bit-identical on the
+    ranks, which each step checks); (c) ms a step of gn_step and the
+    one-rank sharded step at P = 2048 and 16384, the two-rank step's, and
+    the collectives' wall time a step. Launch counters from 0 before (a)
+    and before (b); (b)'s are the ranks'."""
+    from sos_slam_tpu_torch.models import energy as E
+    from sos_slam_tpu_torch.models import full_system as FSM
+    from sos_slam_tpu_torch.models import window as WIN
+    from sos_slam_tpu_torch.ops import ba_p as BP
+    from sos_slam_tpu_torch.ops import image as IMG
+    from sos_slam_tpu_torch.parallel import comm
+    from sos_slam_tpu_torch.parallel import dryrun as DR
+    from sos_slam_tpu_torch.parallel import sharded as S
+    tag = f"[multidevice] ({card})"
+    ba_m, dI_m, settings_m, w_m, h_m = md["window"]
+    ba_t, dI_t, settings_t, _ = DR.tiny_window(device=dev)
+    ba_v, dI_v, settings_v, imu_v = DR.tiny_window(n_frames=5, with_imu=True,
+                                                  device=dev)
+    ba_b, dI_b, settings_b, _ = DR.tiny_window(n_points=DR.P_BIG,
+                                              n_slots=DR.P_BIG, device=dev)
+    imm, ba_tr, tr = md["trace"]
+    wrappers = (IMG.pyramid_levels, WIN.template_levels, BP.fused_iteration,
+                BP.act_pass)
+
+    # ---- (a) NCCL, world size 1: the sharded path with the launch
+    # counters from 0, then the unsharded steps it is held to ----
+    import torch.distributed as dist
+    mesh = S.make_mesh(1, dev)
+    try:
+        log(f"{tag} (a) mesh: backend {dist.get_backend()}, world "
+            f"{dist.get_world_size()}, device {mesh.device}")
+        gn_in = dict(main=(ba_m, dI_m, settings_m, w_m, h_m),
+                     tiny=(ba_t, dI_t, settings_t, DR.W, DR.H))
+        trace_in = (ba_tr, imm, *tr, W, H, md["settings"])
+        for w_ in wrappers:
+            w_.launches = 0
+        one = {k: S.sharded_gn_step(mesh, *v) for k, v in gn_in.items()}
+        one["vio"] = S.sharded_vio_gn_step(mesh, ba_v, imu_v, dI_v,
+                                           settings_v, DR.W, DR.H)
+        traced = S.sharded_trace(mesh, *trace_in)
+        counts_a = [w_.launches for w_ in wrappers]
+        if counts_a[2] != 3 or any(counts_a[k] for k in (0, 1, 3)):
+            raise AssertionError(f"{tag} (a) launches {counts_a} in three "
+                                 "sharded steps and a trace: K3 once a "
+                                 "step, no other kernel")
+        for name, (ba, dI, st, w, h) in gn_in.items():
+            b1, e1 = one[name]
+            b0, _, e0 = E.gn_step(ba, dI, st, w, h)
+            bad = differing(b1, b0) + ([] if bits_equal(e1, e0)
+                                       else ["energy"])
+            if bad:
+                raise AssertionError(f"{tag} (a) {name}: the one-rank "
+                                     f"sharded step differs from gn_step "
+                                     f"in {bad}")
+            log(f"{tag} (a) sharded_gn_step on the {name} window "
+                f"(P={ba.P}, F={ba.F}, {w}x{h}): bit for bit "
+                f"energy.gn_step, energy {float(e1):.6g}")
+        bv1, iv1, ev1 = one["vio"]
+        bv0, iv0, _, ev0 = E.gn_step_vio(ba_v, imu_v, dI_v, settings_v,
+                                         DR.W, DR.H)
+        bad = differing(bv1, bv0) + differing(iv1, iv0) \
+            + ([] if bits_equal(ev1, ev0) else ["energy"])
+        if bad:
+            raise AssertionError(f"{tag} (a) the one-rank sharded VIO step "
+                                 f"differs from gn_step_vio in {bad}")
+        one["vio"] = (bv1, ev1)
+        log(f"{tag} (a) sharded_vio_gn_step on the dry run's 5-frame IMU "
+            f"window: bit for bit gn_step_vio, energy {float(ev1):.6g}")
+        bad = differing(traced, FSM.trace_new(*trace_in))
+        if bad:
+            raise AssertionError(f"{tag} (a) sharded_trace differs from "
+                                 f"trace_new in {bad}")
+        statuses = torch.bincount(traced.status.long()).tolist()
+        log(f"{tag} (a) sharded_trace of the mono scene's immature pool "
+            f"({imm.u.shape[0]} points, {int(imm.valid.sum())} valid): bit "
+            f"for bit trace_new, statuses {statuses}")
+        _, ev = prof_window(torch, lambda: S.sharded_gn_step(
+            mesh, ba_m, dI_m, settings_m, w_m, h_m))
+        k3_ev = [e for e in ev if "ba_block_kernel" in e.key
+                 or "block_sum_kernel" in e.key]
+        nccl = [e for e in ev if "nccl" in e.key.lower()]
+        log(f"{tag} (a) one sharded step, K3 by kernel name: " + "; ".join(
+            f"{e.key.split('(')[0][:40]} x{e.count}" for e in k3_ev)
+            + f"; NCCL kernels {sum(e.count for e in nccl)}")
+        if sum(e.count for e in k3_ev) != 2 or len(k3_ev) != 2:
+            raise AssertionError(f"{tag} (a) K3 is not 2 launches a sharded "
+                                 f"step: {[(e.key, e.count) for e in k3_ev]}")
+
+        # ---- (c) one rank: ms a step against gn_step ----
+        for name, (ba, dI, st, w, h) in (
+                ("P=2048", (ba_m, dI_m, settings_m, w_m, h_m)),
+                ("P=16384", (ba_b, dI_b, settings_b, DR.W, DR.H))):
+            g_dev, g_wall = time_ms(torch, lambda: E.gn_step(ba, dI, st, w, h))
+            s_dev, s_wall = time_ms(torch, lambda: S.sharded_gn_step(
+                mesh, ba, dI, st, w, h))
+            comm.reset_stats(timed=True)
+            S.sharded_gn_step(mesh, ba, dI, st, w, h)
+            calls, c_ms = comm.STATS["calls"], comm.STATS["seconds"] * 1e3
+            comm.reset_stats()
+            log(f"{tag} (c) {name} ({int(ba.pt_valid.sum())} valid, "
+                f"{w}x{h}), one rank (NCCL): gn_step {g_wall:.3f} ms a "
+                f"step (device {g_dev:.3f}), sharded_gn_step {s_wall:.3f} "
+                f"ms (device {s_dev:.3f}); its {calls} collectives "
+                f"{c_ms:.3f} ms wall a step (card synchronized around "
+                f"each); CUDA events, median of {REPS}")
+    finally:
+        S.close_mesh()
+    phase_done("[multidevice] (a)")
+
+    # ---- (b) two gloo ranks on this card ----
+    extra = [("main", "gn", DR.window_inputs(ba_m, dI_m, w_m, h_m),
+              settings_m),
+             ("main_scale", "scale", DR.window_inputs(ba_m, dI_m, w_m, h_m),
+              settings_m)]
+    for w_ in wrappers:
+        w_.launches = 0
+    t0 = time.perf_counter()
+    res = DR.dryrun_multichip(2, dev, extra_jobs=extra)
+    wall_b = time.perf_counter() - t0
+    if any(w_.launches for w_ in wrappers):
+        raise AssertionError(f"{tag} (b) the parent launched a kernel")
+    for name, job in (("tiny", "gn"), ("main", "main"), ("vio", "vio")):
+        ref_ba, ref_e = one[name]
+        got = res[job][0]
+        fields = ("state", "c", "idepth", "idepth_zero", "energy_th",
+                  "res_state")
+        d = held_to(f"{tag} (b) {job}", got, ref_ba, fields)
+        e_ref, e_got = float(ref_e), float(got["energy"])
+        rel = abs(e_got - e_ref) / abs(e_ref)
+        if not rel <= 1e-4:
+            raise AssertionError(f"{tag} (b) {job}: energy {e_got} against "
+                                 f"the single rank's {e_ref}")
+        log(f"{tag} (b) {job}: the two ranks' gathered state off (a)'s "
+            f"single-rank step by at most {d:.3f} of the tolerance, energy "
+            f"{e_got:.6g} against {e_ref:.6g} (rel {rel:.2e}), res_state "
+            "exact, the same bits on both ranks")
+    k3_b = [sum(int(res[j][r]["k3_launches"]) for j in res)
+            for r in range(2)]
+    if min(int(res[j][r]["k3_launches"]) for j in ("gn", "main", "vio")
+           for r in range(2)) < 1:
+        raise AssertionError(f"{tag} (b) a rank ran a step without K3")
+    for job, P in (("main_scale", ba_m.P), ("scale", DR.P_BIG)):
+        sc = res[job][0]
+        ms = {nd: [float(sc[f"ms_{nd}_{w}"]) for w in range(3)]
+              for nd in (1, 2)}
+        log(f"{tag} (c) P={P}, gloo ranks on one card: 1 rank "
+            f"{np.median(ms[1]):.3f} ms a step {ms[1]}, 2 ranks "
+            f"{np.median(ms[2]):.3f} ms {ms[2]} (median of 3 interleaved "
+            f"windows x 3 steps, wall with the card synchronized); the two "
+            f"ranks' {int(sc['comm_calls'])} collectives "
+            f"{float(sc['comm_ms']):.3f} ms wall a step")
+    log(f"{tag} (b) dryrun_multichip(2) {wall_b:.1f} s wall (ranks spawned, "
+        f"kernels loaded, 7 jobs); K3 calls by rank {k3_b}")
+    for k, c in zip(kernels, counts_a):
+        k["launches_multidevice"] = c
+    kernels[2]["launches_multidevice"] += sum(k3_b)
+
+
 def run(torch):
     from sos_slam_tpu_torch.models import full_system as FSM
     from sos_slam_tpu_torch.models import initializer as INIT
@@ -1889,6 +2112,9 @@ def run(torch):
     a, kw = last["gn"]
     ba = a[0]
     P, F = ba.P, ba.F
+    # the [multidevice] phase's main-scene window: this GN call's inputs
+    md = dict(window=(type(ba)(*(t.clone() for t in ba)), a[2].clone(),
+                      a[3], a[4], a[5]))
     D = 4 + 8 * F
     prep = BP.k3_prepare(*a, **kw)
     checked(kernels, timings, "K3 fused_iteration",
@@ -1997,6 +2223,18 @@ def run(torch):
         "launches")
     for k, c in zip(kernels, counts):
         k["launches"] = c
+    # the [multidevice] phase's trace: the pool and window at the end of the
+    # slice against the next frame, its pose extrapolated at constant motion
+    T1, T0 = fs.shells[-1].cam_to_world, fs.shells[-2].cam_to_world
+    md["settings"] = settings
+    md["trace"] = (
+        type(fs.imm)(*(t.clone() for t in fs.imm)),
+        type(fs.ba)(*(t.clone() for t in fs.ba)),
+        (IMG.build_pyramid(imgs[N_FRAMES], 1)[0][0],
+         torch.as_tensor((T1 @ np.linalg.inv(T0) @ T1).astype(np.float32),
+                         device=dev),
+         torch.zeros(2, device=dev),
+         torch.tensor(1.0, device=dev)))
     mono = dict(calib=calib, traj=traj, kf_ids=list(fs.kf_shell_ids),
                 ba={k: v.clone() for k, v in fs.ba._asdict().items()},
                 imgs=imgs, poses=poses, in_flight=in_flight)
@@ -2015,6 +2253,9 @@ def run(torch):
     loop_phase(torch, dev, card, kernels, flag)
     del flag
     phase_done("loop phase")
+    multidevice_phase(torch, dev, card, kernels, md)
+    del md
+    phase_done("[multidevice] phase")
     wrapper_stats = time_kernels(torch, kernels, timings)
     phase_done("kernel times")
     log(f"[profiler] every window opened with launches of the spin kernel, "
@@ -2045,7 +2286,10 @@ def run(torch):
         + "; through SlamNode with loop closure: " + ", ".join(
         f"K{i + 1}={k['launches_node']}" for i, k in enumerate(kernels))
         + "; the resumed half of the snapshot phase: " + ", ".join(
-        f"K{i + 1}={k['launches_snapshot']}" for i, k in enumerate(kernels)))
+        f"K{i + 1}={k['launches_snapshot']}" for i, k in enumerate(kernels))
+        + "; the [multidevice] phase (K3: (a)'s calls and the ranks'): "
+        + ", ".join(f"K{i + 1}={k['launches_multidevice']}"
+                    for i, k in enumerate(kernels)))
     log(json.dumps({"kernels": kernels}))
     log(f"{card}")
     log(json.dumps({"ok": True, "device": {

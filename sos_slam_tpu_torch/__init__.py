@@ -15,8 +15,9 @@ with its visual-inertial KKT BA, loop closure (Scan Context, direct +
 ICP verification, the SE(3) pose graph), the SlamNode driver with its
 command line (`python -m sos_slam_tpu_torch`), state snapshots
 (`models/snapshot.py`), trajectory evaluation (`utils/evaluate.py`), the
-headless map viewer (`io/viewer.py`) and the debug plots
-(`io/debug_plot.py`).
+headless map viewer (`io/viewer.py`), the debug plots
+(`io/debug_plot.py`) and data parallelism over the point axis on
+torch.distributed ranks (`parallel/`).
 """
 
 __version__ = "0.1.0"

@@ -22,6 +22,8 @@ from sos_slam_tpu_torch.models import imu as IM
 from sos_slam_tpu_torch.ops import ba as B
 from sos_slam_tpu_torch.ops import ba_p as BP
 from sos_slam_tpu_torch.ops.numerics import inv, live_pinv
+from sos_slam_tpu_torch.parallel import comm
+from sos_slam_tpu_torch.utils import lie
 from sos_slam_tpu_torch.utils.config import CPARS, Settings
 
 
@@ -45,16 +47,17 @@ def _marg_Hb(ba: B.BAState, pre: B.Precalc, dI, marg, settings: Settings,
     return fo.H_top, fo.b_top, fo.H_sc, fo.b_sc
 
 
-def _canbreak(ba: B.BAState, step_fr, settings: Settings):
+def _canbreak(ba: B.BAState, step_fr, settings: Settings, sums: dict):
     """The early-break test on a GN step's frame increments and the point
-    depths (FullSystem::optimize's canbreak)."""
+    depths (FullSystem::optimize's canbreak); the point counts come from
+    `_point_sums`."""
     nvalid = max(int(torch.sum(ba.frame_valid)), 1)
     sumA = torch.sum(step_fr[:, 6] ** 2) / nvalid
     sumB = torch.sum(step_fr[:, 7] ** 2) / nvalid
     sumT = torch.sum(step_fr[:, 0:3] ** 2) / nvalid
     sumR = torch.sum(step_fr[:, 3:6] ** 2) / nvalid
-    npt = max(int(torch.sum(ba.pt_valid)), 1)
-    sumNID = torch.sum(torch.abs(ba.idepth) * ba.pt_valid) / npt
+    npt = max(int(sums["npt"]), 1)
+    sumNID = sums["sum_abs_idepth"] / npt
     th = settings.th_opt_iterations
     return ((torch.sqrt(sumA) < 0.0005 * th)
             & (torch.sqrt(sumB) < 0.00005 * th)
@@ -71,15 +74,50 @@ def _live_energy(ba: B.BAState, q: dict):
                                  torch.zeros_like(q["energy_pf"])))
 
 
+# the cross-point sums of a GN step that `_stitch` adds over the ranks
+_STITCHED = ("Htop", "btop", "Hsc", "bsc", "n_active")
+_SUMS = ("energy", "npt", "sum_abs_idepth")
+
+
+def _point_sums(ba: B.BAState, q: dict) -> dict:
+    """The step's sums over the points that the solve does not change: its
+    live energy, and the point count and |idepth| sum of the early-break
+    test."""
+    return dict(energy=_live_energy(ba, q), npt=torch.sum(ba.pt_valid),
+                sum_abs_idepth=torch.sum(torch.abs(ba.idepth) * ba.pt_valid))
+
+
+def _stitch(q: dict, sums: dict, group):
+    """The point-sharded step's stitch: K3's H_top, b_top, H_sc, b_sc,
+    the active count and the `_point_sums`, each added over the ranks of
+    `group` in one all_reduce. With no group, (q, sums) unchanged."""
+    if group is None:
+        return q, sums
+    out = comm.psum([q[k] for k in _STITCHED] + [sums[k] for k in _SUMS],
+                    group)
+    q = dict(q, **dict(zip(_STITCHED, out)))
+    return q, dict(zip(_SUMS, out[len(_STITCHED):]))
+
+
 def gn_step(ba: B.BAState, dI, settings: Settings, w: int, h: int,
-            ev: B.PrecalcEval | None = None):
-    """One damped GN iteration. Returns (new ba, canbreak, energy)."""
+            ev: B.PrecalcEval | None = None, group=None):
+    """One damped GN iteration. Returns (new ba, canbreak, energy).
+
+    With a process `group`, `ba` holds this rank's rows of the point axis
+    (parallel/sharded.py): the cross-point sums are added over the ranks
+    (`_stitch`), the newest frame's energy threshold is taken over every
+    rank's points, the priors and the marginalization prior are added
+    once to the stitched system, the solve runs replicated (and must give
+    the same x on every rank), and the point updates stay local."""
     pre = B.make_precalc(ba, ev)
     q = _iter_quants(ba, pre, dI, settings, w, h)
-    ba = ba._replace(energy_th=BP.update_energy_th_t(ba, q["fo"], settings))
+    q, sums = _stitch(q, _point_sums(ba, q), group)
+    ba = ba._replace(energy_th=BP.update_energy_th_t(ba, q["fo"], settings,
+                                                     group))
     H_top, b_top = B.add_priors(ba, q["Htop"], q["btop"], settings)
     x = B.solve_system(ba, H_top, b_top, q["Hsc"], q["bsc"])
     x = torch.where(torch.isfinite(x), x, torch.zeros_like(x))
+    comm.assert_replicated(x, group, "the GN step's solution x")
     fv = ba.frame_valid[:, None].to(torch.float32)
     step_fr = -x[CPARS:].reshape(ba.F, 8) * fv
     step_c = -x[:CPARS]
@@ -87,8 +125,8 @@ def gn_step(ba: B.BAState, dI, settings: Settings, w: int, h: int,
     step_pt = torch.where(torch.isfinite(step_pt), step_pt,
                           torch.zeros_like(step_pt))
     new_id = ba.idepth + step_pt
-    canbreak = _canbreak(ba, step_fr, settings)
-    energy = _live_energy(ba, q)
+    canbreak = _canbreak(ba, step_fr, settings, sums)
+    energy = sums["energy"]
     ba = ba._replace(state=ba.state + step_fr, c=ba.c + step_c,
                      idepth=new_id, idepth_zero=new_id,
                      res_state=q["new_state_pf"])
@@ -167,6 +205,86 @@ def drop_points(ba: B.BAState, drop) -> B.BAState:
                        res_exist=ba.res_exist & ~drop[:, None])
 
 
+# ----------------------------------------------------------------------
+# gauge null spaces (FullSystem::getNullspaces, FullSystemOptimize.cpp:
+# 528-576; per-frame parts FrameHessian::setStateZero, HessianBlocks.cpp:
+# 66-102) and the EnergyFunctional::orthogonalize projection
+# (EnergyFunctional.cpp:971-1027). As in the reference, the solver does
+# not apply the projection by default; both are here for parity and
+# diagnostics.
+# ----------------------------------------------------------------------
+
+def frame_nullspaces(T_cw_eval, exposure, aff_a0):
+    """Per-frame gauge null-space directions at the FEJ pose, batched over
+    leading dims: the central-difference derivative of the left-increment
+    coordinates under a global gauge change (HessianBlocks.cpp:70-101).
+    Returns (pose (…,6,6) column i = direction i, scale (…,6), affine
+    (…,2,2) columns [A, B])."""
+    eps = 1e-3
+    T = T_cw_eval
+    Ti = lie.se3_inv(T)
+    basis = torch.eye(6, dtype=T.dtype, device=T.device) * eps
+    Tb, Tib = T[..., None, :, :], Ti[..., None, :, :]
+    logP = lie.se3_log(Tb @ lie.se3_exp(basis) @ Tib)
+    logM = lie.se3_log(Tb @ lie.se3_exp(-basis) @ Tib)
+    ns_pose = ((logP - logM) / (2.0 * eps)).transpose(-1, -2)
+    Tp, Tm = T.clone(), T.clone()
+    Tp[..., :3, 3] = T[..., :3, 3] * 1.00001
+    Tm[..., :3, 3] = T[..., :3, 3] / 1.00001
+    ns_scale = (lie.se3_log(Tp @ Ti) - lie.se3_log(Tm @ Ti)) / (2.0 * eps)
+    col = torch.stack([torch.ones_like(exposure),
+                       torch.exp(aff_a0) * exposure], -1)
+    ns_aff = torch.eye(2, dtype=T.dtype, device=T.device) * col[..., None, :]
+    return ns_pose, ns_scale, ns_aff
+
+
+def get_nullspaces(ba: B.BAState) -> torch.Tensor:
+    """Window-wide null-space vectors in internal (scaled) state units.
+
+    Returns (9, 4+8F): rows 0-5 global pose gauge, 6-7 affine A/B gauge,
+    8 global scale gauge, in the order of the reference's
+    nullspaces_x0_pre (FullSystemOptimize.cpp:537-575), with the
+    SCALE_*_INVERSE factors folded in. Entries of invalid frame slots are
+    zero."""
+    F = ba.F
+    dev = ba.state.device
+    a0 = B.aff_real(ba.state_zero)[:, 0]
+    ns_pose, ns_scale, ns_aff = frame_nullspaces(ba.T_cw_eval, ba.exposure,
+                                                 a0)
+    fv = ba.frame_valid.to(torch.float32)
+    inv_s = 1.0 / B.state8_scale(dev)
+    zc = torch.zeros(CPARS, dtype=torch.float32, device=dev)
+
+    def row(cols, part):
+        blk = torch.zeros((F, 8), dtype=torch.float32, device=dev)
+        blk[:, cols] = part
+        blk = blk * inv_s[None, :] * fv[:, None]
+        return torch.cat([zc, blk.reshape(-1)])
+
+    rows = [row(slice(0, 6), ns_pose[:, :, i]) for i in range(6)]
+    rows += [row(slice(6, 8), ns_aff[:, :, i]) for i in range(2)]
+    rows.append(row(slice(0, 6), ns_scale))
+    return torch.stack(rows)
+
+
+def orthogonalize(b, H, nullspaces, delta: float = 1e-5):
+    """Project (b, H) onto the complement of the gauge null spaces
+    (EnergyFunctional::orthogonalize, EnergyFunctional.cpp:971-1027).
+
+    nullspaces: (K, D) rows; like the reference, callers pass the pose (6)
+    and scale (1) rows. delta mirrors setting_solverModeDelta."""
+    norms = torch.linalg.vector_norm(nullspaces, dim=1, keepdim=True)
+    N = (nullspaces / torch.clamp(norms, min=1e-12)).T
+    U, S, Vt = torch.linalg.svd(N, full_matrices=False)
+    keep = S > delta * torch.max(S)
+    S_inv = torch.where(keep, 1.0 / torch.clamp(S, min=1e-30),
+                        torch.zeros_like(S))
+    Npi = (U * S_inv[None, :]) @ Vt
+    NNpiT = N @ Npi.T
+    NNpiTS = 0.5 * (NNpiT + NNpiT.T)
+    return b - NNpiTS @ b, H - NNpiTS @ H @ NNpiTS
+
+
 def marginalize_frame(ba: B.BAState, k: int) -> B.BAState:
     """Schur-marginalize frame slot k out of HM/bM and compact the window
     (EnergyFunctional::marginalizeFrame). Requires no remaining points
@@ -234,12 +352,16 @@ def marginalize_frame(ba: B.BAState, k: int) -> B.BAState:
 # ----------------------------------------------------------------------
 
 def gn_step_vio(ba: B.BAState, imu: IM.ImuState, dI, settings: Settings,
-                w: int, h: int, ev: B.PrecalcEval | None = None):
+                w: int, h: int, ev: B.PrecalcEval | None = None, group=None):
     """One VIO GN iteration: vision linearization (K3) + IMU Hessian + KKT
-    solve. Returns (ba, imu, canbreak, energy)."""
+    solve. Returns (ba, imu, canbreak, energy). With a process `group`,
+    as `gn_step`: the vision blocks are stitched over the ranks, and the
+    IMU Hessian and the KKT solve run replicated on them."""
     pre = B.make_precalc(ba, ev)
     q = _iter_quants(ba, pre, dI, settings, w, h)
-    ba = ba._replace(energy_th=BP.update_energy_th_t(ba, q["fo"], settings))
+    q, sums = _stitch(q, _point_sums(ba, q), group)
+    ba = ba._replace(energy_th=BP.update_energy_th_t(ba, q["fo"], settings,
+                                                     group))
 
     H_top, b_top = B.add_priors(ba, q["Htop"], q["btop"], settings)
     x8, x_scale, x_imu = IM.solve_vio(ba, imu, H_top, b_top, q["Hsc"],
@@ -248,6 +370,10 @@ def gn_step_vio(ba: B.BAState, imu: IM.ImuState, dI, settings: Settings,
     x_imu = torch.where(torch.isfinite(x_imu), x_imu, torch.zeros_like(x_imu))
     x_scale = torch.where(torch.isfinite(x_scale), x_scale,
                           torch.zeros_like(x_scale))
+    if group is not None:
+        comm.assert_replicated(torch.cat([x8, x_scale[None],
+                                          x_imu.reshape(-1)]), group,
+                               "the VIO step's solution x")
 
     fv = ba.frame_valid[:, None].to(torch.float32)
     step_fr = -x8[CPARS:].reshape(ba.F, 8) * fv
@@ -257,8 +383,8 @@ def gn_step_vio(ba: B.BAState, imu: IM.ImuState, dI, settings: Settings,
 
     new_imu_state = imu.state - x_imu * imu.bias_valid[:, None]
     new_scale = imu.scale - (0.0 if settings.enable_scale_opt else x_scale)
-    canbreak = _canbreak(ba, step_fr, settings)
-    energy = _live_energy(ba, q)
+    canbreak = _canbreak(ba, step_fr, settings, sums)
+    energy = sums["energy"]
     new_id = ba.idepth + step_pt
     ba = ba._replace(state=ba.state + step_fr, c=ba.c - x8[:CPARS],
                      idepth=new_id, idepth_zero=new_id,

@@ -123,6 +123,34 @@ def _np_bilinear(img: np.ndarray, u: np.ndarray, v: np.ndarray) -> np.ndarray:
             + img[y0 + 1, x0] * (1 - dx) * dy + img[y0 + 1, x0 + 1] * dx * dy)
 
 
+def host_to_new_transforms(ba: B.BAState, T_cw_new):
+    """Per-host-slot KRKi / Kt into an external new frame."""
+    T_cw = B.state_to_pose(ba.T_cw_eval, ba.state)
+    rel = torch.einsum("ij,fjk->fik", lie.se3_inv(T_cw_new), T_cw)
+    fx, fy, cx, cy = B.calib_real(ba)
+    zero = torch.zeros_like(fx)
+    K = torch.stack([torch.stack([fx, zero, cx]),
+                     torch.stack([zero, fy, cy]),
+                     torch.stack([zero, zero, zero + 1.0])])
+    Ki = inv(K)
+    KRKi = torch.einsum("ij,fjk,kl->fil", K, rel[:, :3, :3], Ki)
+    Kt = torch.einsum("ij,fj->fi", K, rel[:, :3, 3])
+    return KRKi, Kt
+
+
+def trace_new(ba: B.BAState, imm: TR.ImmatureState, dI0_new, T_cw_new,
+              aff_new, exposure_new, w: int, h: int, settings: Settings):
+    """Trace every immature point of `imm` onto a new frame
+    (traceNewCoarse): the host-to-new transforms, the affine transfer and
+    trace_points (the JAX package's `_trace_jit`). Each point is traced on
+    its own, so a slice of the pool traces as it would in the whole."""
+    KRKi, Kt = host_to_new_transforms(ba, T_cw_new)
+    aff_cur = B.aff_real(ba.state)
+    affs = TK.aff_from_to(ba.exposure, exposure_new, aff_cur.T,
+                          aff_new[:, None].expand(2, ba.F)).T
+    return TR.trace_points(imm, dI0_new, KRKi, Kt, affs, w, h, settings)
+
+
 def _pad_hyps(hyps, size):
     out = list(hyps)[:size]
     while len(out) < size:
@@ -1757,29 +1785,11 @@ class FullSystem:
     # ------------------------------------------------------------------
     # device steps of the chain
     # ------------------------------------------------------------------
-    def _host_to_new_transforms(self, ba, T_cw_new):
-        """Per-host-slot KRKi / Kt into an external new frame."""
-        T_cw = B.state_to_pose(ba.T_cw_eval, ba.state)
-        rel = torch.einsum("ij,fjk->fik", lie.se3_inv(T_cw_new), T_cw)
-        fx, fy, cx, cy = B.calib_real(ba)
-        zero = torch.zeros_like(fx)
-        K = torch.stack([torch.stack([fx, zero, cx]),
-                         torch.stack([zero, fy, cy]),
-                         torch.stack([zero, zero, zero + 1.0])])
-        Ki = inv(K)
-        KRKi = torch.einsum("ij,fjk,kl->fil", K, rel[:, :3, :3], Ki)
-        Kt = torch.einsum("ij,fj->fi", K, rel[:, :3, 3])
-        return KRKi, Kt
-
     def _trace(self, ba, imm, dI0_new, T_cw_new, aff_new, exposure_new):
         """Trace every immature point of `imm` onto a new frame
-        (traceNewCoarse) against the window `ba`."""
-        KRKi, Kt = self._host_to_new_transforms(ba, T_cw_new)
-        aff_cur = B.aff_real(ba.state)
-        affs = TK.aff_from_to(ba.exposure, exposure_new, aff_cur.T,
-                              aff_new[:, None].expand(2, ba.F)).T
-        return TR.trace_points(imm, dI0_new, KRKi, Kt, affs, self.w,
-                               self.h, self.settings)
+        (traceNewCoarse) against the window `ba` (`trace_new`)."""
+        return trace_new(ba, imm, dI0_new, T_cw_new, aff_new, exposure_new,
+                         self.w, self.h, self.settings)
 
     def _frame_stats(self, ba, imm):
         """Per-frame point counts + affines + current poses."""

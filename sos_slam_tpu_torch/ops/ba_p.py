@@ -26,6 +26,7 @@ import torch
 
 from sos_slam_tpu_torch.ops import ba as B
 from sos_slam_tpu_torch.ops.image import interp_bilinear_frames
+from sos_slam_tpu_torch.parallel import comm
 from sos_slam_tpu_torch.utils import cuda_build as CB
 from sos_slam_tpu_torch.utils.config import CPARS, Settings
 
@@ -62,16 +63,25 @@ def resubstitute_t(sc: SchurDataT, x: torch.Tensor) -> torch.Tensor:
                        torch.zeros_like(bshift))
 
 
-def update_energy_th_t(ba: B.BAState, fo: FusedOut,
-                       settings: Settings) -> torch.Tensor:
+def update_energy_th_t(ba: B.BAState, fo: FusedOut, settings: Settings,
+                       group=None) -> torch.Tensor:
     """Adaptive outlier threshold of the newest frame (setNewFrameEnergyTH,
     FullSystemOptimize.cpp:84-124) from the lanes-last linearization.
-    Returns the new energy_th (F,)."""
+    Returns the new energy_th (F,).
+
+    With a process `group` (a point-sharded step), the order statistic is
+    taken over every rank's points: the newest frame's energies and their
+    considered flags are gathered in rank order, so the count, the clip of
+    its index and the sort are those of the whole point axis."""
     newest = int(torch.sum(ba.frame_valid)) - 1
     considered = (ba.res_exist[:, newest] & ba.pt_valid
                   & (fo.new_state[newest] != B.RES_OOB))
     e = torch.where(considered, fo.energy_raw[newest],
                     torch.full_like(fo.energy_raw[newest], float("inf")))
+    if group is not None:
+        both = comm.pgather(torch.stack([e, considered.to(e.dtype)], 1),
+                            group)
+        e, considered = both[:, 0], both[:, 1] > 0.5
     n = int(torch.sum(considered))
     nth = min(max(int(torch.tensor(settings.frame_energy_th_n,
                                    dtype=torch.float32) * n), 0),

@@ -148,6 +148,93 @@ def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     return pts @ T[..., :3, :3].transpose(-1, -2) + T[..., :3, 3]
 
 
+def se3_from_rt(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    return compose_rt(R, t)
+
+
+def quat_to_rot(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion (w,x,y,z) -> rotation matrix (…,3,3)."""
+    q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z),
+                     2 * (x * z + w * y)], -1),
+        torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z),
+                     2 * (y * z - w * x)], -1),
+        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x),
+                     1 - 2 * (x * x + y * y)], -1),
+    ], -2)
+
+
+# ---------------------------------------------------------------------------
+# Sim(3): sR in the rotation block, tangent [v(3), w(3), sigma]
+# ---------------------------------------------------------------------------
+
+def _cbrt(x: torch.Tensor) -> torch.Tensor:
+    return torch.sign(x) * torch.abs(x) ** (1.0 / 3.0)
+
+
+def _sim3_W(w: torch.Tensor, sig: torch.Tensor) -> torch.Tensor:
+    """The translation integral matrix of sim3_exp: A I + B W + C W^2, with
+    the sigma -> 0 and theta -> 0 limits at the JAX package's switch
+    points. At theta -> 0 with sigma < -1e-4 the JAX package's C is wrong
+    (see B_small / C_small); here it is the limit."""
+    s = torch.exp(sig)
+    W = so3_hat(w)
+    theta2 = torch.sum(w * w, -1)
+    th_safe = torch.sqrt(torch.clamp(theta2, min=1e-24))
+    I = _eye(3, w).expand(W.shape)
+    small_sig = torch.abs(sig) < 1e-4
+    small_th = theta2 < _EPS
+    sig_safe = torch.where(small_sig, torch.ones_like(sig), sig)
+    A_ = torch.where(small_sig, 1.0 + sig * 0.5, (s - 1.0) / sig_safe)
+    s2t2 = sig * sig + theta2
+    a = s * torch.sin(th_safe)
+    b = s * torch.cos(th_safe)
+    B_full = (a * sig + (1.0 - b) * th_safe) / (
+        th_safe * torch.clamp(s2t2, min=1e-24))
+    C_full = (A_ - ((b - 1.0) * sig + a * th_safe)
+              / torch.clamp(s2t2, min=1e-24)) / torch.clamp(theta2, min=1e-24)
+    # |sig_safe| >= 1e-4: the divisions need no clamp (the JAX package
+    # clamps 2 sigma^3 from below, which at sigma < 0 turns C into -1e19)
+    B_small = torch.where(small_sig, 0.5 + sig / 3.0,
+                          ((sig_safe - 1.0) * s + 1.0) / sig_safe ** 2)
+    C_small = torch.where(small_sig, 1.0 / 6.0 + sig / 8.0,
+                          ((sig_safe - 2.0) * s + sig_safe + 2.0)
+                          / (2.0 * sig_safe ** 3))
+    B_ = torch.where(small_th, B_small, B_full)
+    C_ = torch.where(small_th, C_small, C_full)
+    return (A_[..., None, None] * I + B_[..., None, None] * W
+            + C_[..., None, None] * (W @ W))
+
+
+def sim3_exp(xi: torch.Tensor) -> torch.Tensor:
+    """exp: (…,7) [v,w,sigma] -> (…,4,4) with sR in the rotation block."""
+    v, w, sigma = xi[..., :3], xi[..., 3:6], xi[..., 6]
+    R = so3_exp(w)
+    t = (_sim3_W(w, sigma) @ v[..., None])[..., 0]
+    return compose_rt(torch.exp(sigma)[..., None, None] * R, t)
+
+
+def sim3_log(T: torch.Tensor) -> torch.Tensor:
+    """log: (…,4,4) with sR block -> (…,7) [v,w,sigma]."""
+    sR = T[..., :3, :3]
+    t = T[..., :3, 3]
+    s = _cbrt(torch.linalg.det(sR))
+    w = so3_log(sR / s[..., None, None])
+    sigma = torch.log(s)
+    v = torch.linalg.solve(_sim3_W(w, sigma), t[..., None])[..., 0]
+    return torch.cat([v, w, sigma[..., None]], -1)
+
+
+def sim3_inv(T: torch.Tensor) -> torch.Tensor:
+    sR = T[..., :3, :3]
+    t = T[..., :3, 3]
+    s2 = _cbrt(torch.linalg.det(sR)) ** 2
+    sRinv = sR.transpose(-1, -2) / s2[..., None, None]
+    return compose_rt(sRinv, -(sRinv @ t[..., None])[..., 0])
+
+
 # ---------------------------------------------------------------------------
 # float64 numpy twins for host-side pose bookkeeping
 # ---------------------------------------------------------------------------

@@ -82,3 +82,18 @@ def uniform(key: np.ndarray, shape: Union[int, Sequence[int]] = ()) -> np.ndarra
     bits = bits | np.uint32(0x3F800000)
     f = bits.view(np.float32) - np.float32(1.0)
     return np.maximum(np.float32(0.0), f).reshape(shape)
+
+
+def normal(key: np.ndarray,
+           shape: Union[int, Sequence[int]] = ()) -> np.ndarray:
+    """jax.random.normal(key, shape) in float32: sqrt(2) erfinv(u) of a
+    uniform u on (-1, 1) drawn from the same bits as `uniform`. The draw
+    is bit for bit JAX's; erfinv (taken in float64 here, a polynomial in
+    float32 in XLA) may differ in the last bit."""
+    import torch
+    shape = (shape,) if isinstance(shape, int) else tuple(shape)
+    lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
+    u = uniform(key, shape) * np.float32(2.0) + lo
+    u = np.maximum(lo, u)
+    e = torch.erfinv(torch.as_tensor(u, dtype=torch.float64)).numpy()
+    return (np.float32(np.sqrt(2.0)) * e.astype(np.float32)).astype(np.float32)

@@ -64,6 +64,40 @@ def render_plane(calib: CalibPyramid, cam_to_world: torch.Tensor,
     return img, 1.0 / z
 
 
+def render_two_planes(calib: CalibPyramid, cam_to_world: torch.Tensor,
+                      z_near: float = 2.0, z_far: float = 6.0, seed: int = 0,
+                      lvl: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Two textured planes with a vertical depth discontinuity at world
+    x = 0 (x < 0 -> z_near, x >= 0 -> z_far): multi-view consistent
+    imagery with 3-D structure. Returns (image, idepth) on cam_to_world's
+    device."""
+    w, h = calib.widths[lvl], calib.heights[lvl]
+    fx, fy, cx, cy = calib.intrinsics(lvl)
+    dev = cam_to_world.device
+    u = torch.arange(w, dtype=torch.float32, device=dev)
+    v = torch.arange(h, dtype=torch.float32, device=dev)
+    vv, uu = torch.meshgrid(v, u, indexing="ij")
+    rc = torch.stack([(uu - cx) / fx, (vv - cy) / fy, torch.ones_like(uu)], -1)
+    R = cam_to_world[:3, :3]
+    t = cam_to_world[:3, 3]
+    rw = rc @ R.T
+    rz = rw[..., 2]
+    rz_safe = torch.where(torch.abs(rz) < 1e-6, torch.full_like(rz, 1e-6), rz)
+
+    def hit(plane_z):
+        s = torch.clamp((plane_z - t[2]) / rz_safe, min=1e-3)
+        return t + s[..., None] * rw
+
+    p_near = hit(z_near)
+    p_far = hit(z_far)
+    use_near = p_near[..., 0] < 0.0
+    pw = torch.where(use_near[..., None], p_near, p_far)
+    img = torch.where(use_near, texture(p_near[..., :2], seed),
+                      texture(p_far[..., :2], seed + 1))
+    pc = (pw - t) @ R
+    return img, 1.0 / torch.clamp(pc[..., 2], min=1e-3)
+
+
 def make_sequence(calib: CalibPyramid, n_frames: int,
                   twist_per_frame=(0.02, 0.01, 0.015, 0.001, 0.002, 0.001),
                   plane_z: float = 2.0, seed: int = 0, device=None):

@@ -676,3 +676,92 @@ def test_pipelined_driver_on_the_card():
     exact(a.trajectory(), b.trajectory())
     exact(a.ba.state.cpu(), b.ba.state.cpu())
     exact(a.ba.pt_valid.cpu(), b.ba.pt_valid.cpu())
+
+
+def _same_state(a, b):
+    """The fields of two NamedTuple states whose bits differ."""
+    return [f for f in a._fields
+            if not _same_bits(getattr(a, f).reshape(-1),
+                              getattr(b, f).reshape(-1))]
+
+
+@pytest.fixture(scope="module")
+def world_one_steps():
+    """NCCL at world size 1 in this process: the sharded BA and VIO steps
+    and the sharded trace on the dry run's inputs, with their unsharded
+    twins."""
+    from sos_slam_tpu_torch.models import energy as E
+    from sos_slam_tpu_torch.models import full_system as FSM
+    from sos_slam_tpu_torch.parallel import dryrun as DR
+    from sos_slam_tpu_torch.parallel import sharded as S
+    dev = _dev()
+    ba, dI, st, _ = DR.tiny_window(device=dev)
+    bav, dIv, stv, imu = DR.tiny_window(n_frames=5, with_imu=True,
+                                        device=dev)
+    imm = DR.tiny_pool(64, device=dev)
+    eye = torch.eye(4, device=dev)
+    tr = (ba, imm, dI[0], eye, torch.zeros(2, device=dev),
+          torch.tensor(1.0, device=dev), DR.W, DR.H, st)
+    mesh = S.make_mesh(1, dev)
+    try:
+        import torch.distributed as dist
+        backend = dist.get_backend()
+        out = dict(gn=(S.sharded_gn_step(mesh, ba, dI, st, DR.W, DR.H),
+                       E.gn_step(ba, dI, st, DR.W, DR.H)),
+                   vio=(S.sharded_vio_gn_step(mesh, bav, imu, dIv, stv,
+                                              DR.W, DR.H),
+                        E.gn_step_vio(bav, imu, dIv, stv, DR.W, DR.H)),
+                   trace=(S.sharded_trace(mesh, *tr), FSM.trace_new(*tr)))
+        with pytest.raises(ValueError):
+            S.make_mesh(2, dev)
+    finally:
+        S.close_mesh()
+    return backend, out
+
+
+def test_sharded_steps_at_world_one_on_the_card(world_one_steps):
+    """At one NCCL rank the sharded steps and trace are bit for bit the
+    unsharded ones; a mesh of more ranks than the group holds raises."""
+    backend, out = world_one_steps
+    assert backend == "nccl"
+    (b1, e1), (b0, _, e0) = out["gn"]
+    assert not _same_state(b1, b0) and _same_bits(e1.reshape(-1),
+                                                  e0.reshape(-1))
+    (bv1, iv1, ev1), (bv0, iv0, _, ev0) = out["vio"]
+    assert not _same_state(bv1, bv0) and not _same_state(iv1, iv0)
+    assert _same_bits(ev1.reshape(-1), ev0.reshape(-1))
+    t1, t0 = out["trace"]
+    assert not _same_state(t1, t0)
+
+
+def test_dryrun_multichip_on_the_card(world_one_steps):
+    """Two gloo ranks on the card (every collective staged through host
+    memory by gloo): the gathered BA and VIO states within 1e-4 of the
+    single-rank steps, res_state exact, every rank the same bits."""
+    from sos_slam_tpu_torch.parallel import dryrun as DR
+    dev = _dev()
+    res = DR.dryrun_multichip(2, dev)
+    _, out = world_one_steps
+    for job, ref in (("gn", out["gn"][0][0]), ("vio", out["vio"][0][0])):
+        got = res[job][0]
+        for f in ("state", "c", "idepth"):
+            np.testing.assert_allclose(got[f"ba.{f}"],
+                                       getattr(ref, f).cpu().numpy(),
+                                       atol=1e-4, rtol=1e-4)
+        np.testing.assert_array_equal(got["ba.res_state"],
+                                      ref.res_state.cpu().numpy())
+        assert all(int(o["k3_launches"]) >= 1 for o in res[job])
+    DR.same_on_every_rank(res, ["gn", "vio", "trace", "track"])
+
+
+def test_nccl_ranks_beyond_the_cards_refused():
+    """NCCL places one rank on each card: asking for more raises before a
+    process starts, and no mesh moves to the CPU."""
+    from sos_slam_tpu_torch.parallel import dryrun as DR
+    from sos_slam_tpu_torch.parallel import sharded as S
+    dev = _dev()
+    n = torch.cuda.device_count() + 1
+    with pytest.raises(RuntimeError, match="NCCL"):
+        DR.spawn_ranks(n, [], dev, backend="nccl")
+    with pytest.raises(RuntimeError, match="no process group"):
+        S.make_mesh(n, dev)

@@ -107,7 +107,9 @@ def test_port_imports_no_jax_and_runs():
                 "undistort", "output_wrapper", "launch", "datasets", "node",
                 "run_synthetic", "png", "viewer", "debug_plot")} | {
             "sos_slam_tpu_torch.models.snapshot",
-            "sos_slam_tpu_torch.utils.evaluate"}
+            "sos_slam_tpu_torch.utils.evaluate"} | {
+            f"sos_slam_tpu_torch.parallel.{m}" for m in (
+                "comm", "sharded", "dryrun")}
         assert want <= set(names), want - set(names)
         # a GPU host need have no imaging package: importing the port
         # (the viewer and the debug plots included) pulls in none

@@ -128,3 +128,17 @@ def test_nan_coordinates_gather_corner_zero():
                                       jnp.asarray(v)))
     b = TI.interp_bilinear(t(img), t(u), t(v)).numpy()
     np.testing.assert_array_equal(np.isnan(a), np.isnan(b))
+
+
+@pytest.mark.parametrize("xi", [(0.0,) * 6, (0.05, -0.02, 0.1, 0.01, -0.02,
+                                              0.005)])
+def test_render_two_planes_matches(xi):
+    from sos_slam_tpu.utils import lie as JL
+    from sos_slam_tpu.utils import synthetic as JS
+    from sos_slam_tpu_torch.utils import synthetic as TS
+    T = np.asarray(JL.se3_exp(jnp.asarray(xi, jnp.float32)))
+    img_j, idp_j = JS.render_two_planes(JS.default_calib(128, 96),
+                                        jnp.asarray(T))
+    img_t, idp_t = TS.render_two_planes(TS.default_calib(128, 96), t(T))
+    close(img_j, img_t, tol=1e-5)
+    close(idp_j, idp_t, tol=1e-5)
