@@ -6,7 +6,11 @@
 In order, failing (exit code != 0, no result line) at the first fault:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
   2. build: every CUDA kernel of csrc/ compiled from the checkout (one
-     nvcc per source, all at once);
+     nvcc per source, all at once); then the process's first-use costs,
+     each first call against its second ([prewarm] first use): build_all
+     with every library cached, each library's load, the first tensor on
+     the card (the CUDA context), numerics.solve and inv (solve_ex,
+     inv_ex) at the tracker's shapes;
   3. kernels: a run of the bench main scene (640x480, default settings)
      up to its first point marginalization records each kernel's inputs
      at the main path's shapes;
@@ -24,12 +28,22 @@ In order, failing (exit code != 0, no result line) at the first fault:
      (0.03, 0.012, 0.02, 0.002, 0.004, 0.001), plane_z 2.0) through the
      port's FullSystem on the card, at its default (the pipelined fused
      driver, 3 frames in flight, drained with finish_pending at the end),
-     with every launch counter set to 0
+     FullSystem.prewarm() before frame 26 as bench.py calls it (outside
+     the frame timers; its launches, taken off the counters, and its wall
+     ms are printed), with every launch counter set to 0
      just before and read just after; initialized, not lost, and the
      scale-aligned ATE <= 0.05 * path + 0.02, as bench.py gates it; K1
-     launched once per pyramid built and K2 once per template built;
+     launched once per pyramid built and K2 once per template built; the
+     selector rung after each keyframe printed, and gated on staying in
+     the prewarmed set from frame 26 on;
   5. the breakdown: 4 more frames through the same FullSystem under
      torch.profiler (the card's busy share and its top device ops);
+  5a. the [prewarm] phase on that FullSystem: every tensor of the window,
+     the immature pool, the image stack, HdiF, the templates, the key,
+     host_out and the rung the same bits before and after prewarm(); its
+     second and third call against the first (step 4's) in wall ms, and
+     stage by stage: the 5-wide and 78-wide fallback tracks and the dummy
+     frame dispatch at each rung;
   5b. the [snapshot] phase: frames 0-23 of the same scene through a new
      FullSystem, save_snapshot; a fresh FullSystem, load_snapshot and
      frames 24-47 with every launch counter from 0 (`launches_snapshot`)
@@ -2012,6 +2026,123 @@ def multidevice_phase(torch, dev, card, kernels, md):
     kernels[2]["launches_multidevice"] += sum(k3_b)
 
 
+def wall_ms(torch, fn):
+    """fn()'s wall ms, the card synchronized before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def first_use_costs(torch, dev, report):
+    """The first calls of the process against their second, logged under
+    [prewarm] before anything else runs on the card: build_all (the
+    [build] phase's report, then a call with every library cached), each
+    library's load, the first tensor on the card (the CUDA context), and
+    numerics.solve / inv at the tracker's shapes (the linear-algebra
+    libraries set up at their first call)."""
+    from sos_slam_tpu_torch.ops import numerics as NUM
+    from sos_slam_tpu_torch.utils import cuda_build
+    tag = "[prewarm] first use"
+    log(f"{tag}: build_all in the [build] phase: " + ", ".join(
+        f"{n}.cu " + ("cached" if r["ptxas"] == "cached"
+                      else f"{r['seconds']:.2f} s")
+        for n, r in report.items()) + "; again: " + ", ".join(
+        f"{wall_ms(torch, cuda_build.build_all):.2f} ms" for _ in range(2)))
+    log(f"{tag}: load (ctypes), first and second call: " + ", ".join(
+        f"{n} " + "/".join(f"{wall_ms(torch, lambda: cuda_build.load(n)):.3f}"
+                           for _ in range(2)) + " ms"
+        for n in cuda_build.SOURCES))
+    ctx = [wall_ms(torch, lambda: torch.zeros(1, device=dev))
+           for _ in range(2)]
+    # inputs made on the host: no library runs on the card before the calls
+    g = torch.Generator(device="cpu").manual_seed(5)
+    J = torch.rand(5, 16, 8, generator=g)
+    A = (J.transpose(1, 2) @ J + torch.eye(8)).to(dev)
+    b = torch.rand(5, 8, generator=g).to(dev)
+    T = (torch.eye(4) + 0.01 * torch.rand(4, 4, generator=g)).to(dev)
+    sol = [wall_ms(torch, lambda: NUM.solve(A, b)) for _ in range(2)]
+    inv = [wall_ms(torch, lambda: NUM.inv(T)) for _ in range(2)]
+    log(f"{tag}: first and second call, ms: the first tensor on the card "
+        f"(the CUDA context) {ctx[0]:.1f} / "
+        f"{ctx[1]:.3f}, numerics.solve (solve_ex, 5 x 8x8) {sol[0]:.1f} / "
+        f"{sol[1]:.3f}, numerics.inv (inv_ex, 4x4) {inv[0]:.1f} / "
+        f"{inv[1]:.3f}")
+
+
+def timed_prewarm(torch, fs, wrappers, callers=()):
+    """fs.prewarm() as bench.py calls it, the card synchronized around it:
+    its wall ms, its launches by kernel (taken off the launch counters and
+    the callers' call counts, which then count frames alone), the ms of
+    its two fallback tracks (5 wide, 78 wide) and of its dummy frame
+    dispatch at each rung (stage-timed)."""
+    from sos_slam_tpu_torch.ops import tracker as TK
+    # the frames in flight are frames: their completions count as such
+    fs.finish_pending()
+    launches = [w_.launches for w_ in wrappers]
+    calls = [r.n_calls for r in callers]
+    track = StageTimer(torch, TK, "track_hypotheses")
+    dispatch = StageTimer(torch, fs, "_dispatch_fused")
+    try:
+        ms = wall_ms(torch, fs.prewarm)
+    finally:
+        track.restore()
+        dispatch.restore()
+        del fs._dispatch_fused        # the instance's method again
+    launched = [w_.launches - n for w_, n in zip(wrappers, launches)]
+    for w_, n in zip(wrappers, launched):
+        w_.launches -= n
+    for r, n in zip(callers, calls):
+        r.n_calls = n
+    return dict(ms=ms, launches=launched, tracks=track.ms[:2],
+                dispatch=dispatch.ms)
+
+
+def prewarm_state(fs) -> dict:
+    """Everything prewarm() must leave as it is, as tensors."""
+    import torch
+    out = {f"ba.{k}": v for k, v in fs.ba._asdict().items()}
+    out.update({f"imm.{k}": v for k, v in fs.imm._asdict().items()})
+    for lvl, tp in enumerate(fs.templates):
+        out.update({f"tmpl.{lvl}.{k}": v for k, v in tp._asdict().items()})
+    out.update(dI=fs.dI, HdiF=fs.HdiF,
+               key=torch.as_tensor(np.array(fs.key)),
+               host_out=torch.as_tensor(np.array(fs.host_out)),
+               sel_pot=torch.tensor(fs._sel_pot))
+    return {k: v.clone() for k, v in out.items()}
+
+
+def prewarm_phase(torch, card, fs, first, wrappers):
+    """Phase [prewarm]: on the mono slice's FullSystem after its last
+    frame, every tensor of the window, the immature pool, the image stack,
+    HdiF, the templates, the key, host_out and the rung has the same bits
+    before and after prewarm(); the first call (the slice's, at frame
+    WARMUP) against the second and third, stage by stage."""
+    tag = f"[prewarm] ({card})"
+    before = prewarm_state(fs)
+    second = timed_prewarm(torch, fs, wrappers)
+    after = prewarm_state(fs)
+    changed = [k for k in before if not bits_equal(before[k], after[k])]
+    third = timed_prewarm(torch, fs, wrappers)
+    log(f"{tag} prewarm() wall ms: first {first['ms']:.1f} (the mono slice's, "
+        f"frame {WARMUP}), second {second['ms']:.1f}, third "
+        f"{third['ms']:.1f}; launches K1-K4 a call {second['launches']}")
+    for name, i in (("5-wide track (min_level 0)", 0),
+                    ("78-wide track (coarsest level)", 1)):
+        log(f"{tag} {name}: first {first['tracks'][i]:.2f} ms, second "
+            f"{second['tracks'][i]:.2f} ms, third {third['tracks'][i]:.2f} ms")
+    pots = sorted(fs._prewarmed_pots)
+    log(f"{tag} dummy frame dispatch (zero image) at rungs {pots}, ms: "
+        "first " + ", ".join(f"{v:.2f}" for v in first["dispatch"])
+        + "; second " + ", ".join(f"{v:.2f}" for v in second["dispatch"])
+        + "; third " + ", ".join(f"{v:.2f}" for v in third["dispatch"]))
+    log(f"{tag} state bits unchanged by prewarm(): {not changed} "
+        f"({len(before)} tensors)")
+    if changed:
+        raise AssertionError(f"prewarm() changed the state: {changed}")
+
+
 def run(torch):
     from sos_slam_tpu_torch.models import full_system as FSM
     from sos_slam_tpu_torch.models import initializer as INIT
@@ -2040,6 +2171,7 @@ def run(torch):
                 for ln in r["ptxas"].splitlines()
                 if "registers" in ln or "spill" in ln or "entry" in ln]
         log(f"[build] {name}.cu {r['seconds']:.2f} s " + " | ".join(regs[:9]))
+    first_use_costs(torch, dev, report)
 
     calib = synthetic.default_calib(W, H)
     settings = default_settings()
@@ -2161,18 +2293,28 @@ def run(torch):
     for w_ in wrappers:
         w_.launches = 0
     fs = FullSystem(calib, settings, device=dev)
-    frame_ms, in_flight = [], 0
+    frame_ms, in_flight, rungs, pw = [], 0, [], None
+
+    def rung_after_keyframe(i):
+        while len(rungs) < fs.stats["n_kf"]:
+            rungs.append((i, fs._sel_pot, pw is not None))
+
     for i in range(N_FRAMES):
+        if i == WARMUP:
+            # as bench.py does, outside the frame timers
+            pw = timed_prewarm(torch, fs, wrappers, callers)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fs.add_active_frame(imgs[i], timestamp=i * 0.05, frame_id=i)
         torch.cuda.synchronize()
         frame_ms.append((time.perf_counter() - t0) * 1e3)
+        rung_after_keyframe(i)
         in_flight = max(in_flight, len(fs._pending_fused))
         if fs.is_lost or fs.init_failed:
             break
     fs.finish_pending()
     torch.cuda.synchronize()
+    rung_after_keyframe(N_FRAMES)
     # a keyframe's time is that of the frame that dispatched its chain (the
     # frame id is the frame's index); its completion lands pipeline_depth
     # frames later
@@ -2202,6 +2344,19 @@ def run(torch):
         f"chain: median {median(kf_ms):.1f} ms, first frame "
         f"{frame_ms[0]:.0f} ms")
     log(f"[slice] reference: {JAX_REFERENCE}")
+    if pw is None:
+        raise AssertionError(f"the slice ended before frame {WARMUP}: no "
+                             "prewarm")
+    warm = sorted(fs._prewarmed_pots)
+    log(f"[slice] prewarm() at frame {WARMUP} (outside the frame timers): "
+        f"{pw['ms']:.1f} ms wall, launches K1-K4 {pw['launches']} (not in "
+        f"the slice's counts), rungs {warm}")
+    log("[slice] selector rung after each keyframe's completion (frame "
+        "reached, rung): " + ", ".join(f"{i}:{p}" for i, p, _ in rungs))
+    left = [(i, p) for i, p, after in rungs if after and p not in warm]
+    if left:
+        raise AssertionError(f"the rung left the prewarmed set {warm}: "
+                             f"{left}")
     rep = fs.telemetry.report()["timers_ms"]
     log("[slice] host stage timers (each stage ends in a host read): "
         + ", ".join(f"{k} n={v['n']} median {v['median']:.1f} ms"
@@ -2242,6 +2397,8 @@ def run(torch):
     profile_frames(torch, fs, lambda i: fs.add_active_frame(
         imgs[i], timestamp=i * 0.05, frame_id=i), N_FRAMES, PROF_FRAMES)
     phase_done("mono profile")
+    prewarm_phase(torch, card, fs, pw, wrappers)
+    phase_done("[prewarm] phase")
     del fs
     snapshot_phase(torch, dev, card, kernels, imgs, mono)
     phase_done("[snapshot] phase")

@@ -75,7 +75,7 @@ from sos_slam_tpu_torch.ops import trace as TR
 from sos_slam_tpu_torch.ops import tracker as TK
 from sos_slam_tpu_torch.ops.image import build_pyramid, interp_bilinear
 from sos_slam_tpu_torch.ops.numerics import inv
-from sos_slam_tpu_torch.utils import lie, rng
+from sos_slam_tpu_torch.utils import cuda_build, lie, rng
 from sos_slam_tpu_torch.utils.camera import CalibPyramid
 from sos_slam_tpu_torch.utils.config import Settings
 from sos_slam_tpu_torch.utils.telemetry import Telemetry
@@ -251,6 +251,9 @@ class FullSystem:
         self._last_dso_error = 1e6
         self.key = rng.PRNGKey(3141592)
         self._sel_pot = 3
+        # the selector rungs prewarm() warmed; when set, the density
+        # adaptation moves the rung only within it
+        self._prewarmed_pots = None
         self._last_chain = None      # the last completed frame's record
         # pipelining of the fused path (the JAX package's driver): up to
         # `pipeline_depth` dispatched frames wait for their completion while
@@ -278,7 +281,7 @@ class FullSystem:
         self.marg_callbacks = []     # loop-closure hooks: fn(kf_record)
         self.output_wrappers = []    # Output3DWrapper publishers
         self.stats = dict(n_kf=0, n_frames=0)
-        self.telemetry = Telemetry()
+        self.telemetry = Telemetry(device=dev)
 
     # ------------------------------------------------------------------
     # public API (reference FullSystem::addActiveFrame)
@@ -407,6 +410,68 @@ class FullSystem:
         """Complete every frame in flight. Call it before reading the
         trajectory or the state at the end of a sequence."""
         self._drain_pending(0)
+
+    def prewarm(self, pots=(1, 2, 3, 4)) -> None:
+        """Run the rare variants of the per-frame work once, so that their
+        first-use costs land here and not in the steady frames: the kernel
+        libraries' build and load, the 5-wide full and the 78-wide
+        coarsest-level fallback tracks, and at each selector rung of
+        `pots` the new-trace selection, the point marginalization before
+        it and, on the fused path, one frame dispatch (on a zero image,
+        from the host state). Records the rungs: the density adaptation
+        then stays among them, as the JAX package's does.
+
+        Pure dispatches on the current state: no state, key, rung or
+        telemetry changes. Requires an initialized system with a built
+        tracker template; completes the frames in flight first."""
+        self.finish_pending()
+        if not self.initialized or self.templates is None:
+            return
+        self._prewarmed_pots = {selector._snap_pot(p) for p in pots}
+        pyr = self.frame_pyramids[self.ref_slot]
+        if pyr is None:
+            return
+        cuda = self.device.type == "cuda"
+        if cuda:
+            cuda_build.build_all()
+            for name in cuda_build.SOURCES:
+                cuda_build.load(name)
+        s = self.settings
+        eye = np.eye(4, dtype=np.float32)
+        exposures = self._t(np.ones(2, np.float32))
+        for width, min_level in ((5, 0), (78, self.n_levels - 1)):
+            TK.track_hypotheses(
+                pyr, self.templates, self._t(np.stack([eye] * width)),
+                self._t(np.zeros(2, np.float32)), self._t(self.ref_aff),
+                exposures, self._intr, self.n_levels, min_level=min_level,
+                coarse_cutoff_th=s.coarse_cutoff_th, huber=s.huber_th)
+        # the dispatches below are no frames: their timers go nowhere
+        telemetry = self.telemetry
+        self.telemetry = Telemetry(device=self.device)
+        saved_pot, saved_last = self._sel_pot, self._last_chain
+        try:
+            for i, pot in enumerate(pots):
+                pot = selector._snap_pot(pot)
+                # the JAX package compiles the selection twice, alone and
+                # behind the point marginalization; eagerly it is one call
+                self._marg_points(self.ba, self.dI, self.HdiF,
+                                  self._flag_mask(()))
+                self._select_insert(self.imm, pyr[0], 0,
+                                    rng.fold_in(self.key, 990000 + i), pot)
+                if self._fused_active():
+                    self._sel_pot = pot
+                    dummy = FrameShell(id=990000 + i, timestamp=0.0,
+                                       cam_to_world=np.eye(4),
+                                       aff=np.zeros(2),
+                                       shell_idx=len(self.shells))
+                    self._dispatch_fused(
+                        torch.zeros(self.h, self.w, device=self.device),
+                        dummy, 1.0, chain=None)
+        finally:
+            self.telemetry = telemetry
+            self._sel_pot, self._last_chain = saved_pot, saved_last
+        if cuda:
+            torch.cuda.synchronize(self.device)
 
     def trajectory(self, scaled: bool = False) -> np.ndarray:
         """poses.txt contract: one row `id x y z` per keyframe
@@ -1157,6 +1222,9 @@ class FullSystem:
             redo = selector.pot_step(pot, up=False)
         elif quotia < 0.25:
             redo = selector.pot_step(pot, up=True)
+        warm = self._prewarmed_pots
+        if redo is not None and warm is not None and redo not in warm:
+            redo = None      # a rung that prewarm() did not warm
         if redo is not None and redo != pot:
             if classic and not rec["marg_ks"]:
                 # the classic path re-selects within the same keyframe

@@ -15,8 +15,9 @@ run but not on it: the tracker template (built on the keyframe before its
 point and frame marginalizations; the loader rebuilds it from the
 restored window, K2 on a CUDA system), the next frame's inputs chained on
 the device from the last frame (`FullSystem._last_chain`), the selector's
-random key, and the host IMU queue, the gyro-bias copy and the last
-dso_error. The port writes these too, under `port.*` keys that the JAX
+random key, the selector rungs that `FullSystem.prewarm` confined the
+density adaptation to, and the host IMU queue, the gyro-bias copy and the
+last dso_error. The port writes these too, under `port.*` keys that the JAX
 loader, which reads by name, ignores; a port snapshot therefore resumes
 bit for bit on the run it was taken from.
 """
@@ -145,6 +146,9 @@ def save_snapshot(fs: FullSystem, path: str) -> None:
         out[PORT + "imu_gyro"] = np.stack(gyro)
     if fs._last_bg is not None:
         out[PORT + "last_bg"] = np.asarray(fs._last_bg)
+    if fs._prewarmed_pots is not None:
+        out[PORT + "prewarmed_pots"] = np.array(sorted(fs._prewarmed_pots),
+                                                np.int64)
     out[PORT + "host_json"] = _json_entry(dict(
         pc_l0=pc_l0, chain=chain, last_dso_error=float(fs._last_dso_error)))
     np.savez_compressed(path, **out)
@@ -253,3 +257,5 @@ def _load_port(fs: FullSystem, port: dict, data) -> None:
                                 np.array(data[PORT + "imu_gyro"])))
     if PORT + "last_bg" in data:
         fs._last_bg = np.array(data[PORT + "last_bg"])
+    if PORT + "prewarmed_pots" in data:
+        fs._prewarmed_pots = {int(p) for p in data[PORT + "prewarmed_pots"]}

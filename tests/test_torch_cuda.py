@@ -678,6 +678,61 @@ def test_pipelined_driver_on_the_card():
     exact(a.ba.pt_valid.cpu(), b.ba.pt_valid.cpu())
 
 
+def test_prewarm_on_the_card():
+    """FullSystem.prewarm on the card: the kernels launched, every state
+    tensor, the key and the rung the same bits after it, the rung set
+    recorded. Mono at 256x192, frames in flight when it is called."""
+    from sos_slam_tpu_torch.models.full_system import FullSystem
+    from sos_slam_tpu_torch.ops import ba_p as BP
+    from sos_slam_tpu_torch.ops import image as IMG
+    from sos_slam_tpu_torch.utils import synthetic
+    from sos_slam_tpu_torch.utils.config import default_settings
+    dev = _dev()
+    calib = synthetic.default_calib(256, 192)
+    s = default_settings(max_points=512, max_immature=1024,
+                         max_track_pts=4096, desired_point_density=400.0,
+                         desired_immature_density=400.0)
+    imgs, _, _ = synthetic.make_sequence(
+        calib, 12, (0.05, 0.02, 0.03, 0.003, 0.006, 0.002), device=dev)
+    fs = FullSystem(calib, s, device=dev)
+    for i in range(12):
+        fs.add_active_frame(imgs[i], timestamp=0.05 * i, frame_id=i)
+    assert len(fs._pending_fused) > 0
+    fs.finish_pending()
+
+    def state():
+        ts = list(fs.ba) + list(fs.imm) + [fs.dI, fs.HdiF] + [
+            t for tp in fs.templates for t in tp]
+        return [t.clone() for t in ts], np.array(fs.key), fs._sel_pot
+
+    before = state()
+    k1, k3 = IMG.pyramid_levels.launches, BP.fused_iteration.launches
+    fs.prewarm()
+    assert IMG.pyramid_levels.launches > k1
+    assert BP.fused_iteration.launches > k3
+    after = state()
+    assert all(_same_bits(a, b) for a, b in zip(before[0], after[0]))
+    exact(before[1], after[1])
+    assert before[2] == after[2]
+    assert fs._prewarmed_pots == {1, 2, 3, 4}
+
+
+def test_device_trace_on_the_card(tmp_path):
+    """Telemetry.device_trace on a CUDA run records the card's activity:
+    the trace names K1's kernel. 300 launches, since the profiler may drop
+    the first device events of a window."""
+    from sos_slam_tpu_torch.ops import image as IMG
+    from sos_slam_tpu_torch.utils.telemetry import Telemetry
+    dev = _dev()
+    img = torch.rand(480, 640, device=dev) * 255
+    IMG.pyramid_levels(img, 4)
+    with Telemetry(device=dev).device_trace(str(tmp_path)):
+        for _ in range(300):
+            IMG.pyramid_levels(img, 4)
+    (trace,) = list(tmp_path.iterdir())
+    assert "pyramid_kernel" in trace.read_text()
+
+
 def _same_state(a, b):
     """The fields of two NamedTuple states whose bits differ."""
     return [f for f in a._fields
