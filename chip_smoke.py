@@ -27,13 +27,17 @@ In order, failing (exit code != 0, no result line) at the first fault:
   4. the slice: the full bench main scene (48 frames, twist
      (0.03, 0.012, 0.02, 0.002, 0.004, 0.001), plane_z 2.0) through the
      port's FullSystem on the card, at its default (the pipelined fused
-     driver, 3 frames in flight, drained with finish_pending at the end),
+     path, 3 frames in flight, drained with finish_pending at the end,
+     the frame step as CUDA graphs: models/frame_graph.py; every phase
+     runs that default unless it says otherwise),
      FullSystem.prewarm() before frame 26 as bench.py calls it (outside
      the frame timers; its launches, taken off the counters, and its wall
      ms are printed), with every launch counter set to 0
      just before and read just after; initialized, not lost, and the
      scale-aligned ATE <= 0.05 * path + 0.02, as bench.py gates it; K1
-     launched once per pyramid built and K2 once per template built; the
+     launched once per pyramid built (build_pyramid calls and replays of
+     the frame graph's (A), each counting its captured launch) and K2
+     once per template built; the
      selector rung after each keyframe printed, and gated on staying in
      the prewarmed set from frame 26 on;
   5. the breakdown: 4 more frames through the same FullSystem under
@@ -88,7 +92,7 @@ In order, failing (exit code != 0, no result line) at the first fault:
      the keyframe chain's stages timed, for the cost of the working VIO
      BA; and 2 more frames under torch.profiler;
   6a. the [pipeline] phase: the mono scene at depth 0 (synchronous) and
-     depth 3 in turns (the order alternating), three times each, every
+     depth 3 in turns (the order alternating), twice each, every
      run bit for bit the pipelined slice of step 4, with its steady fps,
      its host stage timers, the frames dispatched again after a rung
      change and the card's busy share under the profiler; the flagship
@@ -96,6 +100,23 @@ In order, failing (exit code != 0, no result line) at the first fault:
      marginalizations) at depth 0
      and 3, each drained, bit for bit on the trajectories, the window and
      the VIO prior; the most frames seen in flight (at least 2);
+  6a'. the [graph] phase: the mono scene in the eager form
+     (cuda_graphs=False) and the graph form in turns (the order
+     alternating), three times each, every run bit for bit the mono
+     slice of step 4, with its steady fps, its median frame with and
+     without a keyframe chain, the card's busy share, device ms and device
+     ops a frame under the profiler, and for the graph form the capture
+     ms, the graph pool's bytes, the replays of each graph, the frames
+     tracked again eagerly, the retries and the LM iterations (mean and
+     most) of the primary track by
+     level; one more run of each form counting the synchronising calls of
+     each frame (torch.cuda.set_sync_debug_mode): at most 2 in a steady
+     frame that dispatches no keyframe chain in the graph form (gated),
+     the eager form's beside it; the primary track on one steady frame's
+     inputs as graph (A) in the steady and the full bounded form (device
+     ms a replay) and eagerly (wall ms); the flagship's first 36 frames
+     in both forms, bit for bit on the trajectories, the window and the
+     VIO prior;
   6b. the [loop] phase: (a) the flagship scene's frames through the port's
      SlamNode (pinhole camera files, no rectification, loop closure on
      at a 40 m LiDAR range, the loop handler synchronous so that its
@@ -210,6 +231,7 @@ FLAG_SCALE_FROM = 35   # the flagship's stereo scale holds within 1% from here
 # WARMUP..PIPE_PROF_FROM-1 and the busy share over the rest; the flagship
 # frames up to two VIO frame marginalizations after the IMU initialization
 PIPE_PAIRS, PIPE_PROF_FROM, PIPE_FLAG_FRAMES = 3, 46, 36
+GRAPH_PAIRS = 3   # the [graph] phase: eager and graph form in turns
 JAX_FLAGSHIP = "JAX package on the same scene: 11 keyframes in 44 frames " \
                "(BENCH_r05.json, a TPU v5e run; history, not asserted)"
 # the loop phase: the flagship scene through SlamNode at this LiDAR range,
@@ -609,8 +631,14 @@ def busy_window(torch, fs, feed, first, n):
     """n frames of the scene from `first` (`feed(i)` hands frame i to the
     same FullSystem) under torch.profiler, the frames in flight completed
     inside the window: (wall ms a frame, device ms a frame, device ops a
-    frame, the window's device events). The profiler slows the host, so
-    the busy share dev / wall is a lower bound."""
+    frame, the window's device events, K1's launches). The profiler slows
+    the host, so the busy share dev / wall is a lower bound. K1's launches
+    are (the K1 kernels the profiler saw, the replays of graph (A) in the
+    window); the launch counter, to which a replay adds the launch it
+    captured, must have moved by the kernels seen, or this raises."""
+    from sos_slam_tpu_torch.ops import image as IMG
+    k1, replays = IMG.pyramid_levels.launches, graph_pyramids(fs)
+
     def body():
         t0 = time.perf_counter()
         for i in range(first, first + n):
@@ -620,7 +648,15 @@ def busy_window(torch, fs, feed, first, n):
         return (time.perf_counter() - t0) * 1e3 / n
     wall, ev = prof_window(torch, body, tries=1)   # body feeds the frames
     dev_ms = sum(e.self_device_time_total for e in ev) / 1e3 / n
-    return wall, dev_ms, sum(e.count for e in ev) / n, ev
+    k1 = IMG.pyramid_levels.launches - k1
+    seen = sum(e.count for e in ev if "pyramid_kernel" in e.key)
+    replays = graph_pyramids(fs) - replays
+    if seen != k1:
+        raise AssertionError(
+            f"frames {first}-{first + n - 1}: the profiler saw {seen} K1 "
+            f"launches, the launch counter counted {k1} ({replays} replays "
+            "of graph (A))")
+    return wall, dev_ms, sum(e.count for e in ev) / n, ev, (seen, replays)
 
 
 def profile_frames(torch, fs, feed, first, n, tag="profile"):
@@ -629,11 +665,12 @@ def profile_frames(torch, fs, feed, first, n, tag="profile"):
     and device time per frame, the card's busy share, its launches per
     frame and the device ops that take the most time."""
     n_kf = fs.stats["n_kf"]
-    wall, dev_ms, ops, ev = busy_window(torch, fs, feed, first, n)
+    wall, dev_ms, ops, ev, k1 = busy_window(torch, fs, feed, first, n)
     log(f"[{tag}] frames {first}-{first + n - 1} ({fs.stats['n_kf'] - n_kf} "
         f"keyframes), profiler on: wall {wall:.1f} ms/frame, device "
         f"{dev_ms:.2f} ms/frame, card busy {100 * dev_ms / wall:.1f}%, "
-        f"{ops:.0f} device ops/frame")
+        f"{ops:.0f} device ops/frame; K1 kernels the profiler saw {k1[0]} "
+        f"(replays of graph (A) {k1[1]}), as counted")
     top = sorted(ev, key=lambda e: -e.self_device_time_total)[:8]
     log(f"[{tag}] top device ops, ms/frame (count/frame): " + "; ".join(
         f"{e.key[:48]} {e.self_device_time_total / 1e3 / n:.3f} "
@@ -1294,7 +1331,7 @@ def flagship(torch, dev, card, kernels):
             raise AssertionError(f"{name} was not launched on the flagship "
                                  "path")
     n_right = pyr_l.n_of["right"]
-    n_pyr = pyr_l.n_calls + pyr_i.n_calls
+    n_pyr = pyr_l.n_calls + pyr_i.n_calls + graph_pyramids(fs)
     if counts[0] != n_pyr or counts[1] != tmpl.n_calls:
         raise AssertionError(
             f"flagship: K1 launched {counts[0]} times for {n_pyr} pyramids "
@@ -1456,8 +1493,8 @@ def pipeline_phase(torch, dev, card, mono, flag):
             rd = fs.telemetry.timers.get("redispatch", [])
             if depth:
                 redo.append((len(rd), sum(rd)))
-            wall, dev_ms, _, _ = busy_window(torch, fs, feed, PIPE_PROF_FROM,
-                                             N_FRAMES - PIPE_PROF_FROM)
+            wall, dev_ms, _, _, _ = busy_window(
+                torch, fs, feed, PIPE_PROF_FROM, N_FRAMES - PIPE_PROF_FROM)
             busy[depth].append(dev_ms / wall)
             same = (fs.kf_shell_ids == mono["kf_ids"]
                     and np.array_equal(fs.trajectory(), mono["traj"])
@@ -2071,6 +2108,14 @@ def first_use_costs(torch, dev, report):
         f"{inv[1]:.3f}")
 
 
+def graph_pyramids(fs) -> int:
+    """The pyramids the frame graph built: one a replay of its graph (A),
+    whose K1 launch the replay counts (build_pyramid runs only while the
+    graph is captured; `busy_window` holds that count to the K1 kernels
+    the profiler sees)."""
+    return 0 if fs.frame_graph is None else fs.frame_graph.replays["A"]
+
+
 def timed_prewarm(torch, fs, wrappers, callers=()):
     """fs.prewarm() as bench.py calls it, the card synchronized around it:
     its wall ms, its launches by kernel (taken off the launch counters and
@@ -2082,6 +2127,7 @@ def timed_prewarm(torch, fs, wrappers, callers=()):
     fs.finish_pending()
     launches = [w_.launches for w_ in wrappers]
     calls = [r.n_calls for r in callers]
+    replays = graph_pyramids(fs)
     track = StageTimer(torch, TK, "track_hypotheses")
     dispatch = StageTimer(torch, fs, "_dispatch_fused")
     try:
@@ -2096,7 +2142,7 @@ def timed_prewarm(torch, fs, wrappers, callers=()):
     for r, n in zip(callers, calls):
         r.n_calls = n
     return dict(ms=ms, launches=launched, tracks=track.ms[:2],
-                dispatch=dispatch.ms)
+                dispatch=dispatch.ms, pyramids=graph_pyramids(fs) - replays)
 
 
 def prewarm_state(fs) -> dict:
@@ -2141,6 +2187,259 @@ def prewarm_phase(torch, card, fs, first, wrappers):
         f"({len(before)} tensors)")
     if changed:
         raise AssertionError(f"prewarm() changed the state: {changed}")
+
+
+def synced_frames(torch, fs, feed, frames):
+    """Feed `frames` with torch.cuda.set_sync_debug_mode("warn") and count
+    the synchronising calls of each add_active_frame call; returns {frame:
+    (count, whether the call dispatched frames again after a rung
+    change)}."""
+    import warnings
+    out = {}
+    redo = fs.telemetry.timers["redispatch"]
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        for i in frames:
+            n_redo = len(redo)
+            with warnings.catch_warnings(record=True) as got:
+                warnings.simplefilter("always")
+                feed(i)
+            out[i] = (sum("synchroniz" in str(w.message) for w in got),
+                      len(redo) > n_redo)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return out
+
+
+def replay_ms(torch, fn, n=20):
+    """Device ms a call of fn (a graph replay) by a pair of CUDA events
+    around n calls, after one call."""
+    fn()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    for _ in range(n):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / n
+
+
+def graph_forms(torch, fs, args):
+    """The primary track three ways on one steady frame's inputs (`args`
+    of FrameGraph.step): graph (A) in the cut form (at most
+    CUT_LM_TRIPS LM trips a level, no doubling) and in the full
+    bounded form (every loop to its bound, the re-pass and the level
+    repeat always), device ms a replay; and the eager early-exit track,
+    wall ms a call (it reads the host every trip). Returns (cut ms, full
+    ms, eager ms, the cut form's overrun)."""
+    from sos_slam_tpu_torch.models import frame_graph as FG
+    from sos_slam_tpu_torch.ops import tracker as TK
+    g = fs.frame_graph
+    full = FG.FrameGraph(fs, cut=False)
+    full.step(*args)
+    g.step(*args)
+    over = bool(g.a["flags"][1])
+    steady_ms = replay_ms(torch, g.graphs["A"].replay)
+    full_ms = replay_ms(torch, full.graphs["A"].replay)
+    s, i = fs.settings, g.inp
+
+    def eager():
+        TK.track_newest_coarse(
+            g.a["pyr"], g.templates, i["T_primary"][None], i["aff"],
+            i["ref_aff"], g.a["exposures"],
+            torch.full((6,), float("nan"), device=fs.device), fs._intr,
+            fs.n_levels, coarse_cutoff_th=s.coarse_cutoff_th,
+            huber=s.huber_th)
+
+    eager_ms = median([wall_ms(torch, eager) for _ in range(5)])
+    del full
+    return steady_ms, full_ms, eager_ms, over
+
+
+def graph_phase(torch, dev, card, mono, flag):
+    """Phase [graph]: the frame step's CUDA graphs (models/frame_graph.py)
+    against its eager dispatch (cuda_graphs=False). The mono scene's 48
+    frames in both forms, in turns, GRAPH_PAIRS times each (the order
+    alternating), every run bit for bit the mono slice (keyframes,
+    trajectory, the whole window); each prints its steady fps (frames
+    WARMUP to PIPE_PROF_FROM - 1), the median frame with and without a
+    keyframe chain, the card's busy share, device ms and device ops a
+    frame under the profiler over the rest (with K1's launches there, seen
+    by the profiler against the counter: `busy_window`), and for the graph
+    form the capture ms, the graph pool's bytes, the replays of each
+    graph, the frames that tracked again eagerly (overrun), the retries
+    and the LM iterations of the primary track a frame by level. Then one
+    more run of each form counting the synchronising calls of every frame (a steady frame that
+    dispatches no keyframe chain: at most 2 in the graph form, gated),
+    the primary track three ways on one steady frame (`graph_forms`),
+    and the flagship's first PIPE_FLAG_FRAMES frames in both forms, bit
+    for bit."""
+    from sos_slam_tpu_torch.models import full_system as FSM
+    from sos_slam_tpu_torch.ops import tracker as TK
+    from sos_slam_tpu_torch.utils.config import default_settings
+
+    tag = f"[graph] ({card})"
+    imgs = mono["imgs"]
+    fps = {False: [], True: []}
+    busy = {False: [], True: []}
+    name = {False: "eager", True: "graph"}
+
+    def mono_fs(graphs):
+        fs = FSM.FullSystem(mono["calib"], default_settings(), device=dev,
+                            cuda_graphs=graphs)
+
+        def feed(i):
+            fs.add_active_frame(imgs[i], timestamp=i * 0.05, frame_id=i)
+        return fs, feed
+
+    for p in range(GRAPH_PAIRS):
+        for graphs in ((False, True), (True, False))[p % 2]:
+            gc.collect()
+            fs, feed = mono_fs(graphs)
+            frame_ms = []
+            for i in range(PIPE_PROF_FROM):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                feed(i)
+                torch.cuda.synchronize()
+                frame_ms.append((time.perf_counter() - t0) * 1e3)
+            steady = frame_ms[WARMUP:]
+            fps[graphs].append(len(steady) * 1e3 / sum(steady))
+            wall, dev_ms, ops, _, k1 = busy_window(
+                torch, fs, feed, PIPE_PROF_FROM, N_FRAMES - PIPE_PROF_FROM)
+            # every keyframe completed (busy_window drains the queue)
+            kf_ms, nonkf = split_by_keyframe(frame_ms, fs.kf_shell_ids,
+                                             WARMUP)
+            busy[graphs].append(dev_ms / wall)
+            ate, path = ate_of(fs, mono["poses"])
+            same = (fs.kf_shell_ids == mono["kf_ids"]
+                    and np.array_equal(fs.trajectory(), mono["traj"])
+                    and all(torch.equal(v, getattr(fs.ba, k))
+                            for k, v in mono["ba"].items()))
+            extra = ""
+            g = fs.frame_graph
+            if g is not None:
+                it = (g.lm_iters[0].cpu().numpy()
+                      / max(g.replays["A"], 1))
+                most = g.lm_iters_max[0].tolist()
+                extra = (f"; K1 kernels the profiler saw {k1[0]} in "
+                         f"{k1[1]} replays of graph (A), as counted; "
+                         f"capture {g.capture_ms:.1f} ms, graph pool "
+                         f"{g.pool_bytes} bytes, replays {g.replays}, "
+                         f"frames tracked again eagerly (overrun) "
+                         f"{g.overruns}, retries (eager) {g.retries}, the "
+                         f"state copied in {g.copy_ins}, LM iterations of "
+                         "the primary track a frame by level (0 = finest), "
+                         "mean / most (trips in the graph): " + ", ".join(
+                             f"{lv}: {v:.2f} / {m} ({t})" for lv, (v, m, t)
+                             in enumerate(zip(it, most, TK.CUT_LM_TRIPS))))
+            log(f"{tag} mono {W}x{H} {name[graphs]} form: steady fps "
+                f"{fps[graphs][-1]:.2f} (frames {WARMUP}-"
+                f"{PIPE_PROF_FROM - 1}), frames dispatching a keyframe "
+                f"chain median {median(kf_ms):.1f} ms, the others median "
+                f"{median(nonkf):.1f} ms; frames {PIPE_PROF_FROM}-"
+                f"{N_FRAMES - 1} under the profiler: wall {wall:.1f} ms/"
+                f"frame, device {dev_ms:.2f} ms/frame in {ops:.0f} device "
+                f"ops, card busy {100 * busy[graphs][-1]:.1f}%; n_kf "
+                f"{len(fs.kf_shell_ids)}, ATE {ate:.4f} m over {path:.3f} "
+                f"m; bit for bit the mono slice: {same}" + extra)
+            if not same:
+                raise AssertionError(f"mono in the {name[graphs]} form is "
+                                     "not bit for bit the mono slice")
+            del fs, feed
+    log(f"{tag} mono, {GRAPH_PAIRS} pairs in turns: steady fps eager "
+        + ", ".join(f"{v:.2f}" for v in fps[False]) + "; graph "
+        + ", ".join(f"{v:.2f}" for v in fps[True]) + "; busy eager "
+        + ", ".join(f"{100 * v:.1f}%" for v in busy[False]) + "; graph "
+        + ", ".join(f"{100 * v:.1f}%" for v in busy[True])
+        + "; graph / eager fps, pair by pair: "
+        + ", ".join(f"{b / a:.3f}" for a, b in zip(fps[False], fps[True])))
+    phase_done("[graph] mono pairs")
+
+    syncs, last_args = {}, None
+    for graphs in (False, True):
+        gc.collect()
+        fs, feed = mono_fs(graphs)
+        if graphs:
+            step = fs.frame_graph.step
+
+            def recorded(*a):
+                nonlocal last_args
+                last_args = a
+                return step(*a)
+            fs.frame_graph.step = recorded
+        for i in range(WARMUP):
+            feed(i)
+        got = synced_frames(torch, fs, feed, range(WARMUP, N_FRAMES))
+        fs.finish_pending()
+        kf = set(fs.kf_shell_ids)
+        syncs[graphs] = {i: n for i, (n, redo) in got.items()
+                         if i not in kf and not redo}
+        if graphs:
+            del fs.frame_graph.step
+            forms = graph_forms(torch, fs, last_args)
+        del fs, feed
+    steady = sorted(syncs[True])
+    log(f"{tag} synchronising calls (torch.cuda.set_sync_debug_mode) of "
+        f"each add_active_frame call that dispatches no keyframe chain, "
+        f"frames {steady}: graph form "
+        + ", ".join(str(syncs[True][i]) for i in steady) + "; eager form "
+        + ", ".join(str(syncs[False].get(i, "-")) for i in steady))
+    if not steady or max(syncs[True].values()) > 2:
+        raise AssertionError(f"the graph form syncs more than twice in a "
+                             f"steady frame: {syncs[True]}")
+    log(f"{tag} the primary track on one steady frame's inputs: graph (A) "
+        f"in the cut form (LM trips by level at most {TK.CUT_LM_TRIPS}) "
+        f"{forms[0]:.3f} ms a replay (overrun {forms[3]}), in the full "
+        f"bounded form {forms[1]:.3f} ms a replay, the eager early-exit "
+        f"track {forms[2]:.3f} ms wall a call")
+    phase_done("[graph] syncs and forms")
+
+    scene, calib = flag["scene"], flag["calib"]
+    stereo = FSM.StereoCalib(T_lr=scene["T_lr"], calib_right=calib)
+    runs = {}
+    for graphs in (False, True):
+        gc.collect()
+        fs = FSM.FullSystem(calib, flag["settings"], stereo=stereo,
+                            device=dev, cuda_graphs=graphs)
+        torch.cuda.synchronize()
+        t0 = None
+        for i in range(PIPE_FLAG_FRAMES):
+            if i == FLAG_WARMUP:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            fs.add_active_frame(scene["left"][i], timestamp=i * FLAG_DT,
+                                frame_id=i, image_right=scene["right"][i],
+                                imu_samples=scene["imu"][i])
+        torch.cuda.synchronize()
+        f_fps = (PIPE_FLAG_FRAMES - FLAG_WARMUP) / (time.perf_counter() - t0)
+        fs.finish_pending()
+        runs[graphs] = fs
+        g = fs.frame_graph
+        log(f"{tag} flagship frames 0-{PIPE_FLAG_FRAMES - 1}, "
+            f"{name[graphs]} form: fps over frames {FLAG_WARMUP}-"
+            f"{PIPE_FLAG_FRAMES - 1} {f_fps:.2f}"
+            + (f"; capture {g.capture_ms:.1f} ms, graph pool "
+               f"{g.pool_bytes} bytes, replays {g.replays}, overrun "
+               f"{g.overruns}, retries {g.retries}" if g is not None
+               else ""))
+    a, b = runs[False], runs[True]
+    same = (a.kf_shell_ids == b.kf_shell_ids
+            and np.array_equal(a.trajectory(), b.trajectory())
+            and np.array_equal(a.trajectory(scaled=True),
+                               b.trajectory(scaled=True))
+            and torch.equal(a.ba.state, b.ba.state)
+            and torch.equal(a.ba.pt_valid, b.ba.pt_valid)
+            and torch.equal(a.imu.HM, b.imu.HM)
+            and torch.equal(a.imu.bM, b.imu.bM))
+    log(f"{tag} flagship: keyframes {b.kf_shell_ids}, graph form bit for "
+        f"bit the eager form (both trajectories, ba.state, pt_valid, "
+        f"imu.HM, imu.bM): {same}")
+    if not same:
+        raise AssertionError("the flagship's graph form is not bit for bit "
+                             "its eager form")
+    if b.frame_graph.replays["A"] == 0:
+        raise AssertionError("the flagship's graph form replayed no graph")
 
 
 def run(torch):
@@ -2322,7 +2621,8 @@ def run(torch):
     counts = [w_.launches for w_ in wrappers]
     for r in callers:
         r.restore()
-    n_pyramids = callers[0].n_calls + callers[1].n_calls
+    n_pyramids = callers[0].n_calls + callers[1].n_calls \
+        + graph_pyramids(fs) - (pw["pyramids"] if pw else 0)
     n_templates = callers[2].n_calls
     del callers
     if not fs.initialized or fs.is_lost or fs.init_failed:
@@ -2405,8 +2705,10 @@ def run(torch):
     flag = flagship(torch, dev, card, kernels)
     phase_done("flagship scene")
     pipeline_phase(torch, dev, card, mono, flag)
-    del mono
     phase_done("[pipeline] phase")
+    graph_phase(torch, dev, card, mono, flag)
+    del mono
+    phase_done("[graph] phase")
     loop_phase(torch, dev, card, kernels, flag)
     del flag
     phase_done("loop phase")

@@ -6,7 +6,24 @@ Motion hypotheses are a leading batch axis K throughout: one call tracks K
 initial poses at once (the JAX package's vmap). The Levenberg loop runs
 while any hypothesis is still active; finished hypotheses are frozen by
 masks, which is exactly the batched while-loop semantics of the JAX form.
-The loop conditions are read on the host (one sync per LM iteration).
+
+Every control point (the cutoff-doubling loop, the re-pass at a raised
+cutoff, the LM loop, the level repeat) runs in one of three forms:
+  * eager (the default): the host reads the condition, one sync a trip,
+    and leaves a loop early;
+  * bounded (`bounded=True`): each loop runs to its bound and each branch
+    always, with no host read. Each update is chosen by the masks (`go`,
+    `redo`, `active`, `do_rep`), so a trip past the early exit changes no
+    bit: the same bits as the eager form (the counterpart of the JAX
+    package's `SOS_TRACK_UNROLL` cond unroll, which it states is
+    bit-identical to its while loop);
+  * cut (`cut=True`, bounded too), for a CUDA graph that cannot leave a
+    loop early: at most `CUT_LM_TRIPS` LM trips a level and no cutoff
+    doubling, hence no re-pass and no level repeat either. It sets
+    `overrun` wherever the eager form would run more (hypotheses still
+    active after the last LM trip, a saturated share that asks for a
+    doubling); where `overrun` stays False it gave the eager bits, and
+    where it is set its result is to be thrown away.
 
 Parity: Jacobian, Huber/cutoff energy, (1/n) normalization, DSO's
 conditioning rescale S = [1,1,1,.5,.5,.5,10,1000], lambda schedule
@@ -16,6 +33,7 @@ cutoff-doubling loop and the per-level iteration caps {10,20,50,50,50}.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -27,6 +45,27 @@ from sos_slam_tpu_torch.utils import lie
 _SCALE8 = (1.0, 1.0, 1.0, 0.5, 0.5, 0.5, 10.0, 1000.0)
 MAX_ITERS_PER_LEVEL = (10, 20, 50, 50, 50, 50)
 LAMBDA_EXTRAPOLATION_LIMIT = 1e-3
+CUTOFF_DOUBLINGS = 6   # the repeat runs 1 -> 64 under repeat < 50
+# the cut form's LM trips by level (0 = finest): the mono scene's steady
+# frames use 1.02, 1.02, 1.33 and 1.64 on average and at most 2, 2, 3 and 3
+# on an NVIDIA H100 (chip_smoke.py prints both)
+CUT_LM_TRIPS = (2, 2, 3, 3)
+
+
+def _own(bounded: bool, d: dict) -> dict:
+    """A loop's state: the bounded forms write their updates in place, so
+    they start from copies of their own."""
+    return {k: v.clone() for k, v in d.items()} if bounded else d
+
+
+def _set(d: dict, bounded: bool, **new) -> None:
+    """Update a loop's state: in place in the bounded forms (a CUDA graph
+    keeps the buffers it captured), by rebinding in the eager one."""
+    if bounded:
+        for k, v in new.items():
+            d[k].copy_(v)
+    else:
+        d.update(new)
 
 
 class LevelTemplate(NamedTuple):
@@ -132,17 +171,27 @@ def res_and_hb(dI_new, tmpl: LevelTemplate, T: torch.Tensor, aff_ab, ref_b0,
     return out
 
 
+# made once per device and shared (read-only): making one is a host-to-device
+# copy, which a CUDA graph cannot capture and which stalls the eager form
+@functools.lru_cache(maxsize=None)
+def _scale_and_mask(device, dtype, fix_a: bool, fix_b: bool):
+    """The conditioning scale S and the fixed-affine mask of the damped
+    solve."""
+    S = torch.tensor(_SCALE8, dtype=dtype, device=device)
+    mask = torch.tensor([1.0] * 6 + [0.0 if fix_a else 1.0,
+                                     0.0 if fix_b else 1.0],
+                        dtype=dtype, device=device)
+    return S, mask
+
+
 def _solve_damped(H, b, lam, fix_a: bool, fix_b: bool):
     """Scaled, damped 8x8 solve for K systems. Returns (scaled step, raw
     inc for the norm check), both (K,8)."""
-    S = torch.tensor(_SCALE8, dtype=H.dtype, device=H.device)
+    S, mask = _scale_and_mask(H.device, H.dtype, fix_a, fix_b)
     Hs = H * S[:, None] * S[None, :]
     bs = b * S
     Hl = Hs + torch.diag_embed(torch.diagonal(Hs, dim1=-2, dim2=-1)) \
         * lam[:, None, None]
-    mask = torch.tensor([1.0] * 6 + [0.0 if fix_a else 1.0,
-                                     0.0 if fix_b else 1.0],
-                        dtype=H.dtype, device=H.device)
     Hl = Hl * mask[:, None] * mask[None, :] + torch.diag(1.0 - mask)
     bs = bs * mask
     inc = solve(Hl, -bs)
@@ -163,11 +212,18 @@ def _sel(m, a, b):
 
 def track_level(dI_new, tmpl: LevelTemplate, T0, aff0, ref_aff, exposures,
                 intr, max_iters: int, coarse_cutoff_th: float, huber: float,
-                fix_a: bool = False, fix_b: bool = False):
+                fix_a: bool = False, fix_b: bool = False,
+                bounded: bool = False, cut_trips: int = 0, overrun=None):
     """LM at one pyramid level for K hypotheses. T0 (K,4,4), aff0 (K,2).
-    Returns (T, aff, rms, cutoff_repeat, flow_t, flow_rt), each (K,...)."""
+    Returns (T, aff, rms, cutoff_repeat, flow_t, flow_rt, iterations),
+    each (K,...). `bounded`: the bounded form; `cut_trips` > 0 (with
+    `bounded`): the cut form at that many LM trips, ORing into `overrun`
+    (module docstring)."""
     K = T0.shape[0]
     dev = T0.device
+    cut = bounded and cut_trips > 0
+    trips = min(cut_trips, max_iters) if cut else max_iters
+    doublings = 0 if cut else CUTOFF_DOUBLINGS
 
     def res_pass(T, aff, cutoff, flow=False):
         aff_ab = aff_from_to(exposures[0], exposures[1], ref_aff[:, None],
@@ -175,31 +231,38 @@ def track_level(dI_new, tmpl: LevelTemplate, T0, aff0, ref_aff, exposures,
         return res_and_hb(dI_new, tmpl, T, aff_ab, ref_aff[1], intr, cutoff,
                           huber, compute_flow=flow)
 
+    def sat_of(r):
+        return r["num_sat"] / torch.clamp(r["num_in"], min=1)
+
     cut0 = torch.full((K,), coarse_cutoff_th, dtype=torch.float32, device=dev)
-    r0 = res_pass(T0, aff0, cut0, flow=True)
-    sat = r0["num_sat"] / torch.clamp(r0["num_in"], min=1)
-    rep = torch.ones(K, dtype=torch.float32, device=dev)
-    while True:
-        go = (sat > 0.6) & (rep < 50.0)
-        if not bool(go.any()):
+    r0 = _own(bounded, res_pass(T0, aff0, cut0, flow=True))
+    c = _own(bounded, dict(rep=torch.ones(K, dtype=torch.float32, device=dev),
+                           sat=sat_of(r0)))
+    for _ in range(doublings):
+        go = (c["sat"] > 0.6) & (c["rep"] < 50.0)
+        if not (bounded or bool(go.any())):
             break
-        rep = torch.where(go, rep * 2.0, rep)
+        rep = torch.where(go, c["rep"] * 2.0, c["rep"])
         r = res_pass(T0, aff0, coarse_cutoff_th * rep)
-        sat = torch.where(go, r["num_sat"] / torch.clamp(r["num_in"], min=1),
-                          sat)
+        _set(c, bounded, rep=rep, sat=torch.where(go, sat_of(r), c["sat"]))
+    if cut:
+        overrun |= ((c["sat"] > 0.6) & (c["rep"] < 50.0)).any()
+    rep = c["rep"]
     cutoff = coarse_cutoff_th * rep
     redo = rep > 1.0
-    if bool(redo.any()):
+    # with no doubling the re-pass would change nothing
+    if not cut and (bounded or bool(redo.any())):
         r1 = res_pass(T0, aff0, cutoff, flow=True)
-        r0 = {k: _sel(redo, r1[k], r0[k]) for k in r0}
+        _set(r0, bounded, **{k: _sel(redo, r1[k], r0[k]) for k in r0})
 
-    s = dict(it=torch.zeros(K, dtype=torch.int32, device=dev), T=T0,
-             aff=aff0, E=r0["E"], num=r0["num_in"], H=r0["H"], b=r0["b"],
-             lam=torch.full((K,), 0.01, dtype=torch.float32, device=dev),
-             done=torch.zeros(K, dtype=torch.bool, device=dev))
-    while True:
+    s = _own(bounded, dict(
+        it=torch.zeros(K, dtype=torch.int32, device=dev), T=T0, aff=aff0,
+        E=r0["E"], num=r0["num_in"], H=r0["H"], b=r0["b"],
+        lam=torch.full((K,), 0.01, dtype=torch.float32, device=dev),
+        done=torch.zeros(K, dtype=torch.bool, device=dev)))
+    for _ in range(trips):
         active = ~s["done"] & (s["it"] < max_iters)
-        if not bool(active.any()):
+        if not (bounded or bool(active.any())):
             break
         step, inc_raw = _solve_damped(s["H"], s["b"], s["lam"], fix_a, fix_b)
         T_new = lie.se3_exp(step[:, :6]) @ s["T"]
@@ -214,33 +277,40 @@ def track_level(dI_new, tmpl: LevelTemplate, T0, aff0, ref_aff, exposures,
                                           min=LAMBDA_EXTRAPOLATION_LIMIT))
         done = s["done"] | (active & (torch.linalg.norm(inc_raw, dim=-1)
                                       <= 1e-3))
-        s = dict(
-            it=s["it"] + active.to(torch.int32),
-            T=_sel(accept, T_new, s["T"]),
-            aff=_sel(accept, aff_new, s["aff"]),
-            E=_sel(accept, rn["E"], s["E"]),
-            num=_sel(accept, rn["num_in"], s["num"]),
-            H=_sel(accept, rn["H"], s["H"]),
-            b=_sel(accept, rn["b"], s["b"]),
-            lam=torch.where(active, new_lam, s["lam"]),
-            done=done,
-        )
+        _set(s, bounded,
+             it=s["it"] + active.to(torch.int32),
+             T=_sel(accept, T_new, s["T"]),
+             aff=_sel(accept, aff_new, s["aff"]),
+             E=_sel(accept, rn["E"], s["E"]),
+             num=_sel(accept, rn["num_in"], s["num"]),
+             H=_sel(accept, rn["H"], s["H"]),
+             b=_sel(accept, rn["b"], s["b"]),
+             lam=torch.where(active, new_lam, s["lam"]),
+             done=done)
+    if cut and trips < max_iters:
+        overrun |= (~s["done"] & (s["it"] < max_iters)).any()
     rms = torch.sqrt(torch.where(
         s["num"] > 0, s["E"] / torch.clamp(s["num"], min=1),
         torch.full_like(s["E"], float("nan"))))
-    return s["T"], s["aff"], rms, rep, r0["flow_t"], r0["flow_rt"]
+    return s["T"], s["aff"], rms, rep, r0["flow_t"], r0["flow_rt"], s["it"]
 
 
 def track_newest_coarse(pyramid_new, templates, T_init, aff_init, ref_aff,
                         exposures, min_res_for_abort, intrinsics,
                         n_levels: int, coarse_cutoff_th: float = 20.0,
                         huber: float = 9.0, fix_a: bool = False,
-                        fix_b: bool = False, min_level: int = 0):
+                        fix_b: bool = False, min_level: int = 0,
+                        bounded: bool = False, cut: bool = False,
+                        overrun=None, iters=None):
     """Coarse-to-fine track of K hypotheses down to `min_level`.
 
     T_init (K,4,4); aff_init (2,); min_res_for_abort (6,) with NaN = no
     bound. Returns dict of (K,...) T, aff, residuals (6,), flow (2,),
-    good."""
+    good. `bounded`, `cut`: the form (module docstring; `cut` implies
+    `bounded`); the cut form ORs into `overrun`, a bool tensor ().
+    `iters`: None, or a (K, n_levels) int32 tensor that the LM iterations
+    run at each level (the repeat's included) are added to."""
+    bounded = bounded or cut
     K = T_init.shape[0]
     dev = T_init.device
     T = T_init
@@ -254,19 +324,31 @@ def track_newest_coarse(pyramid_new, templates, T_init, aff_init, ref_aff,
     for lvl in range(n_levels - 1, min_level - 1, -1):
         max_it = MAX_ITERS_PER_LEVEL[min(lvl, len(MAX_ITERS_PER_LEVEL) - 1)]
 
-        def run(T_, aff_, lvl=lvl, max_it=max_it):
+        trips = CUT_LM_TRIPS[min(lvl, len(CUT_LM_TRIPS) - 1)] if cut else 0
+
+        def run(T_, aff_, lvl=lvl, max_it=max_it, trips=trips):
             return track_level(pyramid_new[lvl], templates[lvl], T_, aff_,
                                ref_aff, exposures, intrinsics[lvl], max_it,
-                               coarse_cutoff_th, huber, fix_a, fix_b)
+                               coarse_cutoff_th, huber, fix_a, fix_b,
+                               bounded, trips, overrun)
 
-        T1, aff1, rms, cut_rep, ft, frt = run(T, aff)
+        T1, aff1, rms, cut_rep, ft, frt, it1 = run(T, aff)
+        lv = dict(T=T1, aff=aff1, rms=rms, ft=ft, frt=frt)
         do_rep = (cut_rep > 1.0) & ~have_repeated
         have_repeated = have_repeated | do_rep
-        if bool(do_rep.any()):
-            T2, aff2, rms2, _, ft2, frt2 = run(T1, aff1)
-            T1, aff1 = _sel(do_rep, T2, T1), _sel(do_rep, aff2, aff1)
-            rms, ft, frt = (_sel(do_rep, rms2, rms), _sel(do_rep, ft2, ft),
-                            _sel(do_rep, frt2, frt))
+        if iters is not None:
+            iters[:, lvl] += it1
+        # with no doubling do_rep is all False
+        if not cut and (bounded or bool(do_rep.any())):
+            T2, aff2, rms2, _, ft2, frt2, it2 = run(T1, aff1)
+            _set(lv, bounded, T=_sel(do_rep, T2, T1),
+                 aff=_sel(do_rep, aff2, aff1), rms=_sel(do_rep, rms2, rms),
+                 ft=_sel(do_rep, ft2, ft), frt=_sel(do_rep, frt2, frt))
+            if iters is not None:
+                iters[:, lvl] += torch.where(do_rep, it2,
+                                             torch.zeros_like(it2))
+        T1, aff1, rms, ft, frt = (lv[k] for k in ("T", "aff", "rms", "ft",
+                                                  "frt"))
 
         bound = min_res_for_abort[lvl]
         lvl_ok = torch.isnan(bound) | (rms <= 1.5 * bound)

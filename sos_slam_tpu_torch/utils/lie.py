@@ -105,7 +105,8 @@ def compose_rt(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     T = torch.zeros(R.shape[:-2] + (4, 4), dtype=R.dtype, device=R.device)
     T[..., :3, :3] = R
     T[..., :3, 3] = t
-    T[..., 3, 3] = 1.0
+    # fill_, not `= 1.0`: assigning a Python number copies it from the host
+    T[..., 3, 3].fill_(1.0)
     return T
 
 

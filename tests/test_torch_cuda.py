@@ -820,3 +820,232 @@ def test_nccl_ranks_beyond_the_cards_refused():
         DR.spawn_ranks(n, [], dev, backend="nccl")
     with pytest.raises(RuntimeError, match="no process group"):
         S.make_mesh(n, dev)
+
+
+# ---------------------------------------------------------------------------
+# the frame step as CUDA graphs (models/frame_graph.py)
+# ---------------------------------------------------------------------------
+_MONO_TWIST = (0.05, 0.02, 0.03, 0.003, 0.006, 0.002)
+
+
+def _mono_run(dev, imgs, cuda_graphs, feed=None):
+    """tests/test_torch_pipeline.py's mono scene through a FullSystem on
+    the card at the default depth 3; `feed(fs, i)` replaces the plain
+    add_active_frame of frame i."""
+    from sos_slam_tpu_torch.models.full_system import FullSystem
+    from sos_slam_tpu_torch.utils import synthetic
+    from sos_slam_tpu_torch.utils.config import default_settings
+    s = default_settings(max_window_frames=8, max_points=512,
+                         max_immature=1024, max_track_pts=4096,
+                         desired_point_density=400.0,
+                         desired_immature_density=400.0)
+    fs = FullSystem(synthetic.default_calib(256, 192), s, device=dev,
+                    cuda_graphs=cuda_graphs)
+    for i in range(len(imgs)):
+        if feed is None:
+            fs.add_active_frame(imgs[i], timestamp=0.05 * i, frame_id=i)
+        else:
+            feed(fs, i)
+    fs.finish_pending()
+    return fs
+
+
+def _mono_images(dev, n=24, roll_frame=None):
+    from sos_slam_tpu_torch.utils import synthetic
+    imgs, _, _ = synthetic.make_sequence(synthetic.default_calib(256, 192),
+                                         n, _MONO_TWIST, device=dev)
+    imgs = [im.clone() for im in imgs]
+    if roll_frame is not None:
+        # an unmodelled jump: the primary misses, the retry runs and the
+        # step refuses the frame
+        imgs[roll_frame] = torch.roll(imgs[roll_frame], 40, 1)
+    return imgs
+
+
+def _assert_same_run(a, b):
+    assert a.kf_shell_ids == b.kf_shell_ids
+    exact(a.trajectory(), b.trajectory())
+    for x, y in zip((*a.ba, *a.imm), (*b.ba, *b.imm)):
+        assert _same_bits(x, y)
+
+
+def test_frame_graph_replays_bit_for_bit_on_the_card():
+    """The graph form against the eager form (cuda_graphs=False) on the
+    card: every keyframe, pose, window tensor and immature-pool tensor
+    the same bits, over frames that copy a keyframe's window and
+    templates into the graphs' buffers and a frame whose primary misses
+    (the retry run, the frame refused)."""
+    dev = _dev()
+    imgs = _mono_images(dev, roll_frame=14)
+    eager = _mono_run(dev, imgs, cuda_graphs=False)
+    graph = _mono_run(dev, imgs, cuda_graphs=True)
+    assert eager.frame_graph is None
+    g = graph.frame_graph
+    assert g.graphs is not None and g.retries >= 1
+    assert g.copy_ins["templates"] >= 8 and g.copy_ins["ba"] >= 2
+    # the private pool's own segments hold the graphs' buffers
+    assert 0 < g.pool_bytes <= torch.cuda.memory_reserved(dev)
+    _assert_same_run(eager, graph)
+
+
+def _syncs_per_frame(fs, imgs):
+    """The synchronising calls (torch.cuda.set_sync_debug_mode("warn"))
+    of each add_active_frame call, by frame id."""
+    import warnings
+    counts, where = {}, {}
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        for i in range(len(imgs)):
+            g = fs.frame_graph
+            if g is not None and g.graphs is None:
+                where[i] = "before the capture"
+            with warnings.catch_warnings(record=True) as got:
+                warnings.simplefilter("always")
+                fs.add_active_frame(imgs[i], timestamp=0.05 * i, frame_id=i)
+            syncs = [w for w in got if "synchroniz" in str(w.message)]
+            counts[i] = len(syncs)
+            where.setdefault(i, [f"{w.filename.split('/')[-1]}:{w.lineno}"
+                                 for w in syncs])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    fs.finish_pending()
+    return counts, where
+
+
+def test_frame_graph_syncs_on_the_card():
+    """A steady frame that dispatches no keyframe chain makes at most two
+    synchronising calls in the graph form (prim_ok with the tracker's
+    overrun, and need_kf); the eager form's count is printed beside it.
+    The mono scene at half the test twist, so that most frames are no
+    keyframe."""
+    from sos_slam_tpu_torch.models.full_system import FullSystem
+    from sos_slam_tpu_torch.utils import synthetic
+    from sos_slam_tpu_torch.utils.config import default_settings
+    dev = _dev()
+    calib = synthetic.default_calib(256, 192)
+    imgs, _, _ = synthetic.make_sequence(
+        calib, 24, tuple(0.5 * x for x in _MONO_TWIST), device=dev)
+    s = default_settings(max_window_frames=8, max_points=512,
+                         max_immature=1024, max_track_pts=4096,
+                         desired_point_density=400.0,
+                         desired_immature_density=400.0)
+    counts, where = {}, {}
+    for cuda_graphs in (False, True):
+        fs = FullSystem(calib, s, device=dev, cuda_graphs=cuda_graphs)
+        counts[cuda_graphs], where[cuda_graphs] = _syncs_per_frame(fs, imgs)
+        kf = set(fs.kf_shell_ids)
+    # steady: the frames after the one that captured the graphs, whose
+    # dispatch made no keyframe
+    first = max(i for i, w in where[True].items()
+                if w == "before the capture") + 1
+    steady = [i for i in range(first, 24) if i not in kf]
+    assert len(steady) >= 3, kf
+    graph = [counts[True][i] for i in steady]
+    eager = [counts[False][i] for i in steady]
+    print(f"synchronising calls a steady frame without keyframe, frames "
+          f"{steady}: graph form {graph}, eager form {eager}; where, frame "
+          f"{steady[-1]}: graph form {where[True][steady[-1]]}, eager form "
+          f"{where[False][steady[-1]]}")
+    assert max(graph) <= 2, graph
+
+
+def test_frame_graph_capture_error_raises_on_the_card():
+    """A host read inside a captured body fails the capture; the error
+    reaches the caller and the eager step never runs."""
+    from sos_slam_tpu_torch.models import frame_graph as FG
+    dev = _dev()
+    imgs = _mono_images(dev, n=12)
+    real = FG.need_kf
+
+    def reads_host(*a, **kw):
+        out = real(*a, **kw)
+        bool(out)          # a synchronising read: refused while capturing
+        return out
+
+    def eager_step(*a, **kw):
+        raise AssertionError("the eager step ran")
+
+    FG.need_kf = reads_host
+    try:
+        with pytest.raises(RuntimeError):
+            def feed(fs, i):
+                fs._frame_step = eager_step
+                fs.add_active_frame(imgs[i], timestamp=0.05 * i,
+                                    frame_id=i)
+            _mono_run(dev, imgs, cuda_graphs=True, feed=feed)
+    finally:
+        FG.need_kf = real
+    x = torch.ones(4, device=dev) + 1.0       # the card still works
+    torch.cuda.synchronize()
+    assert float(x.sum()) == 8.0
+
+
+def test_frame_graph_capture_beside_the_loop_worker_on_the_card(tmp_path):
+    """Graphs captured while the loop handler's worker thread runs on the
+    same card: tests/test_loop_integration.py's stereo scene through
+    SlamNode with the asynchronous handler, a fresh FrameGraph (a new
+    capture) made at frames 10, 14 and 18 while the worker spends a second
+    allocating, launching and reading on the card; the poses, the window
+    and the loop handler's records the eager form's."""
+    from sos_slam_tpu_torch.io.node import SlamNode
+    from sos_slam_tpu_torch.models import frame_graph as FG
+    from sos_slam_tpu_torch.utils import synthetic
+    from sos_slam_tpu_torch.utils.config import default_settings
+    dev = _dev()
+    calib = synthetic.default_calib(256, 192)
+    imgs, _, poses = synthetic.make_sequence(calib, 24, _MONO_TWIST,
+                                             device=dev)
+    T_lr, T_rl = synthetic.stereo_T_lr(0.11)
+    right = [synthetic.render_plane(calib, p @ torch.as_tensor(
+        T_rl, dtype=torch.float32, device=dev), 2.0)[0] for p in poses]
+    cam = str(tmp_path / "camera.txt")
+    with open(cam, "w") as f:
+        f.write("Pinhole 179.2 179.2 127.5 95.5 0\n256 192\nnone\n256 192\n")
+    s = default_settings(scale_opt_thres=12.0, loop_lidar_range=40.0,
+                         max_window_frames=8, max_points=512,
+                         max_immature=1024, max_track_pts=4096,
+                         desired_point_density=400.0,
+                         desired_immature_density=400.0)
+    import threading
+    import time
+    BUSY = dict(busy=True)
+    runs, busy = [], []
+    for cuda_graphs in (False, True):
+        node = SlamNode(s, cam, calib1=cam, T_stereo=T_lr, device=dev,
+                        async_loop=True)
+        process = node.loop._process
+        started = threading.Event()
+
+        def worker_job(rec, process=process, started=started):
+            if rec is not BUSY:
+                return process(rec)
+            # a second of allocations, launches and reads on the card from
+            # the worker thread (no random numbers: a capture owns the
+            # generator's offsets)
+            started.set()
+            a = torch.ones(512, 512, device=dev)
+            t_end = time.perf_counter() + 1.0
+            while time.perf_counter() < t_end:
+                float((a @ a).sum())
+
+        node.loop._process = worker_job
+        if not cuda_graphs:
+            node.fs.frame_graph = None
+        for i in range(24):
+            if cuda_graphs and i in (10, 14, 18):
+                started.clear()
+                node.loop.on_keyframe(BUSY)
+                started.wait(10.0)
+                busy.append(node.loop._queue.unfinished_tasks)
+                node.fs.frame_graph = FG.FrameGraph(node.fs)
+            node.process(imgs[i], i * 0.05, image_right=right[i])
+        node.fs.finish_pending()
+        node.loop.join()
+        assert node.loop._worker.is_alive()
+        runs.append(node)
+    print(f"loop records queued or in work at the captures: {busy}")
+    assert min(busy) >= 1
+    a, b = runs[0].fs, runs[1].fs
+    assert b.frame_graph.graphs is not None
+    _assert_same_run(a, b)
+    assert len(runs[0].loop.frames) == len(runs[1].loop.frames) >= 3
