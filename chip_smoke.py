@@ -232,6 +232,9 @@ FLAG_SCALE_FROM = 35   # the flagship's stereo scale holds within 1% from here
 # frames up to two VIO frame marginalizations after the IMU initialization
 PIPE_PAIRS, PIPE_PROF_FROM, PIPE_FLAG_FRAMES = 3, 46, 36
 GRAPH_PAIRS = 3   # the [graph] phase: eager and graph form in turns
+# K1-K4 launches of the eager form (cuda_graphs=False) over the mono scene's
+# frames: the mono slice's count before the keyframe chain ran as graphs
+MONO_EAGER_LAUNCHES = [73, 22, 134, 88]
 JAX_FLAGSHIP = "JAX package on the same scene: 11 keyframes in 44 frames " \
                "(BENCH_r05.json, a TPU v5e run; history, not asserted)"
 # the loop phase: the flagship scene through SlamNode at this LiDAR range,
@@ -381,8 +384,12 @@ def queued_ms(torch, fn, n=QUEUED, repeats=3):
     """Device ms a call of `fn` with the queue full, `repeats` times: one
     pair of CUDA events around `n` back-to-back calls that were enqueued
     while a sleeping kernel held the stream, so the host's launch cost is
-    hidden and the card runs them without a gap. No profiler. Returns
-    (the ms of each repeat, clocks before, clocks after)."""
+    hidden and the card runs them without a gap. The queue held only if
+    the sleep had not ended when the host enqueued the last call (the
+    first event not yet reached, `Event.query`); a repeat whose queue ran
+    dry is taken again with twice the sleep, up to four times, then an
+    error. No profiler. Returns (the ms of each repeat, clocks before,
+    clocks after)."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -396,15 +403,22 @@ def queued_ms(torch, fn, n=QUEUED, repeats=3):
     before = gpu_clocks()
     out = []
     for _ in range(repeats):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(cycles)
-        a.record()
-        for _ in range(n):
-            fn()
-        b.record()
-        b.synchronize()
-        out.append(a.elapsed_time(b) / n)
+        for _ in range(4):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(cycles)
+            a.record()
+            for _ in range(n):
+                fn()
+            held = not a.query()
+            b.record()
+            b.synchronize()
+            if held:
+                out.append(a.elapsed_time(b) / n)
+                break
+            cycles *= 2
+        else:
+            raise AssertionError("the queue ran dry behind four sleeps")
     return out, before, gpu_clocks()
 
 
@@ -627,17 +641,39 @@ def time_kernels(torch, kernels, timings):
     return wrappers
 
 
+# each kernel's launch counter and the name of the kernel a launch runs
+# (K3 runs two: ba_block_kernel, then block_sum_kernel)
+def kernel_counters():
+    from sos_slam_tpu_torch.models import window as WIN
+    from sos_slam_tpu_torch.ops import ba_p as BP
+    from sos_slam_tpu_torch.ops import image as IMG
+    return (("K1", IMG.pyramid_levels, "pyramid_kernel"),
+            ("K2", WIN.template_levels, "template_kernel"),
+            ("K3", BP.fused_iteration, "ba_block_kernel"),
+            ("K4", BP.act_pass, "act_pass_kernel"))
+
+
+def chain_replays(fs) -> int:
+    """The replays of the keyframe chain's graphs (models/chain_graph.py)
+    so far."""
+    g = fs.chain_graph
+    return 0 if g is None else sum(g.replays[k] for k in g.graphs)
+
+
 def busy_window(torch, fs, feed, first, n):
     """n frames of the scene from `first` (`feed(i)` hands frame i to the
     same FullSystem) under torch.profiler, the frames in flight completed
     inside the window: (wall ms a frame, device ms a frame, device ops a
-    frame, the window's device events, K1's launches). The profiler slows
-    the host, so the busy share dev / wall is a lower bound. K1's launches
+    frame, the window's device events, the launches). The profiler slows
+    the host, so the busy share dev / wall is a lower bound. The launches
     are (the K1 kernels the profiler saw, the replays of graph (A) in the
-    window); the launch counter, to which a replay adds the launch it
-    captured, must have moved by the kernels seen, or this raises."""
-    from sos_slam_tpu_torch.ops import image as IMG
-    k1, replays = IMG.pyramid_levels.launches, graph_pyramids(fs)
+    window, {kernel: the K2-K4 kernels seen}, the replays of the keyframe
+    chain's graphs); each kernel's launch counter, to which a replay adds
+    the launches it captured, must have moved by the kernels of its name
+    seen, or this raises."""
+    counters = kernel_counters()
+    before = [fn.launches for _, fn, _ in counters]
+    replays, chains = graph_pyramids(fs), chain_replays(fs)
 
     def body():
         t0 = time.perf_counter()
@@ -648,15 +684,19 @@ def busy_window(torch, fs, feed, first, n):
         return (time.perf_counter() - t0) * 1e3 / n
     wall, ev = prof_window(torch, body, tries=1)   # body feeds the frames
     dev_ms = sum(e.self_device_time_total for e in ev) / 1e3 / n
-    k1 = IMG.pyramid_levels.launches - k1
-    seen = sum(e.count for e in ev if "pyramid_kernel" in e.key)
     replays = graph_pyramids(fs) - replays
-    if seen != k1:
-        raise AssertionError(
-            f"frames {first}-{first + n - 1}: the profiler saw {seen} K1 "
-            f"launches, the launch counter counted {k1} ({replays} replays "
-            "of graph (A))")
-    return wall, dev_ms, sum(e.count for e in ev) / n, ev, (seen, replays)
+    chains = chain_replays(fs) - chains
+    seen = {}
+    for (name, fn, kernel), b in zip(counters, before):
+        seen[name] = sum(e.count for e in ev if kernel in e.key)
+        if seen[name] != fn.launches - b:
+            raise AssertionError(
+                f"frames {first}-{first + n - 1}: the profiler saw "
+                f"{seen[name]} {name} launches ({kernel}), the launch "
+                f"counter counted {fn.launches - b} ({replays} replays of "
+                f"graph (A), {chains} of the keyframe chain's graphs)")
+    return wall, dev_ms, sum(e.count for e in ev) / n, ev, (
+        seen.pop("K1"), replays, seen, chains)
 
 
 def profile_frames(torch, fs, feed, first, n, tag="profile"):
@@ -670,7 +710,8 @@ def profile_frames(torch, fs, feed, first, n, tag="profile"):
         f"keyframes), profiler on: wall {wall:.1f} ms/frame, device "
         f"{dev_ms:.2f} ms/frame, card busy {100 * dev_ms / wall:.1f}%, "
         f"{ops:.0f} device ops/frame; K1 kernels the profiler saw {k1[0]} "
-        f"(replays of graph (A) {k1[1]}), as counted")
+        f"(replays of graph (A) {k1[1]}), K2-K4 {k1[2]} (replays of the "
+        f"keyframe chain's graphs {k1[3]}), as counted")
     top = sorted(ev, key=lambda e: -e.self_device_time_total)[:8]
     log(f"[{tag}] top device ops, ms/frame (count/frame): " + "; ".join(
         f"{e.key[:48]} {e.self_device_time_total / 1e3 / n:.3f} "
@@ -842,6 +883,9 @@ def capture(torch, calib, settings, imgs, dev, k2_entry="template_levels"):
                 k3=Recorder(BP, "fused_iteration", 1, kind=k3_kind),
                 k4=Recorder(BP, "act_pass", 8))
     fs = FullSystem(calib, settings, device=dev)
+    # the recorders keep eager calls' inputs: a call captured into the
+    # keyframe chain's graph holds the graph's own buffers
+    fs.chain_graph = None
     n_pre = 0
     while n_pre < N_FRAMES and "rz" not in recs["k3"].last_of:
         fs.add_active_frame(imgs[n_pre], timestamp=n_pre * 0.05,
@@ -2128,6 +2172,7 @@ def timed_prewarm(torch, fs, wrappers, callers=()):
     launches = [w_.launches for w_ in wrappers]
     calls = [r.n_calls for r in callers]
     replays = graph_pyramids(fs)
+    captured = chain_captured(fs)
     track = StageTimer(torch, TK, "track_hypotheses")
     dispatch = StageTimer(torch, fs, "_dispatch_fused")
     try:
@@ -2141,8 +2186,31 @@ def timed_prewarm(torch, fs, wrappers, callers=()):
         w_.launches -= n
     for r, n in zip(callers, calls):
         r.n_calls = n
+    g = fs.chain_graph
     return dict(ms=ms, launches=launched, tracks=track.ms[:2],
-                dispatch=dispatch.ms, pyramids=graph_pyramids(fs) - replays)
+                dispatch=dispatch.ms, pyramids=graph_pyramids(fs) - replays,
+                chain_captured={c: n - captured[c] for c, n in
+                                chain_captured(fs).items()},
+                chain_capture_ms=dict(g.capture_ms) if g else {})
+
+
+def chain_captured(fs) -> dict:
+    """{K1, K2}: the calls of build_pyramid and build_track_template made
+    while the keyframe chain's graphs were captured (Python calls that
+    launched nothing)."""
+    g = fs.chain_graph
+    return {c: 0 if g is None else sum(p[c] for p in g.per_replay.values())
+            for c in ("K1", "K2")}
+
+
+def chain_launched(fs) -> dict:
+    """{K1, K2}: the launches of the keyframe chain's graph replays (a
+    replay launches what its capture called, without a Python call)."""
+    g = fs.chain_graph
+    return {c: 0 if g is None else sum(n * g.per_replay[k][c]
+                                       for k, n in g.replays.items()
+                                       if k in g.per_replay)
+            for c in ("K1", "K2")}
 
 
 def prewarm_state(fs) -> dict:
@@ -2192,20 +2260,33 @@ def prewarm_phase(torch, card, fs, first, wrappers):
 def synced_frames(torch, fs, feed, frames):
     """Feed `frames` with torch.cuda.set_sync_debug_mode("warn") and count
     the synchronising calls of each add_active_frame call; returns {frame:
-    (count, whether the call dispatched frames again after a rung
-    change)}."""
+    (count, whether the call dispatched frames again after a rung change,
+    the calls by file:line, whether it replayed the keyframe chain's
+    graphs once with no retry and no overrun of the frame step and no
+    graph captured)}."""
     import warnings
     out = {}
     redo = fs.telemetry.timers["redispatch"]
+    fg, cg = fs.frame_graph, fs.chain_graph
+
+    def marks():
+        return (chain_replays(fs), fg.retries if fg else 0,
+                fg.overruns if fg else 0, len(cg.capture_ms) if cg else 0)
+
     torch.cuda.set_sync_debug_mode("warn")
     try:
         for i in frames:
             n_redo = len(redo)
+            m0 = marks()
             with warnings.catch_warnings(record=True) as got:
                 warnings.simplefilter("always")
                 feed(i)
-            out[i] = (sum("synchroniz" in str(w.message) for w in got),
-                      len(redo) > n_redo)
+            m1 = marks()
+            syncs = [w for w in got if "synchroniz" in str(w.message)]
+            out[i] = (len(syncs), len(redo) > n_redo,
+                      [f"{w.filename.split('/')[-1]}:{w.lineno}"
+                       for w in syncs],
+                      m1[0] == m0[0] + 1 and m1[1:] == m0[1:])
     finally:
         torch.cuda.set_sync_debug_mode("default")
     return out
@@ -2268,12 +2349,17 @@ def graph_phase(torch, dev, card, mono, flag):
     by the profiler against the counter: `busy_window`), and for the graph
     form the capture ms, the graph pool's bytes, the replays of each
     graph, the frames that tracked again eagerly (overrun), the retries
-    and the LM iterations of the primary track a frame by level. Then one
-    more run of each form counting the synchronising calls of every frame (a steady frame that
-    dispatches no keyframe chain: at most 2 in the graph form, gated),
-    the primary track three ways on one steady frame (`graph_forms`),
-    and the flagship's first PIPE_FLAG_FRAMES frames in both forms, bit
-    for bit."""
+    and the LM iterations of the primary track a frame by level; and the
+    keyframe chain's graphs (models/chain_graph.py): K1-K4 launches of
+    each run (the eager form's gated at MONO_EAGER_LAUNCHES), replays,
+    eager chains by reason, capture ms, pool bytes, GN steps a keyframe,
+    the selection keys' host ms; the K2-K4 kernels the profiler sees held
+    to the counters. Then one more run of each form counting the synchronising
+    calls of every frame (a steady frame that dispatches no keyframe chain, and
+    a frame that replays the keyframe chain's graphs: at most 2 in the graph
+    form, gated, each call named), the primary track three ways on one steady
+    frame (`graph_forms`), and the flagship's first PIPE_FLAG_FRAMES frames in
+    both forms, bit for bit."""
     from sos_slam_tpu_torch.models import full_system as FSM
     from sos_slam_tpu_torch.ops import tracker as TK
     from sos_slam_tpu_torch.utils.config import default_settings
@@ -2292,10 +2378,13 @@ def graph_phase(torch, dev, card, mono, flag):
             fs.add_active_frame(imgs[i], timestamp=i * 0.05, frame_id=i)
         return fs, feed
 
+    launched = {False: [], True: []}
+    counters = kernel_counters()
     for p in range(GRAPH_PAIRS):
         for graphs in ((False, True), (True, False))[p % 2]:
             gc.collect()
             fs, feed = mono_fs(graphs)
+            before = [fn.launches for _, fn, _ in counters]
             frame_ms = []
             for i in range(PIPE_PROF_FROM):
                 torch.cuda.synchronize()
@@ -2311,6 +2400,8 @@ def graph_phase(torch, dev, card, mono, flag):
             kf_ms, nonkf = split_by_keyframe(frame_ms, fs.kf_shell_ids,
                                              WARMUP)
             busy[graphs].append(dev_ms / wall)
+            launched[graphs].append([fn.launches - b for (_, fn, _), b
+                                     in zip(counters, before)])
             ate, path = ate_of(fs, mono["poses"])
             same = (fs.kf_shell_ids == mono["kf_ids"]
                     and np.array_equal(fs.trajectory(), mono["traj"])
@@ -2333,6 +2424,19 @@ def graph_phase(torch, dev, card, mono, flag):
                          "mean / most (trips in the graph): " + ", ".join(
                              f"{lv}: {v:.2f} / {m} ({t})" for lv, (v, m, t)
                              in enumerate(zip(it, most, TK.CUT_LM_TRIPS))))
+            cg = fs.chain_graph
+            if cg is not None:
+                extra += (
+                    f"; the keyframe chain's graphs: replays "
+                    f"{dict(cg.replays)}, eager chains by reason "
+                    f"{dict(cg.eager)}, capture ms "
+                    + ", ".join(f"rung {k}: {v:.1f}"
+                                for k, v in cg.capture_ms.items())
+                    + f", pool {cg.pool_bytes} bytes (apart from the "
+                    f"frame graphs'), K2-K4 kernels the profiler saw "
+                    f"{k1[2]} in {k1[3]} replays, as counted, the "
+                    f"selection keys' host ms median "
+                    f"{median(cg.draw_ms):.3f}")
             log(f"{tag} mono {W}x{H} {name[graphs]} form: steady fps "
                 f"{fps[graphs][-1]:.2f} (frames {WARMUP}-"
                 f"{PIPE_PROF_FROM - 1}), frames dispatching a keyframe "
@@ -2342,10 +2446,22 @@ def graph_phase(torch, dev, card, mono, flag):
                 f"frame, device {dev_ms:.2f} ms/frame in {ops:.0f} device "
                 f"ops, card busy {100 * busy[graphs][-1]:.1f}%; n_kf "
                 f"{len(fs.kf_shell_ids)}, ATE {ate:.4f} m over {path:.3f} "
-                f"m; bit for bit the mono slice: {same}" + extra)
+                f"m; launches K1-K4 {launched[graphs][-1]}; GN steps a "
+                f"keyframe (n_its), keyframes by count "
+                f"{dict(sorted(fs.kf_n_its.items()))}; bit for bit the mono "
+                f"slice: {same}" + extra)
             if not same:
                 raise AssertionError(f"mono in the {name[graphs]} form is "
                                      "not bit for bit the mono slice")
+            if not graphs and launched[False][-1] != MONO_EAGER_LAUNCHES:
+                raise AssertionError(
+                    f"the eager form launched K1-K4 {launched[False][-1]} "
+                    f"times, not {MONO_EAGER_LAUNCHES}")
+            if graphs and (cg is None or chain_replays(fs) == 0):
+                raise AssertionError("the graph form replayed no keyframe "
+                                     "chain graph")
+            if graphs:
+                n_its = fs.kf_n_its
             del fs, feed
     log(f"{tag} mono, {GRAPH_PAIRS} pairs in turns: steady fps eager "
         + ", ".join(f"{v:.2f}" for v in fps[False]) + "; graph "
@@ -2354,9 +2470,13 @@ def graph_phase(torch, dev, card, mono, flag):
         + ", ".join(f"{100 * v:.1f}%" for v in busy[True])
         + "; graph / eager fps, pair by pair: "
         + ", ".join(f"{b / a:.3f}" for a, b in zip(fps[False], fps[True])))
+    log(f"{tag} GN steps of the keyframe chain's BA (n_its) on the mono "
+        f"scene, keyframes by count: {dict(sorted(n_its.items()))} (the "
+        f"graph form's bound: {default_settings().max_opt_iterations}, the "
+        "bootstrap's 20 and 15 eagerly)")
     phase_done("[graph] mono pairs")
 
-    syncs, last_args = {}, None
+    syncs, kf_syncs, last_args = {}, {}, None
     for graphs in (False, True):
         gc.collect()
         fs, feed = mono_fs(graphs)
@@ -2373,8 +2493,12 @@ def graph_phase(torch, dev, card, mono, flag):
         got = synced_frames(torch, fs, feed, range(WARMUP, N_FRAMES))
         fs.finish_pending()
         kf = set(fs.kf_shell_ids)
-        syncs[graphs] = {i: n for i, (n, redo) in got.items()
+        syncs[graphs] = {i: n for i, (n, redo, _, _) in got.items()
                          if i not in kf and not redo}
+        kf_syncs[graphs] = got
+        if graphs:
+            chained = [i for i, (_, redo, _, clean) in got.items()
+                       if clean and not redo]
         if graphs:
             del fs.frame_graph.step
             forms = graph_forms(torch, fs, last_args)
@@ -2388,6 +2512,19 @@ def graph_phase(torch, dev, card, mono, flag):
     if not steady or max(syncs[True].values()) > 2:
         raise AssertionError(f"the graph form syncs more than twice in a "
                              f"steady frame: {syncs[True]}")
+    kg, ke = kf_syncs[True], kf_syncs[False]
+    log(f"{tag} synchronising calls of each add_active_frame call that "
+        f"replays the keyframe chain's graphs (no retry, no overrun, no "
+        f"dispatch again), frames {chained}: graph form "
+        + ", ".join(str(kg[i][0]) for i in chained) + "; eager form "
+        + ", ".join(str(ke[i][0]) for i in chained)
+        + (f"; the calls, frame {chained[-1]}: graph form "
+           f"{kg[chained[-1]][2]}, eager form {ke[chained[-1]][2]}"
+           if chained else ""))
+    if not chained or max(kg[i][0] for i in chained) > 2:
+        raise AssertionError(
+            "the graph form syncs more than twice in a frame that replays "
+            "the keyframe chain: " + str({i: kg[i][2] for i in chained}))
     log(f"{tag} the primary track on one steady frame's inputs: graph (A) "
         f"in the cut form (LM trips by level at most {TK.CUT_LM_TRIPS}) "
         f"{forms[0]:.3f} ms a replay (overrun {forms[3]}), in the full "
@@ -2621,9 +2758,15 @@ def run(torch):
     counts = [w_.launches for w_ in wrappers]
     for r in callers:
         r.restore()
+    # the chain graphs' replays launch without a Python call; their
+    # captures called without a launch (those in prewarm are not counted)
+    rep_c, cap_c = chain_launched(fs), chain_captured(fs)
+    cap_pw = pw["chain_captured"] if pw else dict(K1=0, K2=0)
     n_pyramids = callers[0].n_calls + callers[1].n_calls \
-        + graph_pyramids(fs) - (pw["pyramids"] if pw else 0)
-    n_templates = callers[2].n_calls
+        + graph_pyramids(fs) - (pw["pyramids"] if pw else 0) \
+        + rep_c["K1"] - (cap_c["K1"] - cap_pw["K1"])
+    n_templates = callers[2].n_calls + rep_c["K2"] \
+        - (cap_c["K2"] - cap_pw["K2"])
     del callers
     if not fs.initialized or fs.is_lost or fs.init_failed:
         raise AssertionError(f"slice failed: initialized={fs.initialized} "
@@ -2650,7 +2793,18 @@ def run(torch):
     warm = sorted(fs._prewarmed_pots)
     log(f"[slice] prewarm() at frame {WARMUP} (outside the frame timers): "
         f"{pw['ms']:.1f} ms wall, launches K1-K4 {pw['launches']} (not in "
-        f"the slice's counts), rungs {warm}")
+        f"the slice's counts), rungs {warm}; the keyframe chain's graphs "
+        f"captured by then, ms each (warm-up and capture): "
+        + ", ".join(f"rung {k}: {v:.1f}" for k, v in
+                    pw["chain_capture_ms"].items()))
+    cg = fs.chain_graph
+    log(f"[slice] the keyframe chain's graphs (models/chain_graph.py): "
+        f"replays {dict(cg.replays)}, eager chains by reason "
+        f"{dict(cg.eager)}, private pool {cg.pool_bytes} bytes, GN steps a "
+        f"keyframe (n_its), keyframes by count "
+        f"{dict(sorted(fs.kf_n_its.items()))}, the selection keys' host ms a "
+        f"keyframe: median {median(cg.draw_ms):.3f}, most "
+        f"{max(cg.draw_ms):.3f}")
     log("[slice] selector rung after each keyframe's completion (frame "
         "reached, rung): " + ", ".join(f"{i}:{p}" for i, p, _ in rungs))
     left = [(i, p) for i, p, after in rungs if after and p not in warm]

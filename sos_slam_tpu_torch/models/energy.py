@@ -8,7 +8,10 @@ always accepted, early break on small step norms; afterwards the newest
 frame's FEJ point moves to its current pose and a final linearization
 drops OOB/outlier residuals. Every linearization goes through kernel K3
 (ops/ba_p.py:fused_iteration) at the `_iter_quants` and `_marg_Hb` seams.
-The loop conditions are read on the host. The visual-inertial twins
+`optimize` reads its loop condition on the host; `optimize(bounded=True)`
+runs the step count to its bound with the steps after the break frozen,
+which gives the same bits and reads nothing back (the counterpart of the
+JAX package's `lax.while_loop`). The visual-inertial twins
 (`gn_step_vio`, `optimize_vio`, `marginalize_frame_vio`,
 `marginalize_points_vio`) solve the (5+29F)-dim KKT system of
 models/imu.py around the same K3 linearizations.
@@ -21,7 +24,7 @@ import torch
 from sos_slam_tpu_torch.models import imu as IM
 from sos_slam_tpu_torch.ops import ba as B
 from sos_slam_tpu_torch.ops import ba_p as BP
-from sos_slam_tpu_torch.ops.numerics import inv, live_pinv
+from sos_slam_tpu_torch.ops.numerics import at, inv, live_pinv
 from sos_slam_tpu_torch.parallel import comm
 from sos_slam_tpu_torch.utils import lie
 from sos_slam_tpu_torch.utils.config import CPARS, Settings
@@ -49,14 +52,14 @@ def _marg_Hb(ba: B.BAState, pre: B.Precalc, dI, marg, settings: Settings,
 
 def _canbreak(ba: B.BAState, step_fr, settings: Settings, sums: dict):
     """The early-break test on a GN step's frame increments and the point
-    depths (FullSystem::optimize's canbreak); the point counts come from
-    `_point_sums`."""
-    nvalid = max(int(torch.sum(ba.frame_valid)), 1)
+    depths (FullSystem::optimize's canbreak), a device bool; the point
+    counts come from `_point_sums`."""
+    nvalid = torch.clamp(torch.sum(ba.frame_valid), min=1)
     sumA = torch.sum(step_fr[:, 6] ** 2) / nvalid
     sumB = torch.sum(step_fr[:, 7] ** 2) / nvalid
     sumT = torch.sum(step_fr[:, 0:3] ** 2) / nvalid
     sumR = torch.sum(step_fr[:, 3:6] ** 2) / nvalid
-    npt = max(int(sums["npt"]), 1)
+    npt = torch.clamp(sums["npt"], min=1)
     sumNID = sums["sum_abs_idepth"] / npt
     th = settings.th_opt_iterations
     return ((torch.sqrt(sumA) < 0.0005 * th)
@@ -135,19 +138,18 @@ def gn_step(ba: B.BAState, dI, settings: Settings, w: int, h: int,
 
 def _fej_reset_newest(ba: B.BAState):
     """Move the newest frame's FEJ point to its current pose (the affine
-    stays in state_zero). Returns (ba, newest slot)."""
-    newest = int(torch.sum(ba.frame_valid)) - 1
+    stays in state_zero), with the newest slot read nothing back."""
+    F = ba.F
+    dev = ba.state.device
+    newest = B.newest_slot(ba.frame_valid)
     T_cw = B.state_to_pose(ba.T_cw_eval, ba.state)
-    zero_pose = ba.state.clone()
-    zero_pose[:, :6] = 0.0
-    new_eval = ba.T_cw_eval.clone()
-    new_eval[newest] = T_cw[newest]
-    new_state = ba.state.clone()
-    new_state[newest] = zero_pose[newest]
-    new_zero = ba.state_zero.clone()
-    new_zero[newest] = zero_pose[newest]
-    return ba._replace(T_cw_eval=new_eval, state=new_state,
-                       state_zero=new_zero), newest
+    sel = (torch.arange(F, device=dev) == newest)[:, None]
+    pose_dims = (torch.arange(8, device=dev) < 6)[None, :]
+    zero_pose = torch.where(pose_dims, torch.zeros_like(ba.state), ba.state)
+    return ba._replace(
+        T_cw_eval=torch.where(sel[..., None], T_cw, ba.T_cw_eval),
+        state=torch.where(sel, zero_pose, ba.state),
+        state_zero=torch.where(sel, zero_pose, ba.state_zero))
 
 
 def _final_linearization(ba: B.BAState, dI, settings: Settings, w: int,
@@ -170,18 +172,37 @@ def _final_linearization(ba: B.BAState, dI, settings: Settings, w: int,
 
 
 def optimize(ba: B.BAState, dI, settings: Settings, w: int, h: int,
-             max_its: int = 6, min_its: int = 1):
-    """The windowed BA (FullSystem::optimize). Returns (ba, stats dict)."""
+             max_its: int = 6, min_its: int = 1, bounded: bool = False):
+    """The windowed BA (FullSystem::optimize). Returns (ba, stats dict).
+
+    The loop leaves early on the break test, read on the host after each
+    step. `bounded=True` reads nothing back: it runs `max_its` steps, sets
+    a device `done` once the break test holds with `min_its` steps made,
+    and from the step after it keeps every field of the state as it was
+    (`torch.where`), counting the steps made on the device (stats'
+    `n_its`, a 0-dim tensor). Both forms give the same bits."""
     ba = ba._replace(res_state=torch.where(
         ba.res_exist, torch.full_like(ba.res_state, B.RES_IN), ba.res_state))
     ev = B.make_precalc_eval(ba)
-    it = 0
-    canbreak = False
-    while it < max_its and not (canbreak and it >= min_its):
-        ba, cb, _ = gn_step(ba, dI, settings, w, h, ev=ev)
-        canbreak = bool(cb)
-        it += 1
-    ba, _ = _fej_reset_newest(ba)
+    if bounded:
+        dev = ba.state.device
+        it = torch.zeros((), dtype=torch.int32, device=dev)
+        done = torch.zeros((), dtype=torch.bool, device=dev)
+        for _ in range(max_its):
+            new, cb, _ = gn_step(ba, dI, settings, w, h, ev=ev)
+            live = ~done
+            ba = B.BAState(*(a if b is a else torch.where(live, b, a)
+                             for a, b in zip(ba, new)))
+            it = it + live.to(torch.int32)
+            done = done | (live & cb & (it >= min_its))
+    else:
+        it = 0
+        canbreak = False
+        while it < max_its and not (canbreak and it >= min_its):
+            ba, cb, _ = gn_step(ba, dI, settings, w, h, ev=ev)
+            canbreak = bool(cb)
+            it += 1
+    ba = _fej_reset_newest(ba)
     return _final_linearization(ba, dI, settings, w, h, it)
 
 
@@ -285,49 +306,58 @@ def orthogonalize(b, H, nullspaces, delta: float = 1e-5):
     return b - NNpiTS @ b, H - NNpiTS @ H @ NNpiTS
 
 
-def marginalize_frame(ba: B.BAState, k: int) -> B.BAState:
+def marginalize_frame(ba: B.BAState, k) -> B.BAState:
     """Schur-marginalize frame slot k out of HM/bM and compact the window
     (EnergyFunctional::marginalizeFrame). Requires no remaining points
-    hosted in k and no residuals targeting k."""
+    hosted in k and no residuals targeting k. `k`: an int or a 0-dim int
+    tensor on the window's device; nothing is read back (the window count,
+    the block order and the dying block's dims stay on the device)."""
     F = ba.F
     D = CPARS + 8 * F
     dev = ba.HM.device
-    n = int(torch.sum(ba.frame_valid))
+    if not torch.is_tensor(k):
+        k = torch.tensor(k, device=dev)
+    k = k.reshape(())
+    n = torch.sum(ba.frame_valid)
+    ar8 = torch.arange(8, device=dev)
+    didx = CPARS + 8 * k + ar8
+    prior_k, state_k = at(ba.prior, k), at(ba.state, k)
     HM = ba.HM.clone()
     bM = ba.bM.clone()
-    didx = CPARS + 8 * k + torch.arange(8, device=dev)
-    HM[didx, didx] += ba.prior[k]
-    bM[didx] += ba.prior[k] * ba.state[k]
+    HM[didx, didx] += prior_k
+    bM[didx] += prior_k * state_k
 
-    order = [b for b in range(F) if b != k and b < n] + [k] \
-        + list(range(n, F))
-    order_t = torch.tensor(order, device=dev)
+    # new block order [0..k-1, k+1..n-1, k, n..F-1]: old slot per new slot
+    blk = torch.arange(F, device=dev)
+    shifted = torch.where((blk >= k) & (blk < n - 1), blk + 1, blk)
+    order_t = torch.where(blk == n - 1, k, shifted)
     perm = torch.cat([torch.arange(CPARS, device=dev),
-                      (CPARS + 8 * order_t[:, None]
-                       + torch.arange(8, device=dev)[None, :]).reshape(-1)])
+                      (CPARS + 8 * order_t[:, None] + ar8[None, :])
+                      .reshape(-1)])
     HMp = HM[perm][:, perm]
     bMp = bM[perm]
     sl = CPARS + 8 * (n - 1)
+    gidx = sl + ar8
     dim_idx = torch.arange(D, device=dev)
     in_marg = (dim_idx >= sl) & (dim_idx < sl + 8)
     svec = torch.sqrt(torch.abs(torch.diagonal(HMp)) + 10.0)
     svec_i = 1.0 / svec
     Hs = HMp * svec_i[:, None] * svec_i[None, :]
     bs = bMp * svec_i
-    Hmm = Hs[sl:sl + 8, sl:sl + 8]
+    Hmm = Hs[gidx][:, gidx]
     Hmm = 0.5 * (Hmm + Hmm.T)
     Hmm_inv = inv(Hmm)
     Hmm_inv = 0.5 * (Hmm_inv + Hmm_inv.T)
     keep = (~in_marg).to(torch.float32)
-    Hxm = Hs[:, sl:sl + 8] * keep[:, None]
+    Hxm = Hs[:, gidx] * keep[:, None]
     bli = Hxm @ Hmm_inv
     Hs_new = (Hs - bli @ Hxm.T) * keep[:, None] * keep[None, :]
-    bs_new = (bs - bli @ bs[sl:sl + 8]) * keep
+    bs_new = (bs - bli @ bs[gidx]) * keep
     HM2 = Hs_new * svec[:, None] * svec[None, :]
     HM2 = 0.5 * (HM2 + HM2.T)
     bM2 = bs_new * svec
 
-    last = torch.arange(F, device=dev) == (n - 1)
+    last = blk == (n - 1)
     frame_valid = ba.frame_valid[order_t] & ~last
     fvf = frame_valid[:, None].to(torch.float32)
     eye = torch.eye(4, dtype=torch.float32, device=dev)
@@ -407,7 +437,8 @@ def optimize_vio(ba: B.BAState, imu: IM.ImuState, dI, settings: Settings,
         ba, imu, cb, _ = gn_step_vio(ba, imu, dI, settings, w, h, ev=ev)
         canbreak = bool(cb)
         it += 1
-    ba, newest = _fej_reset_newest(ba)
+    ba = _fej_reset_newest(ba)
+    newest = int(torch.sum(ba.frame_valid)) - 1
 
     # updateVel(newest) from the second-newest window frame
     prev = max(newest - 1, 0)

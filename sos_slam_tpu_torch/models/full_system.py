@@ -67,6 +67,7 @@ import numpy as np
 import torch
 
 from sos_slam_tpu_torch import resolve_device
+from sos_slam_tpu_torch.models import chain_graph as CG
 from sos_slam_tpu_torch.models import energy as E
 from sos_slam_tpu_torch.models import frame_graph as FG
 from sos_slam_tpu_torch.models import imu as IM
@@ -78,7 +79,7 @@ from sos_slam_tpu_torch.ops import selector
 from sos_slam_tpu_torch.ops import trace as TR
 from sos_slam_tpu_torch.ops import tracker as TK
 from sos_slam_tpu_torch.ops.image import build_pyramid, interp_bilinear
-from sos_slam_tpu_torch.ops.numerics import inv
+from sos_slam_tpu_torch.ops.numerics import at, inv
 from sos_slam_tpu_torch.utils import cuda_build, lie, rng
 from sos_slam_tpu_torch.utils.camera import CalibPyramid
 from sos_slam_tpu_torch.utils.config import Settings
@@ -155,6 +156,11 @@ def trace_new(ba: B.BAState, imm: TR.ImmatureState, dI0_new, T_cw_new,
     return TR.trace_points(imm, dI0_new, KRKi, Kt, affs, w, h, settings)
 
 
+def _clamp0(i):
+    """max(i, 0) of an int or a device int tensor."""
+    return torch.clamp(i, min=0) if torch.is_tensor(i) else max(i, 0)
+
+
 def _pad_hyps(hyps, size):
     out = list(hyps)[:size]
     while len(out) < size:
@@ -175,10 +181,11 @@ class FullSystem:
         """`jax_form=True` folds out a VIO frame whose block holds dims
         without information as the JAX package does, into a NaN prior
         (`E.marginalize_frame_vio`; for the parity tests only). On a card
-        the fused path's frame step replays CUDA graphs
-        (`models/frame_graph.py`); `cuda_graphs=False` keeps its eager
-        dispatch, as running the JAX package under `jax.disable_jit()`
-        would. On the CPU the step is always eager."""
+        the fused path's frame step and its vision keyframe chain replay
+        CUDA graphs (`models/frame_graph.py`, `models/chain_graph.py`);
+        `cuda_graphs=False` keeps both eager, as running the JAX package
+        under `jax.disable_jit()` would, and is the yardstick they are held
+        to bit for bit. On the CPU both are always eager."""
         if settings.enable_scale_opt and stereo is None:
             raise ValueError("enable_scale_opt requires a StereoCalib")
         self.device = dev = resolve_device(device)
@@ -192,6 +199,16 @@ class FullSystem:
         F = settings.max_window_frames
         P = settings.max_points
         self.F, self.P = F, P
+        # the chains flag up to (max_frames - min_frames) + 1 frames a
+        # keyframe (the count gate stops at min_frames, plus one distance
+        # drop) and keep MAX_MARG_FRAMES flagged slots: a larger count
+        # would drop slots whose points were marginalized all the same
+        worst_flags = max(settings.max_frames - settings.min_frames, 2) + 1
+        if worst_flags > CG.MAX_MARG_FRAMES:
+            raise ValueError(
+                f"settings allow up to {worst_flags} frames flagged a "
+                f"keyframe but MAX_MARG_FRAMES={CG.MAX_MARG_FRAMES}; raise "
+                f"it or narrow max_frames - min_frames")
 
         def z(*shape, dtype=torch.float32):
             return torch.zeros(shape, dtype=dtype, device=dev)
@@ -243,7 +260,8 @@ class FullSystem:
         self.initialized = False
         self.is_lost = False
         self.init_failed = False
-        self.current_min_act_dist = np.float32(2.0)
+        # the activation distance: a device scalar the chains evolve
+        self.current_min_act_dist = torch.full((), 2.0, device=dev)
         self.shells: List[FrameShell] = []
         self._shell_by_id: dict = {}
         self.kf_shell_ids: List[int] = []
@@ -252,6 +270,8 @@ class FullSystem:
         # starts here instead of the gravity-aligned origin
         # (SlamNode.cpp:174-189 curPose carry + FullSystem.cpp:1040-1042)
         self.initial_pose: Optional[np.ndarray] = None
+        # per-host dead-point counts: the host's mirror of the chains'
+        # device counts, taken from each keyframe's readback
         self.host_out = np.zeros(F, np.int64)
         # per-slot caches of marginalized points ([u, v, idepth] rows): the
         # analog of pointHessiansMarginalized, read by the loop closure
@@ -289,10 +309,16 @@ class FullSystem:
         self.marg_callbacks = []     # loop-closure hooks: fn(kf_record)
         self.output_wrappers = []    # Output3DWrapper publishers
         self.stats = dict(n_kf=0, n_frames=0)
+        # keyframes by the GN steps of their BA
+        self.kf_n_its = collections.Counter()
+        self._prior_rows = {}
         self.telemetry = Telemetry(device=dev)
-        # the fused path's frame step as CUDA graphs (None: eager)
-        self.frame_graph = FG.FrameGraph(self) \
-            if cuda_graphs and dev.type == "cuda" else None
+        # the fused path's frame step and vision keyframe chain as CUDA
+        # graphs (None: eager)
+        graphs = cuda_graphs and dev.type == "cuda"
+        self.frame_graph = FG.FrameGraph(self) if graphs else None
+        self.chain_graph = CG.ChainGraph(self) \
+            if graphs and not settings.enable_imu else None
 
     # ------------------------------------------------------------------
     # public API (reference FullSystem::addActiveFrame)
@@ -431,8 +457,9 @@ class FullSystem:
         it and, on the fused path, one frame dispatch (on a zero image,
         from the host state), which captures the frame step's CUDA graphs
         on a card if no frame has yet (as the JAX prewarm compiles its
-        programs). Records the rungs: the density adaptation then stays
-        among them, as the JAX package's does.
+        programs), and captures the vision keyframe chain's graphs of each
+        rung (`models/chain_graph.py`). Records the rungs: the density
+        adaptation then stays among them, as the JAX package's does.
 
         Pure dispatches on the current state: no state, key, rung or
         telemetry changes. Requires an initialized system with a built
@@ -483,8 +510,28 @@ class FullSystem:
         finally:
             self.telemetry = telemetry
             self._sel_pot, self._last_chain = saved_pot, saved_last
+        if self.chain_graph is not None and self._fused_active():
+            self._prewarm_chain(pots)
         if cuda:
             torch.cuda.synchronize(self.device)
+
+    def _prewarm_chain(self, pots) -> None:
+        """Capture the vision keyframe chain's graphs of each rung of
+        `pots` on the current state, as if the reference keyframe came
+        again (its inputs are copied into the graphs' static buffers; no
+        state changes)."""
+        g = self.chain_graph
+        ref = self.shells[self.frame_shell_idx[self.ref_slot]]
+        args = (self._state(), self.imm, self.frame_pyramids[self.ref_slot],
+                self._t(np.asarray(ref.cam_to_world, np.float32)),
+                self._t(self.ref_aff), self._t(np.float32(self.ref_exposure)),
+                self._frame_stats(self.ba, self.imm),
+                self._t(self.host_out, torch.int64), len(self.kf_shell_ids))
+        for i, pot in enumerate(pots):
+            pot = selector._snap_pot(pot)
+            if pot not in g.graphs:
+                g.prepare(*args, rng.fold_in(self.key, 990000 + i))
+                g.capture(pot)
 
     def trajectory(self, scaled: bool = False) -> np.ndarray:
         """poses.txt contract: one row `id x y z` per keyframe
@@ -652,6 +699,14 @@ class FullSystem:
                       right=self._pending_right)
 
     def _prior_row(self, first: bool) -> torch.Tensor:
+        """The new keyframe's prior row (made once: a copy from the
+        host)."""
+        row = self._prior_rows.get(first)
+        if row is None:
+            row = self._prior_rows[first] = self._make_prior_row(first)
+        return row
+
+    def _make_prior_row(self, first: bool) -> torch.Tensor:
         s = self.settings
         p = np.zeros(8, np.float32)
         if first:
@@ -843,7 +898,7 @@ class FullSystem:
                 rms0=self._t(np.float32(self.last_coarse_rmse[0])),
                 first_rmse=self._t(np.float32(self.first_coarse_rmse)),
                 n_kf=len(self.kf_shell_ids),
-                host_out=self.host_out.copy(),
+                host_out=self._t(self.host_out, torch.int64),
                 scale_state=(np.float32(self.current_scale),
                              self.scale_trapped, self.scale_opt_fails),
                 # the host queue is reconciled here: nothing to leave out
@@ -856,7 +911,8 @@ class FullSystem:
             prev_was_kf = chain["need_kf"]
         graph = self.frame_graph
         # a frame fills no slot before its chain: the window's frame count
-        # from the host's bookkeeping, not from the device's frame_valid
+        # from the host's bookkeeping, or chained on the device from the
+        # last keyframe's chain
         slot = len(self.frame_shell_idx) if chain is None \
             else inp["n_frames"]
         exp_t = torch.full((), float(np.float32(exposure)), device=dev) \
@@ -872,8 +928,8 @@ class FullSystem:
                 t_prev_frame = shell.timestamp - 1.0
             staged = self._stage_imu(shell, inp["t_last_kf"])
             imu = st["imu"]
-            newest = max(slot - 1, 0)
-            bg = (imu.state[newest] * IM._s21(imu.state))[3:6]
+            bg = (at(imu.state, _clamp0(slot - 1))
+                  * IM._s21(imu.state))[3:6]
             T_primary, T_hyps = self._imu_hyp_device(
                 inp["T_cw_prev"], inp["T_cw_ref"], T_primary, T_hyps,
                 staged["gyro"], staged["ts"], staged["valid"],
@@ -897,7 +953,7 @@ class FullSystem:
         aff_new = out["aff"][0]
         n_kf = inp["n_kf"]
         rec = dict(shell=shell, exposure=exposure, image=img,
-                   stereo_right=right, pyr=pyr, need_kf=need_kf, slot=slot,
+                   stereo_right=right, pyr=pyr, need_kf=need_kf,
                    pot=self._sel_pot)
         back = dict(T_cw_new=T_cw_new, accept=accept_t,
                     **{"out." + k: out[k] for k in _OUT_KEYS})
@@ -912,16 +968,18 @@ class FullSystem:
             rec.update(chain_out)
             back.update(self._kf_readback(chain_out))
             bg = chain_out.get("bg")
-            T_kf = chain_out["T_cw_all_t"][slot]
-            aff_kf = chain_out["affs_t"][slot]
+            kf_slot = chain_out["slot"]
+            T_kf = at(chain_out["T_cw_all_t"], kf_slot)
+            aff_kf = at(chain_out["affs_t"], kf_slot)
             T_me, T_ref_n = T_kf, T_kf
-            T_prev_f = chain_out["T_cw_all_t"][max(slot - 1, 0)] \
+            T_prev_f = at(chain_out["T_cw_all_t"], _clamp0(kf_slot - 1)) \
                 if prev_was_kf else inp["T_cw_prev"]
             aff_n, ref_aff_n, ref_exp_n = aff_kf, aff_kf, exp_t
             host_out_n = chain_out["host_out"]
             scale_n = chain_out["scale_out"][:3]
             t_last_kf_n = shell.timestamp
-            n_frames_n = slot + 1 - len(chain_out["marg_ks"])
+            n_frames_n = kf_slot + 1 \
+                - torch.sum(chain_out["marg_ks"] >= 0)
         else:
             rec["state"] = dict(st, imm=imm_new)
             T_me, T_ref_n, T_prev_f = T_cw_new, inp["T_cw_ref"], \
@@ -952,12 +1010,21 @@ class FullSystem:
 
     @staticmethod
     def _kf_readback(chain_out) -> dict:
-        """The device values of a keyframe chain that `_finish_kf`
-        reads."""
+        """The device values of a keyframe chain that `_finish_kf` reads
+        (the tuple `_kf_chain_jit` returns for its readback): the BA's
+        stats, the window's poses and affines, the slot, the flagged slots,
+        the selection count and the dead-point counts."""
         st = chain_out["ba_stats"]
-        return dict(T_cw_all_t=chain_out["T_cw_all_t"],
-                    affs_t=chain_out["affs_t"], rmse=st["rmse"],
-                    is_lost=st["is_lost"])
+        back = dict(T_cw_all_t=chain_out["T_cw_all_t"],
+                    affs_t=chain_out["affs_t"])
+        dev = chain_out["slot"].device
+        back.update({k: st[k] if torch.is_tensor(st[k])
+                     else torch.full((), float(st[k]), device=dev)
+                     for k in ("energy", "rmse", "n_its", "n_active",
+                               "is_lost")})
+        back.update({k: chain_out[k] for k in
+                     ("slot", "marg_ks", "n_have", "host_out")})
+        return back
 
     def _complete_fused(self, rec) -> bool:
         """Host bookkeeping of one dispatched fused frame from its one
@@ -976,7 +1043,8 @@ class FullSystem:
                 # the host queue (setImuData's split)
                 self.imu_queue = [q for q in self.imu_queue
                                   if q[0] > shell.timestamp]
-        self.host_out = np.array(rec["host_out"], np.int64)
+        if rec["need_kf"]:
+            self.host_out = got["host_out"].astype(np.int64)
         out_np = {k: got["out." + k] for k in _OUT_KEYS}
         accept = bool(got["accept"])
         tres = self._finish_step_host(rec, out_np, accept, got["T_cw_new"])
@@ -992,7 +1060,7 @@ class FullSystem:
                           right=rec["stereo_right"])
             return True
         if rec["need_kf"]:
-            if rec["slot"] >= self.F:
+            if int(got["slot"]) >= self.F:
                 raise RuntimeError("window overflow — marginalization failed")
             self._finish_kf(rec, got, classic=False)
         return False
@@ -1161,16 +1229,17 @@ class FullSystem:
         if slot >= self.F:
             raise RuntimeError("window overflow — marginalization failed")
         n_kf = len(self.kf_shell_ids)
-        rec = dict(shell=shell, exposure=exposure, pyr=pyr, slot=slot,
+        rec = dict(shell=shell, exposure=exposure, pyr=pyr,
                    pot=self._sel_pot)
         rec.update(self._kf_chain(
             self._state(), imm, pyr, T_cw, aff, exp_t, stats,
-            self.host_out.copy(), n_kf, shell.id, self._max_its(n_kf + 1),
+            self._t(self.host_out, torch.int64), n_kf, shell.id,
+            self._max_its(n_kf + 1),
             (np.float32(self.current_scale), self.scale_trapped,
-             self.scale_opt_fails), self._sel_pot, right))
+             self.scale_opt_fails), self._sel_pot, right, classic=True))
         got = self._fetch(self._stage_readback(self._kf_readback(rec)))
         self._adopt(rec["state"])
-        self.host_out = np.array(rec["host_out"], np.int64)
+        self.host_out = got["host_out"].astype(np.int64)
         self._finish_kf(rec, got, classic=True)
 
     def _finish_kf(self, rec, got, classic: bool):
@@ -1178,7 +1247,9 @@ class FullSystem:
         readback `got`."""
         s = self.settings
         shell = rec["shell"]
-        slot = rec["slot"]
+        slot = int(got["slot"])
+        marg_ks = [int(k) for k in got["marg_ks"] if k >= 0]
+        self.kf_n_its[int(got["n_its"])] += 1
         self.frame_pyramids[slot] = rec["pyr"]
         self.frame_shell_idx.append(shell.shell_idx)
         self.kf_shell_ids.append(shell.id)
@@ -1214,7 +1285,7 @@ class FullSystem:
         # selector potential adaptation (PixelSelector2.cpp K-model)
         pot = rec["pot"]
         density = float(s.desired_immature_density)
-        quotia = density / max(rec["n_have"], 1)
+        quotia = density / max(int(got["n_have"]), 1)
         redo = None
         if quotia > 1.25 and pot > 1:
             redo = selector.pot_step(pot, up=False)
@@ -1224,7 +1295,7 @@ class FullSystem:
         if redo is not None and warm is not None and redo not in warm:
             redo = None      # a rung that prewarm() did not warm
         if redo is not None and redo != pot:
-            if classic and not rec["marg_ks"]:
+            if classic and not marg_ks:
                 # the classic path re-selects within the same keyframe
                 k2 = rng.fold_in(rng.fold_in(self.key, shell.id), 1)
                 self.imm, _ = self._select_insert(
@@ -1238,7 +1309,7 @@ class FullSystem:
             ecols = _np(torch.stack([torch.stack([e, n.to(e.dtype)])
                                      for e, n in rec["ecols"]])) \
                 if rec["ecols"] else []
-        for j, k in enumerate(rec["marg_ks"]):  # descending: lower slots
+        for j, k in enumerate(marg_ks):  # descending: lower slots
             self.shells[self.frame_shell_idx[k]].marginalized_at = \
                 len(self.shells)
             kf_record = self._export_kf(k, float(ecols[j][0]),
@@ -1249,47 +1320,38 @@ class FullSystem:
 
     def _kf_chain(self, st, imm, pyr, T_cw_new, aff_new, exposure, stats,
                   host_out, n_kf: int, shell_id: int, max_its: int,
-                  scale_state, pot: int, right):
+                  scale_state, pot: int, right, classic: bool = False):
         """The vision keyframe chain (`_kf_chain_jit`'s run branch) on the
-        state `st`: flags, the mega-step, point marginalization +
-        selection at rung `pot`, the flagged frames' marginalizations, the
-        image-stack compaction and, with stereo, the scale solve on the
-        fresh template and the right image `right`. The image stack is
-        copied before the new slot is written: the record it came from
-        may be dispatched from again."""
-        s = self.settings
-        ba, dI = st["ba"], st["dI"].clone()
-        slot = int(torch.sum(ba.frame_valid))
+        state `st`: `models/chain_graph.py`'s body (flags, the mega-step,
+        point marginalization + selection at rung `pot`, the flagged
+        frames' marginalizations, the image-stack compaction), replayed as
+        the chain's CUDA graphs where they take the keyframe, else run
+        eagerly; then, with stereo, the scale solve on the fresh template
+        and the right image `right`, eagerly. `host_out`: (F,) device
+        ints. The image stack is copied before the new slot is written:
+        the record it came from may be dispatched from again. A classic
+        keyframe runs eagerly (its completion may select again)."""
         key = rng.fold_in(st["key"], shell_id)
-        marg_ks = self._flag_frames(stats, ba.exposure, ba.frame_valid,
-                                    host_out, n_kf)
-        ba = WIN.insert_frame(ba, T_cw_new, aff_new, exposure,
-                              self._prior_row(first=False))
-        dI[slot] = pyr[0]
-        ba, imm, min_act = self._activate(ba, imm, dI, st["min_act"])
-        ba, ba_stats = E.optimize(ba, dI, s, self.w, self.h, max_its=max_its,
-                                  min_its=s.min_opt_iterations)
-        HdiF = ba_stats["HdiF"]
-        templates, pc_l0 = WIN.build_track_template(
-            ba, HdiF, pyr, len(pyr), self.tmpl_sizes, self.w, self.h)
-        T_cw_all = B.state_to_pose(ba.T_cw_eval, ba.state)
-        affs = B.aff_real(ba.state)
-        imm_pre_select = imm
-        marg_pts = (ba.host, ba.u, ba.v, ba.idepth)   # loop-cache source
-        ba, marg, died = self._marg_points(ba, dI, HdiF,
-                                           self._flag_mask(marg_ks))
-        imm, n_have = self._select_insert(imm, pyr[0], slot, key, pot)
-        host_out = host_out + died
-        ba, imm, _, dI, host_out, ecols = self._marg_frames_chain(
-            ba, imm, None, dI, host_out, marg_ks)
-        return dict(
-            state=dict(st, ba=ba, imm=imm, dI=dI, min_act=min_act,
-                       HdiF=HdiF, templates=templates, pc_l0=pc_l0),
-            ba_stats=ba_stats, T_cw_all_t=T_cw_all, affs_t=affs,
-            marg_ks=marg_ks, n_have=n_have, host_out=host_out,
-            imm_pre_select=imm_pre_select, marg=marg, marg_pts=marg_pts,
-            ecols=ecols,
-            scale_out=self._scale_solve(templates, scale_state, right))
+        g = self.chain_graph
+        why = None
+        if g is not None:
+            why = "classic" if classic else "export" if self._exporting() \
+                else "budget" if max_its != self.settings.max_opt_iterations \
+                else None if g.has(pot) else "rung"
+        if g is not None and why is None:
+            out = g.step(st, imm, pyr, T_cw_new, aff_new, exposure, stats,
+                         host_out, n_kf, key, pot)
+        else:
+            if g is not None:
+                g.eager[why] += 1
+            keys = torch.as_tensor(CG.selection_keys(key), device=self.device)
+            out = CG.kf_chain_body(self, st, imm, pyr, T_cw_new, aff_new,
+                                   exposure, stats, host_out, n_kf, keys,
+                                   pot, max_its, bounded=False)
+            out["state"] = dict(st, **out["state"])
+        out["scale_out"] = self._scale_solve(out["state"]["templates"],
+                                             scale_state, right)
+        return out
 
     def _kf_chain_vio(self, st, imm, pyr, T_cw_new, aff_new, exposure,
                       stats, host_out, n_kf: int, shell_id: int,
@@ -1303,10 +1365,11 @@ class FullSystem:
         s = self.settings
         dev = self.device
         ba, imu, dI = st["ba"], st["imu"], st["dI"].clone()
-        slot = int(torch.sum(ba.frame_valid))
+        slot_t = torch.sum(ba.frame_valid)
+        slot = int(slot_t)
         key = rng.fold_in(st["key"], shell_id)
-        marg_ks = self._flag_frames(stats, ba.exposure, ba.frame_valid,
-                                    host_out, n_kf)
+        flags, marg_ks = CG.flag_frames(stats, ba.exposure, ba.frame_valid,
+                                        host_out, n_kf, s)
         ba2 = WIN.insert_frame(ba, T_cw_new, aff_new, exposure,
                                self._prior_row(first=False))
         dI[slot] = pyr[0]
@@ -1345,16 +1408,15 @@ class FullSystem:
                          bool(imu3.scale_trapped), 0, -1.0)
 
         # VIO point marginalization + new-trace selection
-        marg, drop, died = self._flag_points(ba3, HdiF,
-                                             self._flag_mask(marg_ks))
+        marg, drop, died = self._flag_points(ba3, HdiF, flags)
         marg_pts = (ba3.host, ba3.u, ba3.v, ba3.idepth)
         ba4, imu5 = E.marginalize_points_vio(ba3, imu3, dI, marg, s, self.w,
                                              self.h)
         ba4 = E.drop_points(ba4, drop)
         imm3, n_have = self._select_insert(imm2, pyr[0], slot, key, pot)
-        host_out = host_out + _np(died)
-        ba4, imm3, imu5, dI, host_out, ecols = self._marg_frames_chain(
-            ba4, imm3, imu5, dI, host_out, marg_ks)
+        host_out = host_out + died
+        ba4, imm3, imu5, dI, host_out, ecols = CG.marg_frames(
+            self, ba4, imm3, dI, host_out, marg_ks, imu=imu5)
         newest = int(torch.sum(ba4.frame_valid)) - 1
         bg = (imu5.state[newest] * IM._s21(imu5.state))[3:6]
         return dict(
@@ -1362,31 +1424,9 @@ class FullSystem:
                        min_act=min_act, HdiF=HdiF, templates=templates,
                        pc_l0=pc_l0),
             ba_stats=ba_stats, T_cw_all_t=T_cw_all, affs_t=affs,
-            marg_ks=marg_ks, n_have=n_have, host_out=host_out,
+            slot=slot_t, marg_ks=marg_ks, n_have=n_have, host_out=host_out,
             imm_pre_select=imm2, scale_out=scale_out, bg=bg, marg=marg,
             marg_pts=marg_pts, ecols=ecols)
-
-    def _marg_frames_chain(self, ba, imm, imu, dI, host_out, marg_ks):
-        """The chain's frame marginalizations (descending slots) and the one
-        image-stack compaction after them. `imu` None: vision mode. With a
-        consumer attached, also each dying slot's energy column on the
-        state before its fold, its image read through the slot -> row
-        map. Returns (ba, imm, imu, dI, host_out, [(e_col, n_col)])."""
-        dimap = list(range(self.F))
-        ecols = []
-        exporting = self._exporting()
-        for k in marg_ks:
-            if exporting:
-                ecols.append(B.col_energy(ba, dI, k, self.settings, self.w,
-                                          self.h, row=dimap[k]))
-            ba, imm, imu = self._marg_frame(ba, imm, imu, k)
-            dimap = dimap[:k] + dimap[k + 1:] + [dimap[k]]
-            host_out = np.concatenate([host_out[:k], host_out[k + 1:], [0]])
-        n_live = int(torch.sum(ba.frame_valid))
-        if dimap != list(range(self.F)):
-            dI = dI[torch.tensor(dimap, device=self.device)]
-        dI[n_live:] = 0.0
-        return ba, imm, imu, dI, host_out, ecols
 
     def _kf_core_vio(self, ba, imu, dI, pyr, max_its: int):
         """Windowed visual-inertial BA + HdiF + tracker template + poses
@@ -1703,6 +1743,7 @@ class FullSystem:
         else:
             self.ba, marg, died = self._marg_points(ba, self.dI, self.HdiF,
                                                     flagged)
+            died = _np(died)
         self.host_out += died
         if self._exporting():
             # the pre-marginalization arrays, which `ba` still holds
@@ -1718,6 +1759,7 @@ class FullSystem:
             self.key, k = rng.split(self.key)
             imm_new, n_have = self._select_insert(self.imm, pyr[0], slot, k,
                                                   pot)
+            n_have = int(n_have)
             quotia = density / max(n_have, 1)
             K = n_have * (pot + 1) ** 2
             ideal = selector._snap_pot(
@@ -1867,49 +1909,6 @@ class FullSystem:
         return (pt_in, imm_in, B.aff_real(ba.state),
                 B.state_to_pose(ba.T_cw_eval, ba.state))
 
-    def _flag_frames(self, stats, exposure, frame_valid, host_out, n_kf):
-        """flagFramesForMarginalization (FullSystemMarginalize.cpp:54-141),
-        in f32 like `_flag_frames_jit`. Returns the flagged window slots,
-        descending."""
-        s = self.settings
-        pt_in, imm_in, aff, T_cw = (t.cpu() for t in stats)
-        exp = exposure.cpu()
-        F = pt_in.shape[0]
-        n = int(frame_valid.sum())
-        newest = n - 1
-        aff_n = aff[newest, 0]
-        exp_n = exp[newest]
-        flags = [False] * F
-        cnt = 0
-        for i in range(F):
-            n_in = (pt_in[i] + imm_in[i]).to(torch.float32)
-            n_out = torch.tensor(float(host_out[i]))
-            a_rel = torch.exp(aff_n - aff[i, 0]) * exp[i] \
-                / torch.clamp(exp_n, min=1e-9)
-            c = (bool(n_in < s.min_points_remaining * (n_in + n_out))
-                 or bool(torch.abs(torch.log(torch.clamp(a_rel, min=1e-9)))
-                         > s.max_log_aff_fac_in_window)) \
-                and (n - cnt) > s.min_frames and i < n
-            flags[i] = c
-            cnt += int(c)
-        if (n + 1 - cnt) >= s.max_frames:
-            t = T_cw[:, :3, 3]
-            Dm = torch.linalg.norm(t[:, None] - t[None, :], dim=-1)
-            idx = torch.arange(F)
-            tgt_ok = (idx < n - 1)[None, :] & (idx[:, None] != idx[None, :])
-            inv_sum = torch.sum(torch.where(tgt_ok, 1.0 / (1e-5 + Dm),
-                                            torch.zeros_like(Dm)), 1)
-            d_latest = torch.linalg.norm(t - t[newest][None, :], dim=-1)
-            score = inv_sum * -torch.sqrt(torch.clamp(d_latest, min=1e-9))
-            skip0 = n_kf <= s.max_frames
-            eligible = (idx < n - 1) & ~torch.tensor(flags) \
-                & ~((idx == 0) & skip0)
-            score = torch.where(eligible, score, torch.full_like(score, 2.0))
-            best = int(torch.argmin(score))
-            if float(score[best]) < 1.0:
-                flags[best] = True
-        return sorted((i for i in range(F) if flags[i]), reverse=True)
-
     def _flag_mask(self, ks) -> torch.Tensor:
         """(F,) bool mask of the window slots `ks`."""
         m = torch.zeros(self.F, dtype=torch.bool, device=self.device)
@@ -1924,17 +1923,24 @@ class FullSystem:
         s = self.settings
         dev = self.device
         d = float(s.desired_point_density)
-        n = np.float32(int(torch.sum(ba.pt_valid)))
-        f = np.float32
-        delta = (f(-0.8) * f(n < 0.66 * d)
-                 + (f(-0.5) if n < 0.8 * d else f(-0.2) if n < 0.9 * d
-                    else f(-0.1) if n < d else f(0.0))
-                 + f(0.8) * f(n > 1.5 * d) + f(0.5) * f(n > 1.3 * d)
-                 + f(0.2) * f(n > 1.15 * d) + f(0.1) * f(n > d))
-        min_act = f(np.clip(f(min_act_dist) + delta, f(0.0), f(4.0)))
+        # the density ladder in f32 on the device (`_activate_jit`)
+        n = torch.sum(ba.pt_valid).to(torch.float32)
+
+        def f(c):
+            return c.to(torch.float32)
+
+        def pick(c, a, b):
+            return torch.where(c, torch.full_like(n, a), b)
+
+        delta = (-0.8 * f(n < 0.66 * d)
+                 + pick(n < 0.8 * d, -0.5, pick(n < 0.9 * d, -0.2, pick(
+                     n < d, -0.1, torch.zeros_like(n))))
+                 + 0.8 * f(n > 1.5 * d) + 0.5 * f(n > 1.3 * d)
+                 + 0.2 * f(n > 1.15 * d) + 0.1 * f(n > d))
+        min_act = torch.clamp(min_act_dist + delta, 0.0, 4.0)
 
         w, h = self.w, self.h
-        newest = int(torch.sum(ba.frame_valid)) - 1
+        newest = B.newest_slot(ba.frame_valid)
         can = (imm.valid
                & ((imm.status == TR.IPS_GOOD) | (imm.status == TR.IPS_SKIPPED)
                   | (imm.status == TR.IPS_BADCONDITION)
@@ -1947,8 +1953,9 @@ class FullSystem:
         pre = B.make_precalc(ba)
         fx, fy, cx, cy = B.calib_real(ba)
         ih = imm.host.long()
-        Rn = pre.R[ih, newest]
-        tn = pre.t[ih, newest]
+        R_new, t_new = at(pre.R, newest, 1), at(pre.t, newest, 1)
+        Rn = R_new[ih]
+        tn = t_new[ih]
         KliP = torch.stack([(imm.u - cx) / fx, (imm.v - cy) / fy,
                             torch.ones_like(imm.u)], -1)
         mid_id = 0.5 * (imm.idepth_min + torch.where(
@@ -1961,8 +1968,8 @@ class FullSystem:
         can &= inb
 
         bh = ba.host.long()
-        Rm = pre.R[bh, newest]
-        tm = pre.t[bh, newest]
+        Rm = R_new[bh]
+        tm = t_new[bh]
         KliPm = torch.stack([(ba.u - cx) / fx, (ba.v - cy) / fy,
                              torch.ones_like(ba.u)], -1)
         ptm = torch.einsum("nij,nj->ni", Rm, KliPm) + tm * ba.idepth[:, None]
@@ -1972,7 +1979,7 @@ class FullSystem:
         dd = (pu[:, None] - mu[None, :]) ** 2 + (pv[:, None] - mv[None, :]) ** 2
         dd = torch.where(m_ok[None, :], dd, torch.full_like(dd, float("inf")))
         dist = torch.sqrt(torch.amin(dd, -1))
-        want = can & (dist >= float(min_act) * imm.my_type)
+        want = can & (dist >= min_act * imm.my_type)
 
         N = imm.u.shape[0]
         K = min(1024, N)
@@ -1998,7 +2005,7 @@ class FullSystem:
         """flagPointsForRemoval (FullSystem.cpp:533-614). Returns (marg (P,),
         drop (P,), died-per-host (F,))."""
         s = self.settings
-        n = int(torch.sum(ba.frame_valid))
+        n = torch.sum(ba.frame_valid)
         newest = n - 1
         n_res = torch.sum(ba.res_exist & ba.pt_valid[:, None], -1)
         bh = ba.host.long()
@@ -2009,10 +2016,10 @@ class FullSystem:
         mg = s.min_good_active_res_for_marg
         oob = ba.pt_valid & (host_flagged | ((n_res >= mg)
                                              & (n_res - vis_in_marg < mg)))
-        if n >= 3:
-            re_new = ba.res_exist[:, max(newest, 0)]
-            re_prev = ba.res_exist[:, max(newest - 1, 0)]
-            oob |= ba.pt_valid & ~re_new & ~re_prev & (n_res >= 2)
+        # invisible in the two newest frames, from the third frame on
+        re_new = at(ba.res_exist, _clamp0(newest), 1)
+        re_prev = at(ba.res_exist, _clamp0(newest - 1), 1)
+        oob |= (n >= 3) & ba.pt_valid & ~re_new & ~re_prev & (n_res >= 2)
         inlier = n_res >= mg
         hess_ok = torch.where(HdiF > 0, 1.0 / torch.clamp(HdiF, min=1e-12),
                               torch.zeros_like(HdiF)) > s.min_idepth_h_marg
@@ -2024,35 +2031,46 @@ class FullSystem:
 
     def _marg_points(self, ba, dI, HdiF, flagged_hosts):
         """flagPointsForRemoval + marginalizePointsF + dropPointsF. Returns
-        (ba, marg mask, died-per-host numpy)."""
+        (ba, marg mask, died-per-host (F,) device ints)."""
         marg, drop, died = self._flag_points(ba, HdiF, flagged_hosts)
         ba = E.marginalize_points(ba, dI, marg, self.settings, self.w, self.h)
         ba = E.drop_points(ba, drop)
-        return ba, marg, _np(died)
+        return ba, marg, died
 
-    def _select_insert(self, imm, dI0, slot, key, pot):
+    def _select_insert(self, imm, dI0, slot, key, pot, keys=None):
         """makeNewTraces: 3-level gradient pyramid, block thresholds,
         hierarchical selection, density subsample, immature construction
-        and pool scatter. Returns (imm, pre-subsample count)."""
+        and pool scatter (`_select_insert_jit`). `slot`: the new points'
+        host slot (int or 0-dim device tensor); `keys`: the selection's
+        keys under `key` already on the device (`chain_graph.
+        selection_keys`; None makes them here). The random draws are made
+        on the device from them (the threefry twin's bits); the subsample
+        is drawn always and applied where the f32 ratio `quotia` asks for
+        it. Returns (imm, the pre-subsample count as a 0-dim device
+        tensor)."""
         s = self.settings
         n_slots = min(s.max_immature, imm.u.shape[0])
+        if keys is None:
+            keys = torch.as_tensor(CG.selection_keys(key), device=self.device)
+        h, w = dI0.shape[0], dI0.shape[1]
+        draws = CG.selection_draws(keys, h, w, pot)
         _, absgrads = build_pyramid(dI0[..., 0], 3)
         ths = selector.block_thresholds(absgrads[0], s.min_grad_hist_cut,
                                         s.min_grad_hist_add)
         status, _ = selector.select(dI0, absgrads[0], absgrads[1],
                                     absgrads[2], ths, pot, 2.0,
-                                    s.grad_downweight_per_level, key)
-        n_have = int(torch.sum(status != 0))
-        quotia = np.float32(s.desired_immature_density) \
-            / np.float32(max(n_have, 1))
-        if quotia < 0.95:
-            keep = torch.as_tensor(rng.uniform(rng.fold_in(key, 99),
-                                               tuple(status.shape)) < quotia,
-                                   device=self.device)
-            status = torch.where(keep, status, torch.zeros_like(status))
+                                    s.grad_downweight_per_level, key,
+                                    draws=draws[:3])
+        n_have = torch.sum(status != 0)
+        n_f = torch.clamp(n_have.to(torch.float32), min=1.0)
+        # a true f32 division (a Python number over a tensor is its
+        # reciprocal times the number)
+        quotia = torch.full_like(n_f, s.desired_immature_density) / n_f
+        drop = (quotia < 0.95) & ~(draws[3] < quotia)
+        status = torch.where(drop, torch.zeros_like(status), status)
         u, v, my_type = selector.extract_points(status, n_slots)
-        new = TR.init_immature(u, v, torch.full_like(my_type, slot), my_type,
-                               dI0, s, n_slots)
+        new = TR.init_immature(u, v, torch.zeros_like(my_type) + slot,
+                               my_type, dI0, s, n_slots)
         sidx, accepted = WIN.scatter_into_free_slots(imm.valid, new.valid)
 
         def put(arr, vals):
@@ -2076,9 +2094,10 @@ class FullSystem:
             my_type=put(imm.my_type, new.my_type))
         return imm, n_have
 
-    def _marg_frame(self, ba, imm, imu, k: int):
+    def _marg_frame(self, ba, imm, imu, k):
         """One frame marginalization (`_maybe_marg_frame_lean_jit`'s and
-        `_maybe_marg_frame_vio_lean_jit`'s do branch): straggler drop,
+        `_maybe_marg_frame_vio_lean_jit`'s do branch) of slot `k` (an int,
+        or in vision mode a 0-dim device tensor): straggler drop,
         residual-column kill, immature-host remap and the frame Schur fold
         (the 29-dim VIO fold when `imu` is given). The image stack is
         compacted by the caller. Returns (ba, imm, imu)."""

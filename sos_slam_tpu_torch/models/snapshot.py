@@ -215,7 +215,8 @@ def _load_host(fs: FullSystem, host: dict) -> None:
     fs.frame_shell_idx = host["frame_shell_idx"]
     fs.kf_shell_ids = host["kf_shell_ids"]
     fs.host_out = np.asarray(host["host_out"], np.int64)
-    fs.current_min_act_dist = np.float32(host["current_min_act_dist"])
+    fs.current_min_act_dist = torch.full(
+        (), float(np.float32(host["current_min_act_dist"])), device=fs.device)
     fs._sel_pot = int(host.get("sel_pot", 3))
     fs.current_scale = host["current_scale"]
     fs.scale_trapped = host["scale_trapped"]

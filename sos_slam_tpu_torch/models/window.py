@@ -18,7 +18,7 @@ import torch
 
 from sos_slam_tpu_torch.ops import ba as B
 from sos_slam_tpu_torch.ops import selector
-from sos_slam_tpu_torch.ops.numerics import scatter_sum
+from sos_slam_tpu_torch.ops.numerics import at, bucket_sums
 from sos_slam_tpu_torch.ops.tracker import LevelTemplate
 from sos_slam_tpu_torch.utils import cuda_build as CB
 from sos_slam_tpu_torch.utils import lie
@@ -43,10 +43,13 @@ def scatter_into_free_slots(valid: torch.Tensor, ok_new: torch.Tensor):
 
 
 def put_rows(arr: torch.Tensor, slot_idx, accepted, vals) -> torch.Tensor:
-    """A copy of `arr` with rows slot_idx[accepted] set to vals[accepted]."""
-    out = arr.clone()
-    out[slot_idx[accepted]] = vals[accepted].to(arr.dtype)
-    return out
+    """A copy of `arr` with rows slot_idx[accepted] set to vals[accepted],
+    without a host read: the rows not accepted are written to a spare row
+    past the end, which is then cut off (the JAX package's mode="drop")."""
+    n = arr.shape[0]
+    out = torch.cat([arr, arr[:1]])
+    out[torch.where(accepted, slot_idx, n)] = vals.to(arr.dtype)
+    return out[:n]
 
 
 def _neighbour(a: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
@@ -169,10 +172,10 @@ def template_maps(ba: B.BAState, HdiF: torch.Tensor, n_levels: int,
     projected into it, weighted by sqrt(1e-3 / HdiF). Level l scatters the
     same level-0 cells at (u >> l, v >> l), which is exactly the 2x2
     block-sum downsample of the level-0 map."""
-    newest = int(torch.sum(ba.frame_valid)) - 1
+    newest = B.newest_slot(ba.frame_valid)
     fx, fy, cx, cy = B.calib_real(ba)
     T_cw = B.state_to_pose(ba.T_cw_eval, ba.state)
-    T_wc_new = lie.se3_inv(T_cw[newest])
+    T_wc_new = lie.se3_inv(at(T_cw, newest))
     rel = torch.einsum("ij,hjk->hik", T_wc_new, T_cw)
     relp = rel[ba.host.long()]
     Rc = relp[:, :3, :3]
@@ -184,7 +187,7 @@ def template_maps(ba: B.BAState, HdiF: torch.Tensor, n_levels: int,
     new_idepth = ba.idepth * drescale
     Ku = ptp[:, 0] * drescale * fx + cx
     Kv = ptp[:, 1] * drescale * fy + cy
-    has_res = ba.res_exist[:, newest] & ba.pt_valid
+    has_res = at(ba.res_exist, newest, 1) & ba.pt_valid
     ok = has_res & (drescale > 0) & (Ku > 1) & (Kv > 1) & (Ku < w - 2) \
         & (Kv < h - 2)
     ui = torch.clamp(torch.nan_to_num(Ku + 0.5).to(torch.int64), 0, w - 1)
@@ -200,8 +203,8 @@ def template_maps(ba: B.BAState, HdiF: torch.Tensor, n_levels: int,
     for lvl in range(n_levels):
         hl, wl = h >> lvl, w >> lvl
         flat = (vi >> lvl) * wl + (ui >> lvl)
-        maps.append((scatter_sum(flat, val, hl * wl).reshape(hl, wl),
-                     scatter_sum(flat, wgt, hl * wl).reshape(hl, wl)))
+        maps.append((bucket_sums(flat, val, hl * wl).reshape(hl, wl),
+                     bucket_sums(flat, wgt, hl * wl).reshape(hl, wl)))
     return maps
 
 
@@ -235,10 +238,11 @@ def build_track_template(ba: B.BAState, HdiF: torch.Tensor, pyr_ref,
 
 def insert_frame(ba: B.BAState, T_cw_new, aff_new, exposure, prior_row):
     """Append a frame at the first free slot (EF insertFrame + the new
-    cross-residual creation of makeKeyFrame, FullSystem.cpp:820-834)."""
-    slot = int(torch.sum(ba.frame_valid))
+    cross-residual creation of makeKeyFrame, FullSystem.cpp:820-834). The
+    slot stays on the device."""
     F = ba.F
     dev = ba.state.device
+    slot = torch.sum(ba.frame_valid)
     sel = torch.arange(F, device=dev) == slot
     aff_state = aff_new / B.state8_scale(dev)[6:8]
     row = torch.cat([torch.zeros(6, device=dev), aff_state])
@@ -246,14 +250,14 @@ def insert_frame(ba: B.BAState, T_cw_new, aff_new, exposure, prior_row):
     res_new = torch.where(sel[None, :],
                           (ba.pt_valid & (ba.host != slot))[:, None],
                           ba.res_exist)
+    prev_th = at(ba.energy_th, torch.clamp(slot - 1, min=0))
     return ba._replace(
         frame_valid=ba.frame_valid | sel,
         T_cw_eval=torch.where(sel[:, None, None], T_cw_new, ba.T_cw_eval),
         state=state_new,
         state_zero=state_new,
         exposure=torch.where(sel, exposure, ba.exposure),
-        energy_th=torch.where(sel, ba.energy_th[max(slot - 1, 0)],
-                              ba.energy_th),
+        energy_th=torch.where(sel, prev_th, ba.energy_th),
         prior=torch.where(sel[:, None], prior_row[None, :], ba.prior),
         res_exist=res_new,
         res_state=torch.where(sel[None, :],
@@ -264,8 +268,8 @@ def insert_frame(ba: B.BAState, T_cw_new, aff_new, exposure, prior_row):
 
 def insert_points(ba: B.BAState, slot_idx, accepted, host, u, v, color,
                   weight, idepth, prior_w) -> B.BAState:
-    """Scatter accepted candidate points into free point slots."""
-    si = slot_idx[accepted]
+    """Scatter accepted candidate points into free point slots (no host
+    read: `put_rows`)."""
     dev = ba.u.device
 
     def put(arr, vals):
@@ -273,17 +277,14 @@ def insert_points(ba: B.BAState, slot_idx, accepted, host, u, v, color,
 
     res_row = (torch.arange(ba.F, device=dev)[None, :] != host[:, None]) \
         & ba.frame_valid[None, :]
-    pt_valid = ba.pt_valid.clone()
-    pt_valid[si] = True
-    res_state = ba.res_state.clone()
-    res_state[si] = B.RES_IN
     return ba._replace(
-        pt_valid=pt_valid,
+        pt_valid=put(ba.pt_valid, torch.ones_like(accepted)),
         host=put(ba.host, host.to(torch.int32)),
         u=put(ba.u, u), v=put(ba.v, v),
         color=put(ba.color, color), weight=put(ba.weight, weight),
         idepth=put(ba.idepth, idepth), idepth_zero=put(ba.idepth_zero, idepth),
         pt_prior=put(ba.pt_prior, prior_w),
         res_exist=put(ba.res_exist, res_row),
-        res_state=res_state,
+        res_state=put(ba.res_state, torch.full_like(
+            res_row, B.RES_IN, dtype=torch.int8)),
     )

@@ -114,6 +114,12 @@ def aff_real(state: torch.Tensor) -> torch.Tensor:
     return state[..., 6:8] * state8_scale(state.device)[6:8]
 
 
+def newest_slot(frame_valid: torch.Tensor) -> torch.Tensor:
+    """The window's newest slot as a 0-dim device tensor, read nothing
+    back; an empty window's -1 is the last slot, as a Python index."""
+    return torch.remainder(torch.sum(frame_valid) - 1, frame_valid.shape[0])
+
+
 def aff_transfer(exp_h, exp_t, aff_h, aff_t):
     """(a, b) with I_t ~ a I_h + b (NumType.h:157-168). Real-unit affs."""
     exp_h = torch.where(exp_h == 0, torch.ones_like(exp_h), exp_h)
@@ -174,7 +180,7 @@ def make_precalc_eval(ba: BAState) -> PrecalcEval:
     AH[..., 6, 6] = a0
     AH[..., 7, 7] = a0
     AT[..., 6, 6] = -a0
-    AT[..., 7, 7] = -1.0
+    AT[..., 7, 7] = torch.full_like(a0, -1.0)
     s8 = state8_scale(dev)
     AH = AH * s8[None, None, None, :]
     AT = AT * s8[None, None, None, :]

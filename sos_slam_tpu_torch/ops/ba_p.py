@@ -22,10 +22,12 @@ from __future__ import annotations
 import ctypes
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from sos_slam_tpu_torch.ops import ba as B
 from sos_slam_tpu_torch.ops.image import interp_bilinear_frames
+from sos_slam_tpu_torch.ops.numerics import at
 from sos_slam_tpu_torch.parallel import comm
 from sos_slam_tpu_torch.utils import cuda_build as CB
 from sos_slam_tpu_torch.utils.config import CPARS, Settings
@@ -67,35 +69,38 @@ def update_energy_th_t(ba: B.BAState, fo: FusedOut, settings: Settings,
                        group=None) -> torch.Tensor:
     """Adaptive outlier threshold of the newest frame (setNewFrameEnergyTH,
     FullSystemOptimize.cpp:84-124) from the lanes-last linearization.
-    Returns the new energy_th (F,).
+    Returns the new energy_th (F,). Reads nothing back: the newest slot,
+    the considered count and the order statistic's index stay on the
+    device (the index as the f32 product `frame_energy_th_n * n`,
+    truncated and clipped, the statistic gathered from the sorted
+    energies).
 
     With a process `group` (a point-sharded step), the order statistic is
     taken over every rank's points: the newest frame's energies and their
     considered flags are gathered in rank order, so the count, the clip of
     its index and the sort are those of the whole point axis."""
-    newest = int(torch.sum(ba.frame_valid)) - 1
-    considered = (ba.res_exist[:, newest] & ba.pt_valid
-                  & (fo.new_state[newest] != B.RES_OOB))
-    e = torch.where(considered, fo.energy_raw[newest],
-                    torch.full_like(fo.energy_raw[newest], float("inf")))
+    F = ba.F
+    newest = B.newest_slot(ba.frame_valid)
+    e_raw = at(fo.energy_raw, newest)
+    considered = (at(ba.res_exist, newest, 1) & ba.pt_valid
+                  & (at(fo.new_state, newest) != B.RES_OOB))
+    e = torch.where(considered, e_raw, torch.full_like(e_raw, float("inf")))
     if group is not None:
         both = comm.pgather(torch.stack([e, considered.to(e.dtype)], 1),
                             group)
         e, considered = both[:, 0], both[:, 1] > 0.5
-    n = int(torch.sum(considered))
-    nth = min(max(int(torch.tensor(settings.frame_energy_th_n,
-                                   dtype=torch.float32) * n), 0),
-              e.shape[0] - 1)
-    nth_el = torch.sqrt(torch.sort(e).values[nth])
+    n = torch.sum(considered)
+    fac = float(np.float32(settings.frame_energy_th_n))
+    nth = torch.clamp((n.to(torch.float32) * fac).to(torch.int64), 0,
+                      e.shape[0] - 1)
+    nth_el = torch.sqrt(torch.sort(e).values.gather(0, nth.reshape(1))[0])
     th = nth_el * settings.frame_energy_th_fac_median
     th = (26.0 * settings.frame_energy_th_const_weight
           + th * (1.0 - settings.frame_energy_th_const_weight))
     th = th * th * settings.overall_energy_th_weight ** 2
-    if n == 0:
-        th = torch.full_like(th, 12.0 * 12.0 * 8.0)
-    out = ba.energy_th.clone()
-    out[newest] = th
-    return out
+    th = torch.where(n == 0, torch.full_like(th, 12.0 * 12.0 * 8.0), th)
+    return torch.where(torch.arange(F, device=newest.device) == newest, th,
+                       ba.energy_th)
 
 
 def _project_taps(ba: B.BAState, pre: B.Precalc, dI, w: int, h: int):

@@ -4,10 +4,13 @@
   callers turn into a zero step) instead of raising, as torch.linalg does.
 * `live_pinv`: the pseudo-inverse of a symmetric matrix over its
   numerically live eigen-directions, with no host read.
+* `at`: an entry at a device index, without a host read.
 * `scatter_sum`: a scatter-add whose sums are the same on every run. On
   CUDA, `index_add_` adds floats with atomics in no fixed order, so a
   tracker template could differ from run to run and flip a keyframe
-  decision; here each bucket is summed in index order.
+  decision; here each bucket is summed in index order. `bucket_sums` is
+  its form without a host read (no output of a data-dependent size), for
+  the keyframe chain's CUDA graph.
 """
 
 from __future__ import annotations
@@ -56,6 +59,14 @@ def live_pinv(A: torch.Tensor, cut: float) -> torch.Tensor:
     return 0.5 * (G + G.T)
 
 
+def at(x: torch.Tensor, i, dim: int = 0) -> torch.Tensor:
+    """x's entry `i` along `dim`; for a 0-dim int tensor `i`, gathered on
+    the device (indexing by a 0-dim tensor reads it on the host)."""
+    if not torch.is_tensor(i):
+        return x.select(dim, i)
+    return x.index_select(dim, i.reshape(1)).squeeze(dim)
+
+
 def scatter_sum(index: torch.Tensor, values: torch.Tensor, n: int):
     """out[i] = sum of values[j] over index[j] == i, added in j order."""
     order = torch.argsort(index, stable=True)
@@ -64,3 +75,16 @@ def scatter_sum(index: torch.Tensor, values: torch.Tensor, n: int):
     out = torch.zeros(n, dtype=values.dtype, device=values.device)
     out[buckets] = torch.segment_reduce(values[order], "sum", lengths=counts)
     return out
+
+
+def bucket_sums(index: torch.Tensor, values: torch.Tensor, n: int):
+    """out[i] = sum of values[j] over index[j] == i, the same on every run
+    and without a host read: each value's bucket total is a fixed-order
+    reduction over an (M, M) comparison of the M indices, and every member
+    of a bucket writes that same total. For the M of a point window (a few
+    thousand); NaN stays within its bucket."""
+    same = index[:, None] == index[None, :]
+    tot = torch.sum(torch.where(same, values[None, :],
+                                torch.zeros_like(values)[None, :]), 1)
+    out = torch.zeros(n, dtype=values.dtype, device=values.device)
+    return out.index_put_((index,), tot)

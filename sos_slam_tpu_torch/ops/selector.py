@@ -102,14 +102,35 @@ def _block_any(mask: torch.Tensor, blk: int) -> torch.Tensor:
     return mb.repeat_interleave(blk, 0).repeat_interleave(blk, 1)
 
 
+def _dir_shapes(h: int, w: int, pot: int):
+    """The (rows, cols) of block directions at the three tiers."""
+    P = 4 * pot
+    hp, wp = _cdiv(h, P) * P, _cdiv(w, P) * P
+    return [(_cdiv(hp, blk), _cdiv(wp, blk)) for blk in (pot, 2 * pot, P)]
+
+
+def select_draws(keys, h: int, w: int, pot: int):
+    """The three tiers' uniform block-direction draws of `select`, the
+    threefry twin's, made on the device of `keys` ((3, 2) int64 words of
+    rng.split(key, 3))."""
+    return [rng.uniform_device(keys[i], shp)
+            for i, shp in enumerate(_dir_shapes(h, w, pot))]
+
+
 def select(dI0, absgrad0, absgrad1, absgrad2, ths_smoothed, pot: int,
-           th_factor: float, down_weight: float, key: np.ndarray):
+           th_factor: float, down_weight: float, key: np.ndarray,
+           draws=None):
     """Hierarchical 3-tier selection. Returns (status (H,W) int8, score).
-    status: 0 none, 1 level-0 pick, 2 level-1 pick, 4 level-2 pick."""
+    status: 0 none, 1 level-0 pick, 2 level-1 pick, 4 level-2 pick.
+    `draws`: `select_draws` of the key's split (then `key` is not read);
+    None draws them here."""
     h, w = absgrad0.shape
     dev = absgrad0.device
     P = 4 * pot
     hp, wp = _cdiv(h, P) * P, _cdiv(w, P) * P
+    if draws is None:
+        draws = select_draws(torch.as_tensor(
+            rng.split(key, 3).astype(np.int64), device=dev), h, w, pot)
     xi = torch.arange(w, device=dev)
     yi = torch.arange(h, device=dev)
     border = ((xi >= 4) & (xi < w - 5))[None, :] \
@@ -132,13 +153,11 @@ def select(dI0, absgrad0, absgrad1, absgrad2, ths_smoothed, pot: int,
     elig1 = (ag1 > th0 * dw1 * th_factor) & border
     elig2 = (ag2 > th0 * dw1 * dw2 * th_factor) & border
 
-    def block_dirs(k, blk):
-        nby, nbx = _cdiv(hp, blk), _cdiv(wp, blk)
-        ang = torch.as_tensor(rng.uniform(k, (nby, nbx)), device=dev) * math.pi
+    def block_dirs(u01, blk):
+        ang = u01 * math.pi
         d = torch.stack([torch.cos(ang), torch.sin(ang)], -1)
         return d.repeat_interleave(blk, 0).repeat_interleave(blk, 1)[:hp, :wp]
 
-    k1, k2, k3 = rng.split(key, 3)
     gx, gy = dI0[..., 1], dI0[..., 2]
 
     def pad(a):
@@ -149,9 +168,9 @@ def select(dI0, absgrad0, absgrad1, absgrad2, ths_smoothed, pot: int,
         return pad(torch.where(elig, torch.clamp(s, min=1e-20),
                                torch.zeros_like(s)))
 
-    s0 = dir_score(block_dirs(k1, pot), elig0)
-    s1 = dir_score(block_dirs(k2, 2 * pot), elig1)
-    s2 = dir_score(block_dirs(k3, 4 * pot), elig2)
+    s0 = dir_score(block_dirs(draws[0], pot), elig0)
+    s1 = dir_score(block_dirs(draws[1], 2 * pot), elig1)
+    s2 = dir_score(block_dirs(draws[2], 4 * pot), elig2)
     e0p = pad(elig0)
     e1p = pad(elig1)
     zero = torch.zeros_like(s1)

@@ -9,7 +9,10 @@ derivations under `jax_threefry_partitionable` (the default since jax
 0.5): split and uniform hash a 64-bit iota split into (hi, lo) words.
 
 Keys are numpy uint32 arrays of shape (2,). Draws are small (at most one
-value per pixel of one image per keyframe) and are made on the host.
+value per pixel of one image per keyframe) and are made on the host;
+`uniform_device` makes the same draw on a tensor's device from a key
+held there (int64 words), with no host read, for the keyframe chain's
+CUDA graph.
 """
 
 from __future__ import annotations
@@ -97,3 +100,40 @@ def normal(key: np.ndarray,
     u = np.maximum(lo, u)
     e = torch.erfinv(torch.as_tensor(u, dtype=torch.float64)).numpy()
     return (np.float32(np.sqrt(2.0)) * e.astype(np.float32)).astype(np.float32)
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _rotl_t(x, d: int):
+    return ((x << d) | (x >> (32 - d))) & _M32
+
+
+def threefry2x32_device(k1, k2, x0, x1):
+    """`threefry2x32` on int64 tensors holding uint32 words (each sum
+    wrapped to 32 bits): the same words on any device."""
+    ks = (k1, k2, k1 ^ k2 ^ int(_PARITY))
+    x0 = (x0 + ks[0]) & _M32
+    x1 = (x1 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = x0 ^ _rotl_t(x1, r)
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _M32
+    return x0, x1
+
+
+def uniform_device(key, shape: Union[int, Sequence[int]] = ()):
+    """`uniform` on the device of `key`, a (2,) int64 tensor of the key's
+    two uint32 words: bit for bit the host draw, without a host read."""
+    import torch
+    shape = (shape,) if isinstance(shape, int) else tuple(shape)
+    n = int(math.prod(shape))
+    if n >= 1 << 32:
+        raise ValueError("uniform_device draws fewer than 2^32 values")
+    lo = torch.arange(n, dtype=torch.int64, device=key.device)
+    b1, b2 = threefry2x32_device(key[0], key[1], torch.zeros_like(lo), lo)
+    bits = (((b1 ^ b2) >> 9) | 0x3F800000).to(torch.int32)
+    f = bits.view(torch.float32) - 1.0
+    return torch.clamp(f, min=0.0).reshape(shape)

@@ -1030,7 +1030,7 @@ def test_frame_graph_capture_beside_the_loop_worker_on_the_card(tmp_path):
 
         node.loop._process = worker_job
         if not cuda_graphs:
-            node.fs.frame_graph = None
+            node.fs.frame_graph = node.fs.chain_graph = None
         for i in range(24):
             if cuda_graphs and i in (10, 14, 18):
                 started.clear()
@@ -1049,3 +1049,150 @@ def test_frame_graph_capture_beside_the_loop_worker_on_the_card(tmp_path):
     assert b.frame_graph.graphs is not None
     _assert_same_run(a, b)
     assert len(runs[0].loop.frames) == len(runs[1].loop.frames) >= 3
+
+
+# ---------------------------------------------------------------------------
+# the vision keyframe chain as CUDA graphs (models/chain_graph.py)
+# ---------------------------------------------------------------------------
+def test_chain_graph_replays_bit_for_bit_on_the_card():
+    """The keyframe chain's graphs against the eager chain
+    (cuda_graphs=False) on the card: every keyframe, pose, window tensor
+    and immature-pool tensor the same bits, over chains that marginalize
+    frames and a frame the step refuses (its keyframe is classic); the
+    bootstrap's budgets and the classic keyframes run eagerly, every
+    other chain replays the graphs."""
+    dev = _dev()
+    imgs = _mono_images(dev, roll_frame=14)
+    eager = _mono_run(dev, imgs, cuda_graphs=False)
+    graph = _mono_run(dev, imgs, cuda_graphs=True)
+    assert eager.chain_graph is None
+    g = graph.chain_graph
+    assert g.eager["budget"] == 1
+    assert set(g.eager) == {"classic", "budget"} and g.eager["classic"] >= 2
+    rungs = sum(g.replays.values())
+    # the first keyframe is the initializer's, no chain
+    assert rungs == len(graph.kf_shell_ids) - 1 - sum(g.eager.values()) >= 5
+    assert any(sh.marginalized_at >= 0 for sh in graph.shells)
+    assert 0 < g.pool_bytes <= torch.cuda.memory_reserved(dev)
+    _assert_same_run(eager, graph)
+    assert eager.kf_n_its == graph.kf_n_its
+    exact(eager.host_out, graph.host_out)
+
+
+def test_chain_graph_launch_counters_on_the_card():
+    """A replay adds the kernels captured in the chain's graph to their
+    launch counters: K1 (the selection's gradient pyramid), K2 (the
+    template), K3 (the bounded BA's steps, the final linearization and
+    the point marginalization) and K4 (the activation passes); a step
+    that captures its rung first counts the warm-up's launches too (they
+    run), not the capture's (nothing runs)."""
+    from sos_slam_tpu_torch.models import chain_graph as CG
+    dev = _dev()
+    imgs = _mono_images(dev)
+    deltas = []
+
+    def feed(fs, i):
+        g = fs.chain_graph
+        if "step" not in g.__dict__:
+            step = g.step
+
+            def counted(*a, **kw):
+                before = [fn.launches for _, fn in CG.COUNTERS]
+                runs = 1 if a[-1] in g.graphs else 2
+                out = step(*a, **kw)
+                deltas.append((a[-1], runs, [fn.launches - b for b, (_, fn)
+                                             in zip(before, CG.COUNTERS)]))
+                return out
+            g.step = counted
+        fs.add_active_frame(imgs[i], timestamp=0.05 * i, frame_id=i)
+
+    fs = _mono_run(dev, imgs, cuda_graphs=True, feed=feed)
+    s = fs.settings
+    want = dict(K1=1, K2=1, K3=s.max_opt_iterations + 2,
+                K4=1 + s.gn_its_on_point_activation)
+    g = fs.chain_graph
+    assert len(deltas) >= 5
+    assert any(runs == 1 for _, runs, _ in deltas)
+    for pot, runs, got in deltas:
+        assert g.per_replay[pot] == want, g.per_replay
+        assert got == [runs * want[c] for c, _ in CG.COUNTERS], got
+
+
+def test_chain_graph_capture_error_raises_on_the_card():
+    """A host read inside the chain's captured body fails the capture;
+    the error reaches the caller and no eager chain takes its place."""
+    from sos_slam_tpu_torch.models import chain_graph as CG
+    dev = _dev()
+    imgs = _mono_images(dev, n=16)
+    real = CG.flag_frames
+    eager_before = []
+
+    def reads_host(*a, **kw):
+        out = real(*a, **kw)
+        bool(out[1].sum())    # a synchronising read: refused while capturing
+        return out
+
+    def feed(fs, i):
+        g = fs.chain_graph
+        eager_before.append(sum(g.eager.values()))
+        fs.add_active_frame(imgs[i], timestamp=0.05 * i, frame_id=i)
+
+    CG.flag_frames = reads_host
+    try:
+        with pytest.raises(RuntimeError):
+            _mono_run(dev, imgs, cuda_graphs=True, feed=feed)
+    finally:
+        CG.flag_frames = real
+    # the eager chains before it are the bootstrap's two; none after
+    assert eager_before[-1] == 2, eager_before
+    x = torch.ones(4, device=dev) + 1.0       # the card still works
+    torch.cuda.synchronize()
+    assert float(x.sum()) == 8.0
+
+
+def test_chain_graph_syncs_on_the_card():
+    """A frame whose dispatch replays the keyframe chain's graphs (no
+    retry, no overrun, no dispatch again) makes at most two synchronising
+    calls in the graph form: prim_ok with the tracker's overrun, and
+    need_kf. The eager form's count of the same frames is printed beside
+    it, and each call is named by file and line."""
+    dev = _dev()
+    imgs = _mono_images(dev)
+    counts, where, clean = {}, {}, {}
+    for cuda_graphs in (False, True):
+        from sos_slam_tpu_torch.models.full_system import FullSystem
+        from sos_slam_tpu_torch.utils import synthetic
+        from sos_slam_tpu_torch.utils.config import default_settings
+        s = default_settings(max_window_frames=8, max_points=512,
+                             max_immature=1024, max_track_pts=4096,
+                             desired_point_density=400.0,
+                             desired_immature_density=400.0)
+        fs = FullSystem(synthetic.default_calib(256, 192), s, device=dev,
+                        cuda_graphs=cuda_graphs)
+        if cuda_graphs:
+            g, fg = fs.chain_graph, fs.frame_graph
+            marks = []
+            real_add = fs.add_active_frame
+
+            def add(*a, **kw):
+                before = (sum(g.replays.values()), fg.retries, fg.overruns,
+                          len(fs.telemetry.timers["redispatch"]),
+                          len(g.capture_ms))
+                real_add(*a, **kw)
+                after = (sum(g.replays.values()), fg.retries, fg.overruns,
+                         len(fs.telemetry.timers["redispatch"]),
+                         len(g.capture_ms))
+                marks.append(after[0] == before[0] + 1
+                             and after[1:] == before[1:])
+            fs.add_active_frame = add
+        counts[cuda_graphs], where[cuda_graphs] = _syncs_per_frame(fs, imgs)
+        if cuda_graphs:
+            clean = [i for i, ok in enumerate(marks) if ok]
+    assert len(clean) >= 3, clean
+    graph = [counts[True][i] for i in clean]
+    eager = [counts[False][i] for i in clean]
+    print(f"synchronising calls of a frame that replays the keyframe "
+          f"chain's graphs, frames {clean}: graph form {graph}, eager form "
+          f"{eager}; where, frame {clean[-1]}: graph form "
+          f"{where[True][clean[-1]]}, eager form {where[False][clean[-1]]}")
+    assert max(graph) <= 2, (graph, [where[True][i] for i in clean])

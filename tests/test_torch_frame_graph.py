@@ -23,7 +23,7 @@ from sos_slam_tpu_torch.ops import tracker as TK
 from sos_slam_tpu_torch.ops.image import build_pyramid
 from sos_slam_tpu_torch.utils import lie, synthetic
 from sos_slam_tpu_torch.utils.config import default_settings
-from tests.test_torch_helpers import close, exact
+from tests.test_torch_helpers import close, exact, no_host_reads
 
 torch.set_num_threads(2)
 
@@ -312,51 +312,9 @@ def _intrinsics(n_levels):
 # ---------------------------------------------------------------------------
 def test_bodies_read_nothing_back(stepped):
     _, img, T_p, T_h, rec, g, _, _ = stepped[0]
-
-    def refuse(name):
-        def read(*a, **kw):
-            raise AssertionError(f"host read inside a captured body: {name}")
-        return read
-
-    names = ("__bool__", "item", "__int__", "__float__", "__index__",
-             "tolist")
-    saved = {n: getattr(torch.Tensor, n)
-             for n in names + ("__getitem__", "__setitem__")}
-    made = {n: getattr(torch, n) for n in ("tensor", "as_tensor")}
-    for n in names:
-        setattr(torch.Tensor, n, refuse(n))
-    getitem = saved["__getitem__"]
-
-    def indexed(x, idx):
-        # a 0-dim integer index is read on the host, a bool mask's size too
-        for i in idx if isinstance(idx, tuple) else (idx,):
-            if torch.is_tensor(i) and (i.dtype == torch.bool or (
-                    i.dim() == 0 and not i.is_floating_point())):
-                raise AssertionError("host read inside a captured body: "
-                                     "indexing by a 0-dim or bool tensor")
-        return getitem(x, idx)
-
-    torch.Tensor.__getitem__ = indexed
-    setitem = saved["__setitem__"]
-
-    def assigned(x, idx, value):
-        # a Python number assigned into a card's tensor is copied from the
-        # host
-        if not torch.is_tensor(value):
-            raise AssertionError("host-to-device copy inside a captured "
-                                 "body: a Python number assigned")
-        return setitem(x, idx, value)
-
-    torch.Tensor.__setitem__ = assigned
-    # a host-to-device copy would be one on a card too
-    torch.tensor, torch.as_tensor = refuse("tensor"), refuse("as_tensor")
-    try:
+    with no_host_reads():
         g._primary()
         g._finish()
-    finally:
-        for n, f in saved.items():
-            setattr(torch.Tensor, n, f)
-        torch.tensor, torch.as_tensor = made["tensor"], made["as_tensor"]
     assert g.a["flags"].shape == (2,)
 
 

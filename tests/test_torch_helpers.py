@@ -12,6 +12,8 @@ Both packages run on the CPU here: JAX as its own tests run it (Pallas in
 interpret mode), the port through its plain PyTorch twins (device="cpu").
 """
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -76,6 +78,61 @@ def scene_images(w, h, n, twist, plane_z=2.0):
     imgs, _, poses = synthetic.make_sequence(calib, n, jnp.array(twist),
                                              plane_z=plane_z)
     return np.asarray(imgs), np.asarray(poses)
+
+
+@contextlib.contextmanager
+def no_host_reads():
+    """Refuse, inside the block, what would read a card's tensor on the
+    host or copy to it from the host, as a CUDA graph's capture would: a
+    tensor's bool / int / float / item / tolist / cpu / numpy, indexing by
+    a 0-dim int or a bool tensor (a 0-dim index is read, a bool mask's
+    size too), a Python number assigned into a tensor, torch.tensor /
+    as_tensor, and the ops whose output size depends on the data
+    (nonzero, unique, unique_consecutive, masked_select)."""
+    def refuse(name):
+        def read(*a, **kw):
+            raise AssertionError(f"host read inside a captured body: {name}")
+        return read
+
+    names = ("__bool__", "item", "__int__", "__float__", "__index__",
+             "tolist", "cpu", "numpy", "nonzero")
+    saved = {n: getattr(torch.Tensor, n)
+             for n in names + ("__getitem__", "__setitem__")}
+    made = {n: getattr(torch, n) for n in (
+        "tensor", "as_tensor", "nonzero", "unique", "unique_consecutive",
+        "masked_select")}
+    getitem, setitem = saved["__getitem__"], saved["__setitem__"]
+
+    def indexed(x, idx):
+        for i in idx if isinstance(idx, tuple) else (idx,):
+            if torch.is_tensor(i) and (i.dtype == torch.bool or (
+                    i.dim() == 0 and not i.is_floating_point())):
+                raise AssertionError("host read inside a captured body: "
+                                     "indexing by a 0-dim or bool tensor")
+        return getitem(x, idx)
+
+    def assigned(x, idx, value):
+        # a Python number assigned into a card's tensor is copied from the
+        # host
+        if not torch.is_tensor(value):
+            raise AssertionError("host-to-device copy inside a captured "
+                                 "body: a Python number assigned")
+        return setitem(x, idx, value)
+
+    for n in names:
+        setattr(torch.Tensor, n, refuse(n))
+    torch.Tensor.__getitem__ = indexed
+    torch.Tensor.__setitem__ = assigned
+    # a host-to-device copy would be one on a card too
+    for n in made:
+        setattr(torch, n, refuse(n))
+    try:
+        yield
+    finally:
+        for n, f in saved.items():
+            setattr(torch.Tensor, n, f)
+        for n, f in made.items():
+            setattr(torch, n, f)
 
 
 def act_inputs(seed, N=128, F=4, nan_dead=True):

@@ -51,3 +51,16 @@ def test_split_then_uniform_many_keys():
         np.testing.assert_array_equal(
             np.asarray(jax.random.uniform(sub, (4, 6))),
             rng.uniform(ssub, (4, 6)))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_uniform_device_equals_the_host_draw(seed):
+    """The device twin of `uniform` (the keyframe chain's draws) gives the
+    host draw's bits."""
+    import torch
+    k = rng.fold_in(rng.PRNGKey(seed), 12)
+    for shape in ((7,), (192, 256), (3, 5, 4)):
+        a = rng.uniform(k, shape)
+        b = rng.uniform_device(torch.as_tensor(k.astype(np.int64)),
+                               shape).numpy()
+        np.testing.assert_array_equal(a.view(np.uint32), b.view(np.uint32))
