@@ -65,25 +65,33 @@ In order, failing (exit code != 0, no result line) at the first fault:
      VIO, 640x480, 44 frames at 10 Hz on a bounded sinusoidal trajectory,
      200 Hz IMU, right camera at a 0.11 m baseline,
      default_settings(weight_imu_dso=6, scale_opt_thres=12, min_g_imu=10))
-     through the port's FullSystem, every launch counter from 0: gated on
-     initialized, not lost, the IMU initialized, the stereo scale trapped,
-     the fused VIO chain run, the VIO prior finite after the run and
-     before every VIO frame marginalization, the stereo scale after every
-     keyframe from frame 35 on within 1% of the first one's, the scaled
-     trajectory's metric ATE (no alignment) <= 0.15 * path + 0.03, K1-K4
-     each
-     launched, K1 once per pyramid built (left and right) and K2 once per
-     template; it prints
-     the keyframe count, ATE, scale, steady fps over frames 30-43 (as
-     bench.py measures it) and the median of the frames that dispatch a
-     keyframe chain; then K3 on a VIO GN
+     through the port's FullSystem in the graph form (the frame step and
+     the VIO keyframe chain as CUDA graphs), every launch counter from 0:
+     gated on initialized, not lost, the IMU initialized, the stereo scale
+     trapped, the fused VIO chain run and replayed as a graph (eager only
+     for a classic, budget, export or rung keyframe), the VIO prior finite
+     after the run, the stereo scale after every keyframe from frame 35 on
+     within 1% of the first one's, the scaled trajectory's metric ATE (no
+     alignment) <= 0.15 * path + 0.03, K1-K4 each launched, K1 once per
+     pyramid built (left and right; a chain replay counts its captured
+     launches) and K2 once per template; it prints the keyframe count,
+     ATE, scale, steady fps over frames 30-43 (as bench.py measures it),
+     the median of the frames that dispatch a keyframe chain (the frames
+     that captured a chain graph named apart), the chain graphs' replays,
+     capture ms, pool bytes and launches (the capture warm-ups' apart),
+     and a VIO chain replay's device ms whole and by stage (each stage
+     captured alone; the scale solve in its cut and its full bounded form
+     against the eager solve's wall ms, and the eager solve's LM trips by
+     level); then the eager form (cuda_graphs=False), gated at K1-K4
+     launches FLAG_EAGER_LAUNCHES, bit for bit the graph run and a finite
+     prior before every VIO frame marginalization, with K3 on a VIO GN
      step and a VIO point marginalization, K4 on an activation pass and K1
-     on a right image of this run against their plain twins; the same
-     frames twice more with every VIO frame marginalization folded both by
-     the port (`energy.fold_vio_block`, the live subspace of the block
-     without an eigendecomposition) and by the float64 fold from an
-     eigendecomposition (`live_fold64`), the runs going on with the one
-     and with the other: one line a marginalization (the block's zero
+     on a right image of that run against their plain twins, and every
+     VIO frame marginalization of that run folded both by the port
+     (`energy.fold_vio_block`, the live subspace of the block without an
+     eigendecomposition) and by the float64 fold from an
+     eigendecomposition (`live_fold64`), the run going on with the
+     port's: one line a marginalization (the block's zero
      rows, its smallest and largest eigenvalue, the scale row of both
      folds), one a keyframe from frame 35 on (its scale and the scale's
      GN steps, the wall ms of both folds), gated on the port's fold
@@ -114,9 +122,12 @@ In order, failing (exit code != 0, no result line) at the first fault:
      frame that dispatches no keyframe chain in the graph form (gated),
      the eager form's beside it; the primary track on one steady frame's
      inputs as graph (A) in the steady and the full bounded form (device
-     ms a replay) and eagerly (wall ms); the flagship's first 36 frames
-     in both forms, bit for bit on the trajectories, the window and the
-     VIO prior;
+     ms a replay) and eagerly (wall ms); the flagship in both forms (fps
+     over frames 30-35, then frames 36-43 counting the synchronising
+     calls: at most 2 in a frame that replays the VIO chain's graphs,
+     gated, the eager form's beside it), bit for bit on the trajectories,
+     the window, the immature pool, the IMU state, the scale and the gyro
+     bias;
   6b. the [loop] phase: (a) the flagship scene's frames through the port's
      SlamNode (pinhole camera files, no rectification, loop closure on
      at a 40 m LiDAR range, the loop handler synchronous so that its
@@ -179,7 +190,9 @@ In order, failing (exit code != 0, no result line) at the first fault:
   8. last line: {"ok": true, "device": {...}}.
 
 Needs one card; exits with code 2 when CUDA is unavailable or the port is
-not importable beside this script.
+not importable beside this script. `python3 chip_smoke.py --flagship`
+runs the build, the flagship phase and [graph]'s flagship part alone
+(no result line).
 """
 
 from __future__ import annotations
@@ -235,6 +248,10 @@ GRAPH_PAIRS = 3   # the [graph] phase: eager and graph form in turns
 # K1-K4 launches of the eager form (cuda_graphs=False) over the mono scene's
 # frames: the mono slice's count before the keyframe chain ran as graphs
 MONO_EAGER_LAUNCHES = [73, 22, 134, 88]
+# the flagship's K1-K4 launches in the eager form (cuda_graphs=False)
+FLAG_EAGER_LAUNCHES = [65, 10, 64, 40]
+# the reasons a flagship keyframe chain may run eagerly in the graph form
+FLAG_EAGER_REASONS = {"classic", "budget", "export", "rung"}
 JAX_FLAGSHIP = "JAX package on the same scene: 11 keyframes in 44 frames " \
                "(BENCH_r05.json, a TPU v5e run; history, not asserted)"
 # the loop phase: the flagship scene through SlamNode at this LiDAR range,
@@ -1136,16 +1153,28 @@ class FoldProbe:
     scale's GN step."""
 
     def __init__(self, torch, E, IM, use="port", plant=0.0, f32=False):
-        self.torch, self.E, self.IM = torch, E, IM
+        from sos_slam_tpu_torch.models import chain_graph as CG
+        self.torch, self.E, self.IM, self.CG = torch, E, IM, CG
         self.use, self.plant, self.f32 = use, plant, f32
         self.fold_orig, self.solve_orig = E.fold_vio_block, IM.solve_vio
+        self.marg_orig = CG.marg_frames
         E.fold_vio_block, IM.solve_vio = self.fold, self.solve
+        CG.marg_frames = self.marg_frames
         self.frame = -1
         self.margs, self.steps = [], []
+        # whether each fold of the chain's masked marginalizations is kept
+        # (a padded slot's fold is computed and dropped)
+        self.kept = []
 
     def restore(self):
         self.E.fold_vio_block = self.fold_orig
         self.IM.solve_vio = self.solve_orig
+        self.CG.marg_frames = self.marg_orig
+
+    def marg_frames(self, fs, ba, imm, dI, host_out, marg_ks, imu=None):
+        if imu is not None:
+            self.kept = [k >= 0 for k in marg_ks.tolist()]
+        return self.marg_orig(fs, ba, imm, dI, host_out, marg_ks, imu=imu)
 
     def f32_fold(self, Hs, bs, sl, in_marg):
         """The fold before the live-subspace one: the f32 inverse of the
@@ -1165,6 +1194,7 @@ class FoldProbe:
 
     def fold(self, Hs, bs, sl, in_marg, jax_form=False):
         torch = self.torch
+        sl = int(sl)
         zero = (Hs[sl:sl + 29] == 0).all(1)
         if self.plant and bool(zero.any()):
             big = float(torch.diagonal(Hs)[sl:sl + 29].max())
@@ -1198,6 +1228,7 @@ class FoldProbe:
         w = torch.linalg.eigvalsh(0.5 * (blk + blk.T)[live_rows][:, live_rows])
         cp = self.IM.CPARS
         self.margs.append(dict(
+            kept=self.kept.pop(0) if self.kept else True,
             frame=self.frame, slot=(sl - cp - 1) // 29,
             zero_rows=torch.nonzero(~live_rows)[:, 0].tolist(),
             eig_min=float(w.min()), eig_max=float(w.max()),
@@ -1228,7 +1259,10 @@ class FoldProbe:
                f"max |port - f64 live| / max |f64 live| {m['dH']:.3e}, port "
                f"finite {m['finite']}; wall ms of the port's fold "
                f"{m['ms']:.3f}, of the float64 eigh fold {m['ms_f64']:.3f}"
-               for m in self.margs]
+               for m in self.margs if m["kept"]]
+        out.append(f"{tag} besides, {sum(not m['kept'] for m in self.margs)}"
+                   " folds of the chains' padded slots, computed and "
+                   "dropped (the marginalizations are masked on the device)")
         by = collections.defaultdict(list)
         for f, sc, dx in self.steps:
             if f >= from_frame:
@@ -1238,6 +1272,141 @@ class FoldProbe:
                        f"at its first VIO GN step, GN steps of the scale "
                        + ", ".join(f"{dx:+.3e}" for _, dx in st))
         return out
+
+
+def sum_launches(cg) -> list:
+    """K1-K4 launches of the chain graphs' capture warm-ups (one run of
+    each captured rung's body, which launches what a replay launches)."""
+    return [sum(p[c] for p in cg.per_replay.values())
+            for c in ("K1", "K2", "K3", "K4")]
+
+
+def check_flagship_kernels(torch, BP, IMG, k3, k4, right, calib, tag,
+                           kernels):
+    """K3 on a VIO GN step and a VIO point marginalization, K4 on an
+    activation pass and K1 on a right image of the flagship's eager run
+    against their plain twins; widens each kernel's max_abs_err."""
+    for need in ("gn_step_vio", "marginalize_points_vio"):
+        if need not in k3.last_of:
+            raise AssertionError(f"flagship: no K3 call from {need}")
+    err3 = (0.0, 0.0)
+    for need in ("gn_step_vio", "marginalize_points_vio"):
+        a, kw = k3.last_of[need]
+        err3 = worse(err3, k3_against_plain(BP, a, kw))
+    a4, kw4 = k4.calls[-1]
+    err4 = (0.0, 0.0)
+    for clamp in (False, True):
+        err4 = worse(err4, k4_against_plain(BP, a4, dict(kw4, clamp=clamp)))
+    err1 = k1_against_plain(torch, IMG, right[FLAG_FRAMES - 1].contiguous(),
+                            calib.levels)
+    a, kw = k3.last_of["marginalize_points_vio"]
+    log(f"{tag} K3 on a VIO GN step and a VIO point marginalization "
+        f"({int(kw['pmask'].sum())} points): max_abs_err {err3[0]:.3e} "
+        f"({err3[1]:.3f} of the tolerance); K4 on an activation pass: "
+        f"{err4[0]:.3e} ({err4[1]:.3f}); K1 on a right image: {err1[0]:.3e} "
+        f"({err1[1]:.3f}); each matches its plain twin, second launches "
+        "bitwise equal")
+    for k, e in zip(kernels, (err1, (0.0, 0.0), err3, err4)):
+        k["max_abs_err"] = max(k["max_abs_err"], e[0])
+
+
+def captured_ms(torch, fn, pool):
+    """fn captured alone into a CUDA graph (after a warm-up on a side
+    stream), then the device ms a replay (`replay_ms`)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, pool=pool, stream=side):
+        fn()
+    torch.cuda.synchronize()
+    return replay_ms(torch, g.replay, n=5)
+
+
+def vio_stages(torch, card, fs):
+    """A VIO keyframe chain replay's device ms, whole and by stage, on the
+    inputs of the run's last chain (the chain graph's static buffers):
+    each stage captured alone into a graph and replayed under a pair of
+    CUDA events: `vio_head` (flags, insertion, IMU intake, spline
+    propagation, activation), one VIO GN step, the scale solve with both
+    branches in the graph form's trips and in the full bounded form, each
+    branch alone (the unused branch's cost), `vio_tail` (point
+    marginalization, selection, the four masked VIO frame
+    marginalizations, compaction) and one VIO frame marginalization
+    (its float64 fold included) and the fold's `live_pinv` alone on a
+    29x29 block of the IMU prior; beside them the eager scale solve's wall
+    ms (one branch, early exits, the card synchronized around it) and the
+    stereo scale LM's trips a level in the eager runs so far."""
+    from sos_slam_tpu_torch.models import chain_graph as CG
+    from sos_slam_tpu_torch.models import energy as E
+    from sos_slam_tpu_torch.ops import ba as B
+    from sos_slam_tpu_torch.ops import scale_opt as SO
+    from sos_slam_tpu_torch.ops.image import build_pyramid
+    from sos_slam_tpu_torch.ops.numerics import live_pinv
+    tag = f"[flagship VIO chain stages] ({card})"
+    cg = fs.chain_graph
+    pot = max(cg.graphs, key=lambda k: cg.replays[k])
+    i, s = cg.inp, fs.settings
+    kf = dict(right=i["right"], have_right=i["have_right"],
+              scale_state=i["scale_state"], staged=i["staged"],
+              timestamp=i["timestamp"])
+    out = cg.out[pot]
+    tmpl = out["state"]["templates"]
+    pool = torch.cuda.graph_pool_handle()
+    whole = replay_ms(torch, cg.graphs[pot].replay, n=5)
+    hd = CG.vio_head(fs, i, i["imm"], i["pyr"], i["T_cw_new"],
+                     i["aff_new"], i["exposure"], i["stats"], i["host_out"],
+                     i["n_kf"], kf)
+    ev = B.make_precalc_eval(hd["ba"])
+    ms = dict(
+        head=lambda: CG.vio_head(fs, i, i["imm"], i["pyr"], i["T_cw_new"],
+                                 i["aff_new"], i["exposure"], i["stats"],
+                                 i["host_out"], i["n_kf"], kf),
+        gn_step=lambda: E.gn_step_vio(hd["ba"], hd["imu"], hd["dI"], s,
+                                      fs.w, fs.h, ev=ev),
+        scale=lambda: fs._scale_solve(tmpl, kf, True),
+        tail=lambda: CG.vio_tail(fs, hd, hd["ba"], hd["imu"],
+                                 out["state"]["HdiF"], i["pyr"], pot,
+                                 i["keys"]),
+        frame_marg=lambda: E.marginalize_frame_vio(
+            hd["ba"], hd["imu"], torch.clamp(hd["slot"] - 2, min=0), s),
+        live_pinv=lambda: live_pinv(blk, E.LIVE_CUT))
+    D = hd["imu"].HM.shape[0]
+    blk = hd["imu"].HM[D - 29:, D - 29:].double()
+    trips = SO.cut_trips(fs.n_levels)
+    ms["scale_full"] = lambda: fs._scale_solve(tmpl, kf, True,
+                                               SO.full_trips(fs.n_levels))
+    got = {k: captured_ms(torch, fn, pool) for k, fn in ms.items()}
+    R01, t01, intr1 = fs._lr
+    pyr_r, _ = build_pyramid(i["right"], fs.n_levels)
+    args = (R01, t01, fs._intr, intr1, fs.n_levels)
+    s_cur = i["scale_state"][0].reshape(1)
+    got["trapped"] = captured_ms(torch, lambda: SO.scale_lm(
+        pyr_r, tmpl, s_cur, *args, trips=trips), pool)
+    got["multi"] = captured_ms(torch, lambda: SO.multi_guess(
+        pyr_r, tmpl, *args, trips=trips), pool)
+    eager = median([wall_ms(torch, lambda: fs._scale_solve(
+        tmpl, kf, False)) for _ in range(5)])
+    log(f"{tag} rung {pot}: a replay {whole:.3f} ms of device work; each "
+        f"stage in a graph of its own (these need not add up to the "
+        f"replay): before the BA (vio_head) {got['head']:.3f}, one VIO GN "
+        f"step {got['gn_step']:.3f} (x{s.max_opt_iterations} in the "
+        f"graph), the scale solve, both branches, in the graph's cut form "
+        f"{got['scale']:.3f} (trapped alone {got['trapped']:.3f}, the "
+        f"multi-guess alone {got['multi']:.3f}) and in the full bounded "
+        f"form {got['scale_full']:.3f}, after the scale (vio_tail) "
+        f"{got['tail']:.3f} of which one VIO frame marginalization "
+        f"{got['frame_marg']:.3f} (its float64 live_pinv on a 29x29 block "
+        f"{got['live_pinv']:.3f}); the eager scale solve (trapped: one "
+        f"branch, early exits) {eager:.3f} ms wall")
+    log(f"{tag} the stereo scale LM's trips in the eager runs so far, by "
+        f"(guesses, level, doublings, LM trips, repeat's doublings, "
+        f"repeat's LM trips): " + ", ".join(
+            f"{k}: {v}" for k, v in sorted(SO.TRIPS.items()))
+        + f"; the graph form's trips a level from the coarsest {trips}")
+    del pool
 
 
 def flagship(torch, dev, card, kernels):
@@ -1279,12 +1448,13 @@ def flagship(torch, dev, card, kernels):
 
     wrappers = (IMG.pyramid_levels, WIN.template_levels, BP.fused_iteration,
                 BP.act_pass)
+    # the graph form (the default): K1 and K2 calls counted (a call made
+    # while a chain graph is captured launches nothing, a replay launches
+    # without a call); no recorder here reads the card, as a capture
+    # refuses it
     recs = [Recorder(FSM, "build_pyramid", 1, kind=pyramid_side),
             Recorder(INIT, "build_pyramid", 1),
-            Recorder(WIN, "build_track_template", 1),
-            Recorder(BP, "fused_iteration", 1, kind=k3_caller),
-            Recorder(BP, "act_pass", 1),
-            Recorder(E, "marginalize_frame_vio", 1, kind=prior_in)]
+            Recorder(WIN, "build_track_template", 1)]
     for w_ in wrappers:
         w_.launches = 0
     fs = FSM.FullSystem(calib, settings, stereo=stereo, device=dev)
@@ -1296,25 +1466,28 @@ def flagship(torch, dev, card, kernels):
         kf_scale[rec["shell"].id] = fs.current_scale
 
     fs._finish_kf = scale_of
-    frame_ms, t_steady = [], None
+    cg = fs.chain_graph
+    frame_ms, t_steady, captured_at = [], None, []
     for i in range(FLAG_FRAMES):
         if i == FLAG_WARMUP:
             torch.cuda.synchronize()
             t_steady = time.perf_counter()
+        n_cap = len(cg.capture_ms)
         t0 = time.perf_counter()
         feed(fs, i)
         torch.cuda.synchronize()
         frame_ms.append((time.perf_counter() - t0) * 1e3)
+        if len(cg.capture_ms) > n_cap:
+            captured_at.append(i)
         if fs.is_lost or fs.init_failed:
             break
     fs.finish_pending()
     torch.cuda.synchronize()
-    kf_ms, nonkf = split_by_keyframe(frame_ms, fs.kf_shell_ids, FLAG_WARMUP)
     steady_s = time.perf_counter() - t_steady if t_steady else float("nan")
     counts = [w_.launches for w_ in wrappers]
     for r in recs:
         r.restore()
-    pyr_l, pyr_i, tmpl, k3, k4, mfv = recs
+    pyr_l, pyr_i, tmpl = recs
 
     tag = f"[flagship] ({card})"
     if not fs.initialized or fs.is_lost or fs.init_failed:
@@ -1325,20 +1498,41 @@ def flagship(torch, dev, card, kernels):
                                      scene["poses"])
     n_kf = len(fs.kf_shell_ids)
     fps = (FLAG_FRAMES - FLAG_WARMUP) / steady_s
-    log(f"{tag} {W}x{H} {FLAG_FRAMES} frames, stereo + VIO on {card}: n_kf "
+    # a keyframe's time is that of the frame that dispatched its chain;
+    # the frames whose chain captured a rung's graph are named apart
+    kf_all, nonkf = split_by_keyframe(frame_ms, fs.kf_shell_ids, FLAG_WARMUP)
+    kf_ms = [frame_ms[i] for i in fs.kf_shell_ids
+             if i >= FLAG_WARMUP and i not in captured_at]
+    log(f"{tag} {W}x{H} {FLAG_FRAMES} frames, stereo + VIO on {card}, the "
+        f"graph form (frame step and VIO keyframe chain): n_kf "
         f"{n_kf}, metric ATE of the scaled trajectory (no alignment) "
         f"{ate:.4f} m over {path:.3f} m, stereo scale {fs.current_scale:.4f}"
         f", IMU scale {float(fs.imu.scale) * IM.SCALE_SCALE:.4f}, steady fps "
         f"{fps:.2f} (frames {FLAG_WARMUP}-{FLAG_FRAMES - 1}, {steady_s:.3f} "
         f"s), frames dispatching a keyframe chain: median "
-        f"{median(kf_ms):.1f} ms ({len(kf_ms)} in the window), the other "
-        f"frames: median {median(nonkf):.1f} ms, first frame "
-        f"{frame_ms[0]:.0f} ms")
+        f"{median(kf_ms):.1f} ms ({len(kf_ms)} in the window, none that "
+        f"captured), the other frames: median {median(nonkf):.1f} ms, first "
+        f"frame {frame_ms[0]:.0f} ms; frames that captured a chain graph: "
+        + (", ".join(f"{i} ({frame_ms[i]:.1f} ms)" for i in captured_at)
+           or "none"))
     log(f"{tag} reference: {JAX_FLAGSHIP}")
-    log(f"{tag} VIO frame marginalizations by the prior they started from: "
-        + (", ".join(f"{k} {v}" for k, v in sorted(mfv.n_of.items()))
-           or "none")
-        + "; the VIO prior after the run is "
+    warm = sum_launches(cg)
+    log(f"{tag} the VIO keyframe chain's graphs: replays "
+        f"{dict(cg.replays)}, eager chains by reason {dict(cg.eager)}, "
+        f"capture ms " + ", ".join(f"rung {k}: {v:.1f}"
+                                   for k, v in cg.capture_ms.items())
+        + f", the VIO chain graphs' pool {cg.pool_bytes} bytes (its own: "
+        f"apart from this system's frame graphs' {fs.frame_graph.pool_bytes}"
+        f" and the mono slice's pools), launches K1-K4 {counts} of which "
+        f"the capture warm-ups' {warm}, a replay's "
+        f"{dict((k, v) for k, v in cg.per_replay.items())}; GN steps a "
+        f"keyframe (n_its), keyframes by count "
+        f"{dict(sorted(fs.kf_n_its.items()))}")
+    if chain_replays(fs) == 0 or not set(cg.eager) <= FLAG_EAGER_REASONS:
+        raise AssertionError(
+            f"flagship: the VIO chain replayed {dict(cg.replays)} graphs, "
+            f"eager chains by reason {dict(cg.eager)}")
+    log(f"{tag} the VIO prior after the run is "
         + ("finite" if bool(torch.isfinite(fs.imu.HM).all()) else "NaN")
         + f"; {n_kf} keyframes, scaled ATE {ate:.4f} m")
     rep = fs.telemetry.report()["timers_ms"]
@@ -1346,10 +1540,9 @@ def flagship(torch, dev, card, kernels):
         f"{k} n={v['n']} median {v['median']:.1f} ms"
         for k, v in sorted(rep.items())))
     if not bool(torch.isfinite(fs.imu.HM).all() & torch.isfinite(
-            fs.imu.bM).all()) or mfv.n_of["NaN"]:
-        raise AssertionError(
-            "flagship: the VIO prior is not finite after the run "
-            f"(frame marginalizations by prior: {dict(mfv.n_of)})")
+            fs.imu.bM).all()):
+        raise AssertionError("flagship: the VIO prior is not finite after "
+                             "the run")
     if not (fs.imu_initialized and fs.scale_trapped):
         raise AssertionError(f"flagship: imu_initialized="
                              f"{fs.imu_initialized} scale_trapped="
@@ -1375,67 +1568,81 @@ def flagship(torch, dev, card, kernels):
             raise AssertionError(f"{name} was not launched on the flagship "
                                  "path")
     n_right = pyr_l.n_of["right"]
-    n_pyr = pyr_l.n_calls + pyr_i.n_calls + graph_pyramids(fs)
-    if counts[0] != n_pyr or counts[1] != tmpl.n_calls:
+    rep_c, cap_c = chain_launched(fs), chain_captured(fs)
+    n_pyr = pyr_l.n_calls + pyr_i.n_calls + graph_pyramids(fs) \
+        + rep_c["K1"] - cap_c["K1"]
+    n_tmpl = tmpl.n_calls + rep_c["K2"] - cap_c["K2"]
+    if counts[0] != n_pyr or counts[1] != n_tmpl:
         raise AssertionError(
             f"flagship: K1 launched {counts[0]} times for {n_pyr} pyramids "
-            f"({n_right} right), K2 {counts[1]} times for {tmpl.n_calls} "
-            "templates: a call is not one launch")
-    log(f"{tag} {n_pyr} pyramids built ({n_pyr - n_right} left, {n_right} "
-        f"right) in {counts[0]} K1 launches, {tmpl.n_calls} templates in "
-        f"{counts[1]} K2 launches; K3 {counts[2]} launches "
-        + ", ".join(f"{k} {v}" for k, v in sorted(k3.n_of.items()))
-        + f"; K4 {counts[3]} launches")
-
-    # the kernels on this run's own inputs
-    for need in ("gn_step_vio", "marginalize_points_vio"):
-        if need not in k3.last_of:
-            raise AssertionError(f"flagship: no K3 call from {need}")
-    err3 = (0.0, 0.0)
-    for need in ("gn_step_vio", "marginalize_points_vio"):
-        a, kw = k3.last_of[need]
-        err3 = worse(err3, k3_against_plain(BP, a, kw))
-    a4, kw4 = k4.calls[-1]
-    err4 = (0.0, 0.0)
-    for clamp in (False, True):
-        err4 = worse(err4, k4_against_plain(BP, a4, dict(kw4, clamp=clamp)))
-    err1 = k1_against_plain(torch, IMG, right[FLAG_FRAMES - 1].contiguous(),
-                            calib.levels)
-    a, kw = k3.last_of["marginalize_points_vio"]
-    log(f"{tag} K3 on a VIO GN step and a VIO point marginalization "
-        f"({int(kw['pmask'].sum())} points): max_abs_err {err3[0]:.3e} "
-        f"({err3[1]:.3f} of the tolerance); K4 on an activation pass: "
-        f"{err4[0]:.3e} ({err4[1]:.3f}); K1 on a right image: {err1[0]:.3e} "
-        f"({err1[1]:.3f}); each matches its plain twin, second launches "
-        "bitwise equal")
-    for k, c, e in zip(kernels, counts, (err1, (0.0, 0.0), err3, err4)):
+            f"({n_right} right pyramids called), K2 {counts[1]} times for "
+            f"{n_tmpl} templates: a call is not one launch")
+    log(f"{tag} {n_pyr} pyramids built in {counts[0]} K1 launches ("
+        f"{rep_c['K1']} in chain graph replays, {cap_c['K1']} calls while "
+        f"capturing; {n_right} right pyramids called), {n_tmpl} templates "
+        f"in {counts[1]} K2 launches; K3 {counts[2]} launches; K4 "
+        f"{counts[3]} launches")
+    for k, c in zip(kernels, counts):
         k["launches_flagship"] = c
-        k["max_abs_err"] = max(k["max_abs_err"], e[0])
-    del recs, pyr_l, pyr_i, tmpl, k4, mfv, a, kw, a4, kw4
+    del recs, pyr_l, pyr_i, tmpl
+    vio_stages(torch, card, fs)
     phase_done("flagship run and checks")
 
-    # the VIO fold at every frame marginalization, the port's against the
-    # float64 fold from an eigendecomposition, then the run on each
-    for use in ("port", "f64"):
-        probe = FoldProbe(torch, E, IM, use=use)
-        fp = FSM.FullSystem(calib, settings, stereo=stereo, device=dev)
-        for i in range(FLAG_FRAMES):
-            probe.frame = i
-            feed(fp, i)
-        fp.finish_pending()
-        probe.restore()
-        ptag = f"{tag} [{use} fold]"
-        for line in probe.lines(ptag, FLAG_SCALE_FROM):
-            log(line)
-        ate_p, _ = synthetic.metric_ate(fp.trajectory(scaled=True),
-                                        scene["poses"])
-        log(f"{ptag} keyframes {fp.kf_shell_ids}, stereo scale "
-            f"{fp.current_scale:.6f}, scaled ATE {ate_p:.5f} m")
-        worst = max((m["dH"] for m in probe.margs), default=float("inf"))
-        if use == "port" and not (probe.margs and worst <= 1e-4 and all(
-                m["finite"] for m in probe.margs)):
-            raise AssertionError(f"flagship: the port's VIO fold is off its "
-                                 f"float64 reference by {worst}")
+    # the eager form (cuda_graphs=False): its launches gated, the K3 calls
+    # by caller, the kernels on this run's own inputs; every VIO fold at
+    # every frame marginalization the port's against the float64 fold from
+    # an eigendecomposition (the run goes on with the port's)
+    probe = FoldProbe(torch, E, IM, use="port")
+    recs = [Recorder(BP, "fused_iteration", 1, kind=k3_caller),
+            Recorder(BP, "act_pass", 1),
+            Recorder(E, "marginalize_frame_vio", 1, kind=prior_in)]
+    for w_ in wrappers:
+        w_.launches = 0
+    fp = FSM.FullSystem(calib, settings, stereo=stereo, device=dev,
+                        cuda_graphs=False)
+    for i in range(FLAG_FRAMES):
+        probe.frame = i
+        feed(fp, i)
+    fp.finish_pending()
+    probe.restore()
+    ptag = f"{tag} [port fold, eager form]"
+    eager_counts = [w_.launches for w_ in wrappers]
+    for r in recs:
+        r.restore()
+    k3, k4, mfv = recs
+    same = (fp.kf_shell_ids == fs.kf_shell_ids and np.array_equal(
+        fp.trajectory(scaled=True), fs.trajectory(scaled=True))
+        and torch.equal(fp.imu.HM, fs.imu.HM))
+    log(f"{ptag} launches K1-K4 {eager_counts} (gate: "
+        f"{FLAG_EAGER_LAUNCHES}); K3 by caller " + ", ".join(
+            f"{k} {v}" for k, v in sorted(k3.n_of.items()))
+        + "; VIO frame marginalizations (the padded slots' included) by "
+        "the prior they started from: " + (", ".join(
+            f"{k} {v}" for k, v in sorted(mfv.n_of.items())) or "none")
+        + f"; bit for bit the graph form's run (keyframes, scaled "
+        f"trajectory, imu.HM): {same}")
+    if eager_counts != FLAG_EAGER_LAUNCHES:
+        raise AssertionError(
+            f"flagship: the eager form launched K1-K4 {eager_counts} times, "
+            f"not {FLAG_EAGER_LAUNCHES}")
+    if mfv.n_of["NaN"] or not same:
+        raise AssertionError(
+            f"flagship: a NaN VIO prior {dict(mfv.n_of)} or the eager form "
+            f"is not the graph form's run ({same})")
+    check_flagship_kernels(torch, BP, IMG, k3, k4, right, calib, tag,
+                           kernels)
+    del recs, k3, k4, mfv
+    for line in probe.lines(ptag, FLAG_SCALE_FROM):
+        log(line)
+    ate_p, _ = synthetic.metric_ate(fp.trajectory(scaled=True),
+                                    scene["poses"])
+    log(f"{ptag} keyframes {fp.kf_shell_ids}, stereo scale "
+        f"{fp.current_scale:.6f}, scaled ATE {ate_p:.5f} m")
+    worst = max((m["dH"] for m in probe.margs), default=float("inf"))
+    if not (probe.margs and worst <= 1e-4 and all(
+            m["finite"] for m in probe.margs)):
+        raise AssertionError(f"flagship: the port's VIO fold is off its "
+                             f"float64 reference by {worst}")
     del probe, fp
     phase_done("flagship VIO folds")
 
@@ -1447,7 +1654,7 @@ def flagship(torch, dev, card, kernels):
     for form in ("port", "jax"):
         k3j = Recorder(BP, "fused_iteration", 1, kind=k3_caller)
         fj = FSM.FullSystem(calib, settings, stereo=stereo, device=dev,
-                            jax_form=form == "jax")
+                            jax_form=form == "jax", cuda_graphs=False)
         stages = [StageTimer(torch, *o) for o in (
             (E, "optimize_vio"), (WIN, "build_track_template"),
             (E, "marginalize_points_vio"), (E, "marginalize_frame_vio"),
@@ -1463,7 +1670,7 @@ def flagship(torch, dev, card, kernels):
                                         scene["poses"])
         kc = fj.telemetry.timers["kf_chain"]
         chains[form] = (sum(kc), len(kc))
-        log(f"{tag} [{form} fold, stages timed] keyframes "
+        log(f"{tag} [{form} fold, stages timed, eager form] keyframes "
             f"{fj.kf_shell_ids}, scaled ATE {ate_j:.4f} m, scale "
             f"{fj.current_scale:.4f}, VIO prior after the run "
             + ("finite" if bool(torch.isfinite(fj.imu.HM).all()) else "NaN")
@@ -1478,7 +1685,6 @@ def flagship(torch, dev, card, kernels):
     log(f"{tag} fused keyframe chains, the port's fold against the JAX "
         f"package's: {chains['port'][0] - chains['jax'][0]:.1f} ms more in "
         f"all over {chains['port'][1]} and {chains['jax'][1]} chains")
-    del k3
     kf_ids = list(fs.kf_shell_ids)
     profile_frames(torch, fs, lambda i: feed(fs, i), FLAG_FRAMES,
                    FLAG_PROF_FRAMES, tag="flagship profile")
@@ -2531,52 +2737,98 @@ def graph_phase(torch, dev, card, mono, flag):
         f"bounded form {forms[1]:.3f} ms a replay, the eager early-exit "
         f"track {forms[2]:.3f} ms wall a call")
     phase_done("[graph] syncs and forms")
+    graph_flagship(torch, dev, card, flag)
 
+
+def graph_flagship(torch, dev, card, flag):
+    """[graph]'s flagship part: the scene's first PIPE_FLAG_FRAMES frames
+    in the eager and the graph form (frame step and VIO keyframe chain),
+    with each run's fps and its keyframe-chain frames' median over frames
+    FLAG_WARMUP-(PIPE_FLAG_FRAMES - 1) (each frame synchronised);
+    then the rest of the scene's frames through the same two systems
+    counting the synchronising calls of each frame, gated at 2 in a frame
+    that replays the VIO chain's graphs (graph form, each call named, the
+    eager form's count beside it); both forms bit for bit at the end."""
+    from sos_slam_tpu_torch.models import full_system as FSM
+    tag = f"[graph] ({card})"
+    name = {False: "eager", True: "graph"}
     scene, calib = flag["scene"], flag["calib"]
     stereo = FSM.StereoCalib(T_lr=scene["T_lr"], calib_right=calib)
-    runs = {}
+    runs, syncs = {}, {}
     for graphs in (False, True):
         gc.collect()
         fs = FSM.FullSystem(calib, flag["settings"], stereo=stereo,
                             device=dev, cuda_graphs=graphs)
-        torch.cuda.synchronize()
-        t0 = None
-        for i in range(PIPE_FLAG_FRAMES):
-            if i == FLAG_WARMUP:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
+
+        def feed(i, fs=fs):
             fs.add_active_frame(scene["left"][i], timestamp=i * FLAG_DT,
                                 frame_id=i, image_right=scene["right"][i],
                                 imu_samples=scene["imu"][i])
-        torch.cuda.synchronize()
-        f_fps = (PIPE_FLAG_FRAMES - FLAG_WARMUP) / (time.perf_counter() - t0)
+        frame_ms = []
+        for i in range(PIPE_FLAG_FRAMES):
+            # synchronised frames, as the flagship phase times them
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            feed(i)
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+        steady = frame_ms[FLAG_WARMUP:]
+        f_fps = len(steady) * 1e3 / sum(steady)
+        syncs[graphs] = synced_frames(torch, fs, feed,
+                                      range(PIPE_FLAG_FRAMES, FLAG_FRAMES))
         fs.finish_pending()
         runs[graphs] = fs
-        g = fs.frame_graph
+        kf_ms, nonkf = split_by_keyframe(frame_ms, fs.kf_shell_ids,
+                                         FLAG_WARMUP)
+        g, cg = fs.frame_graph, fs.chain_graph
         log(f"{tag} flagship frames 0-{PIPE_FLAG_FRAMES - 1}, "
             f"{name[graphs]} form: fps over frames {FLAG_WARMUP}-"
-            f"{PIPE_FLAG_FRAMES - 1} {f_fps:.2f}"
+            f"{PIPE_FLAG_FRAMES - 1} {f_fps:.2f}, frames dispatching a "
+            f"keyframe chain there: median {median(kf_ms):.1f} ms ("
+            + ", ".join(f"{v:.1f}" for v in kf_ms) + "), the others: "
+            f"median {median(nonkf):.1f} ms"
             + (f"; capture {g.capture_ms:.1f} ms, graph pool "
                f"{g.pool_bytes} bytes, replays {g.replays}, overrun "
-               f"{g.overruns}, retries {g.retries}" if g is not None
-               else ""))
+               f"{g.overruns}, retries {g.retries}; the VIO chain's "
+               f"graphs (frames 0-{FLAG_FRAMES - 1}): replays "
+               f"{dict(cg.replays)}, eager chains by reason "
+               f"{dict(cg.eager)}" if g is not None else ""))
     a, b = runs[False], runs[True]
     same = (a.kf_shell_ids == b.kf_shell_ids
             and np.array_equal(a.trajectory(), b.trajectory())
             and np.array_equal(a.trajectory(scaled=True),
                                b.trajectory(scaled=True))
-            and torch.equal(a.ba.state, b.ba.state)
-            and torch.equal(a.ba.pt_valid, b.ba.pt_valid)
-            and torch.equal(a.imu.HM, b.imu.HM)
-            and torch.equal(a.imu.bM, b.imu.bM))
+            and all(bits_equal(x, y) for x, y in zip(a.ba, b.ba))
+            and all(bits_equal(x, y) for x, y in zip(a.imm, b.imm))
+            and all(bits_equal(x, y) for x, y in zip(a.imu, b.imu))
+            and a.current_scale == b.current_scale
+            and np.array_equal(a._last_bg, b._last_bg))
     log(f"{tag} flagship: keyframes {b.kf_shell_ids}, graph form bit for "
-        f"bit the eager form (both trajectories, ba.state, pt_valid, "
-        f"imu.HM, imu.bM): {same}")
+        f"bit the eager form (both trajectories, every tensor of the "
+        f"window, the immature pool and the IMU state, the scale, the gyro "
+        f"bias; frames 0-{FLAG_FRAMES - 1}): {same}")
     if not same:
         raise AssertionError("the flagship's graph form is not bit for bit "
                              "its eager form")
-    if b.frame_graph.replays["A"] == 0:
-        raise AssertionError("the flagship's graph form replayed no graph")
+    if b.frame_graph.replays["A"] == 0 or chain_replays(b) == 0:
+        raise AssertionError("the flagship's graph form replayed no frame "
+                             "or no VIO chain graph")
+    del runs, a, b, fs
+    kg, ke = syncs[True], syncs[False]
+    chained = [i for i, (_, redo, _, clean) in kg.items()
+               if clean and not redo]
+    log(f"{tag} flagship: synchronising calls of each add_active_frame "
+        f"call that replays the VIO keyframe chain's graphs (no retry, no "
+        f"overrun, no capture, no dispatch again), frames {chained}: graph "
+        f"form " + ", ".join(str(kg[i][0]) for i in chained)
+        + "; eager form " + ", ".join(str(ke[i][0]) for i in chained)
+        + (f"; the calls, frame {chained[-1]}: graph form "
+           f"{kg[chained[-1]][2]}, eager form {ke[chained[-1]][2]}"
+           if chained else ""))
+    if not chained or max(kg[i][0] for i in chained) > 2:
+        raise AssertionError(
+            "the graph form syncs more than twice in a flagship frame that "
+            "replays the VIO chain: " + str({i: kg[i][2] for i in chained}))
 
 
 def run(torch):
@@ -2596,6 +2848,16 @@ def run(torch):
     log(f"[device] {card}")
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
         f"kind {kind} count {torch.cuda.device_count()}")
+    if "--flagship" in sys.argv[1:]:
+        # the flagship scene's phases alone (a quicker check while the VIO
+        # path changes; no result line)
+        cuda_build.build_all()
+        kernels = [dict(max_abs_err=0.0) for _ in range(4)]
+        flag = flagship(torch, dev, card, kernels)
+        phase_done("flagship scene")
+        graph_flagship(torch, dev, card, flag)
+        phase_done("[graph] flagship")
+        return
 
     # ---- 2. build ----
     t0 = time.perf_counter()

@@ -56,7 +56,10 @@ def main() -> int:
         synthetic.sine_acc, device=dev)
     stereo = FSM.StereoCalib(T_lr=scene["T_lr"], calib_right=calib)
     probe = CS.FoldProbe(torch, E, IM, use=a.use, plant=a.plant, f32=a.f32)
-    fs = FSM.FullSystem(calib, settings, stereo=stereo, device=dev)
+    # eager: the probe reads the card inside the chain, which a CUDA
+    # graph's capture refuses
+    fs = FSM.FullSystem(calib, settings, stereo=stereo, device=dev,
+                        cuda_graphs=False)
     fs.pipeline = False
     for i in range(a.frames):
         probe.frame = i

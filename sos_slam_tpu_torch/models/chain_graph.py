@@ -1,28 +1,39 @@
-"""The vision keyframe chain as one device program with its decisions on
-the device (port of sos_slam_tpu/models/full_system.py `_kf_chain_jit`
-with `_flag_frames_jit`, `_kf_mega_jit`, `_marg_select_jit`,
-`_maybe_marg_frame_lean_jit` and `_compact_dI`), replayed on a card as
-CUDA graphs.
+"""The keyframe chain as one device program with its decisions on the
+device (port of sos_slam_tpu/models/full_system.py `_kf_chain_jit` with
+`_flag_frames_jit`, `_kf_mega_jit`, `_marg_select_jit`,
+`_maybe_marg_frame_lean_jit` and `_compact_dI`, and of its VIO twin
+`_kf_chain_vio_jit` with `_maybe_marg_frame_vio_lean_jit`), replayed on a
+card as CUDA graphs.
 
 `kf_chain_body` is the chain's one definition: the marginalization flags
 (`flag_frames`), frame insertion, activation (K4), the windowed BA (K3),
 HdiF, the tracker template (K2), point marginalization (K3) with the
 new-trace selection (K1 for its gradient pyramid), `MAX_MARG_FRAMES`
-masked frame marginalizations and one image-stack compaction. Nothing in
-it reads the card: the window's slot, the flagged slots (`marg_ks`,
-descending, padded with -1), the selection count `n_have` and the
-per-host dead-point counts `host_out` stay device tensors, and the host
-learns them from the frame's one pinned readback when the frame
-completes. Its random draws (the selector's block directions and the
+masked frame marginalizations and one image-stack compaction, and with
+stereo the scale solve on the fresh template (K1 for the right image's
+pyramid; both branches run and the device `trapped` chooses, as a graph
+takes no branch alone). `kf_chain_vio_body` is the VIO chain's: the
+staged IMU block's intake and the spline propagation before the
+activation, the visual-inertial KKT BA, the stereo scale solve or the
+scale trapping, the VIO point and masked VIO frame marginalizations.
+Nothing in either reads the card: the window's slot, the flagged slots
+(`marg_ks`, descending, padded with -1), the selection count `n_have`
+and the per-host dead-point counts `host_out` stay device tensors, and
+the host learns them from the frame's one pinned readback when the
+frame completes. Its random draws (the selector's block directions and the
 density subsample) are the threefry twin's, made on the device from four
 keys that the host derives at dispatch, where it knows the keyframe's
 key, and copies in; the subsample is drawn always and applied where the
 count asks for it. The eager chain
 (`FullSystem._kf_chain` with `cuda_graphs=False`, on the CPU, or for a
 keyframe the graphs do not take) runs the body with the BA's early-exit
-loop, which reads its break test on the host after each step; the graphs
-run it with the BA bounded (`models/energy.py`, `bounded=True`), which
-gives the same bits. With an export consumer attached (`_exporting()`)
+loop, which reads its break test on the host after each step, and the
+scale LM's early-exit loops; the graphs run them bounded
+(`models/energy.py`, `ops/scale_opt.py`), which gives the same bits. The
+scale solve's cut form (`ops/scale_opt.py::cut_trips`) flags an
+overrun where the eager loops would run more trips: the keyframe's
+completion then dispatches it again with the chain eager
+(`FullSystem._settle`). With an export consumer attached (`_exporting()`)
 the body also computes the dying keyframes' energy columns, and the
 keyframe's completion reads them with the marginalized points, which a
 graph's outputs do not keep: such a chain stays eager.
@@ -30,7 +41,9 @@ graph's outputs do not keep: such a chain stays eager.
 `ChainGraph` holds the static buffers the body reads (the window `ba`,
 the immature pool, the image stack, the activation distance, `host_out`,
 the keyframe's pyramid, pose, affine and exposure, the frame's window
-stats, the keyframe count and the selection's keys) and,
+stats, the keyframe count, the selection's keys, the right image with
+`have_right` and the scale state, and with IMU the IMU state, the staged
+sample block and the keyframe's timestamp) and,
 on a card, the captured graphs. The card's PyTorch has no conditional
 graph nodes, so the graphs take only what their shape allows:
   * the BA budget `settings.max_opt_iterations` (the bootstrap's 20 and
@@ -63,6 +76,7 @@ import numpy as np
 import torch
 
 from sos_slam_tpu_torch.models import energy as E
+from sos_slam_tpu_torch.models import imu as IM
 from sos_slam_tpu_torch.models import window as WIN
 from sos_slam_tpu_torch.models.frame_graph import _clone, _copy_into
 from sos_slam_tpu_torch.ops import ba as B
@@ -151,23 +165,21 @@ def _select(do, new, old):
 
 def marg_frames(fs, ba, imm, dI, host_out, marg_ks, imu=None):
     """The chain's frame marginalizations in the lean form of
-    `_maybe_marg_frame_lean_jit` (with `imu`, its VIO twin's): one
-    marginalization for each of the MAX_MARG_FRAMES slots `marg_ks`
-    (descending, -1 padded), the freed image rows tracked in a slot ->
-    row map `dimap`, then one compaction of the image stack (the
-    counterpart of `_compact_dI`: one gather, the rows from the live
-    count on zeroed). In vision mode each marginalization is selected
-    field by field where its slot is >= 0 (a -1 is clamped to slot 0 and
-    its result dropped), which reads nothing back; the VIO fold reads its
-    slot on the host, so with `imu` the flagged slots are read once and
-    only those are folded. With an export consumer attached, also each
-    slot's energy column on the state before its fold, its image read
+    `_maybe_marg_frame_lean_jit` (with `imu`, of its VIO twin
+    `_maybe_marg_frame_vio_lean_jit`): one marginalization for each of
+    the MAX_MARG_FRAMES slots `marg_ks` (descending, -1 padded), the freed
+    image rows tracked in a slot -> row map `dimap`, then one compaction
+    of the image stack (the counterpart of `_compact_dI`: one gather, the
+    rows from the live count on zeroed). Each marginalization runs on the
+    clamped device slot (a -1 is clamped to slot 0) and is selected field
+    by field of the window, the pool and the IMU state where its slot is
+    >= 0, which reads nothing back. With an export consumer attached, also
+    each slot's energy column on the state before its fold, its image read
     through `dimap` (the entries of padded slots are not used). Returns
     (ba, imm, imu, dI, host_out, [(e_col, n_col)])."""
     F = ba.F
     idx = torch.arange(F, device=dI.device)
     dimap = idx
-    ks = None if imu is None else marg_ks.tolist()
     exporting = fs._exporting()
     ecols = []
     for j in range(MAX_MARG_FRAMES):
@@ -177,11 +189,10 @@ def marg_frames(fs, ba, imm, dI, host_out, marg_ks, imu=None):
         if exporting:
             ecols.append(B.col_energy(ba, dI, kc, fs.settings, fs.w, fs.h,
                                       row=at(dimap, kc)))
-        if imu is None:
-            ba2, imm2, _ = fs._marg_frame(ba, imm, None, kc)
-            ba, imm = _select(do, ba2, ba), _select(do, imm2, imm)
-        elif ks[j] >= 0:
-            ba, imm, imu = fs._marg_frame(ba, imm, imu, ks[j])
+        ba2, imm2, imu2 = fs._marg_frame(ba, imm, imu, kc)
+        ba, imm = _select(do, ba2, ba), _select(do, imm2, imm)
+        if imu is not None:
+            imu = _select(do, imu2, imu)
         src = torch.clamp(torch.where(idx < kc, idx, idx + 1), max=F - 1)
         dimap = torch.where(do, torch.where(idx == F - 1, at(dimap, kc),
                                             dimap[src]), dimap)
@@ -212,22 +223,24 @@ def selection_draws(keys, h: int, w: int, pot: int):
 
 def kf_chain_body(fs, st, imm, pyr, T_cw_new, aff_new, exposure, stats,
                   host_out, n_kf, keys, pot: int, max_its: int,
-                  bounded: bool):
+                  bounded: bool, kf: dict):
     """The vision keyframe chain (`_kf_chain_jit`'s run branch) on the
     state `st` (ba, dI, min_act) and the traced pool `imm`: the flags, the
     frame's insertion with its image, the activation, the BA, the
     template, point marginalization + selection, the frame
-    marginalizations. `pyr` is the new keyframe's pyramid, `T_cw_new` /
-    `aff_new` / `exposure` its pose, affine and exposure, `stats` the
-    frame's window stats, `host_out` (F,) device ints, `n_kf` the
-    keyframe count before it, `keys` the selection's keys on the device
-    (`selection_keys`), `pot` the selector rung, `max_its` the BA budget.
-    `bounded`: the BA's bounded form (module docstring), with which it
-    reads nothing back unless an export consumer is attached (the energy
-    columns index by slot). Returns a dict of device values: state (the
-    entries of `st` it replaces), ba_stats, T_cw_all_t, affs_t, slot,
-    marg_ks, n_have, host_out, and for the host's completion
-    imm_pre_select, marg, marg_pts and ecols."""
+    marginalizations, and with stereo the scale solve. `pyr` is the new
+    keyframe's pyramid, `T_cw_new` / `aff_new` / `exposure` its pose,
+    affine and exposure, `stats` the frame's window stats, `host_out` (F,)
+    device ints, `n_kf` the keyframe count before it, `keys` the
+    selection's keys on the device (`selection_keys`), `pot` the selector
+    rung, `max_its` the BA budget, `kf` the keyframe's other inputs
+    (`keyframe_inputs`: the right image and the scale state). `bounded`:
+    the BA's and the scale solve's bounded forms (module docstring), with
+    which it reads nothing back unless an export consumer is attached
+    (the energy columns index by slot). Returns a dict of device values:
+    state (the entries of `st` it replaces), ba_stats, T_cw_all_t, affs_t,
+    slot, marg_ks, n_have, host_out, scale_out, and for the host's
+    completion imm_pre_select, marg, marg_pts and ecols."""
     s = fs.settings
     ba, dI = st["ba"], st["dI"].clone()
     F = ba.F
@@ -245,6 +258,7 @@ def kf_chain_body(fs, st, imm, pyr, T_cw_new, aff_new, exposure, stats,
     HdiF = ba_stats["HdiF"]
     templates, pc_l0 = WIN.build_track_template(
         ba, HdiF, pyr, len(pyr), fs.tmpl_sizes, fs.w, fs.h)
+    scale_out = fs._scale_solve(templates, kf, bounded)
     T_cw_all = B.state_to_pose(ba.T_cw_eval, ba.state)
     affs = B.aff_real(ba.state)
     imm_pre_select = imm
@@ -260,24 +274,157 @@ def kf_chain_body(fs, st, imm, pyr, T_cw_new, aff_new, exposure, stats,
                    templates=templates, pc_l0=pc_l0),
         ba_stats=ba_stats, T_cw_all_t=T_cw_all, affs_t=affs, slot=slot,
         marg_ks=marg_ks, n_have=n_have, host_out=host_out,
-        imm_pre_select=imm_pre_select, marg=marg, marg_pts=marg_pts,
-        ecols=ecols)
+        scale_out=scale_out, imm_pre_select=imm_pre_select, marg=marg,
+        marg_pts=marg_pts, ecols=ecols)
+
+
+def kf_chain_vio_body(fs, st, imm, pyr, T_cw_new, aff_new, exposure, stats,
+                      host_out, n_kf, keys, pot: int, max_its: int,
+                      bounded: bool, kf: dict):
+    """The VIO keyframe chain (`_kf_chain_vio_jit`'s run branch), as
+    `kf_chain_body` with the IMU state `st["imu"]`: `vio_head` (the flags,
+    the insertion, the IMU intake, the spline propagation, the
+    activation), the visual-inertial KKT BA (K3), the template (K2), the
+    scale (with stereo the solve on the right image's pyramid, K1; else
+    the trapping queue, selected by whether the scale was trapped) and
+    `vio_tail` (the VIO point marginalization, the selection, the masked
+    VIO frame marginalizations with the compaction, the gyro bias of the
+    newest slot). `kf` adds the staged IMU block (acc, gyro, ts, valid)
+    and the keyframe's timestamp, both on the device. Returns
+    `kf_chain_body`'s dict with the IMU state in `state` and `bg`."""
+    s = fs.settings
+    hd = vio_head(fs, st, imm, pyr, T_cw_new, aff_new, exposure, stats,
+                  host_out, n_kf, kf)
+    ba, imu, ba_stats = E.optimize_vio(hd["ba"], hd["imu"], hd["dI"], s,
+                                       fs.w, fs.h, max_its=max_its,
+                                       min_its=s.min_opt_iterations,
+                                       bounded=bounded)
+    HdiF = ba_stats["HdiF"]
+    templates, pc_l0 = WIN.build_track_template(
+        ba, HdiF, pyr, len(pyr), fs.tmpl_sizes, fs.w, fs.h)
+    T_cw_all = B.state_to_pose(ba.T_cw_eval, ba.state)
+    affs = B.aff_real(ba.state)
+
+    # scale: the stereo solve in the chain, or the mono trapping queue
+    if fs._stereo_solve():
+        scale_out = fs._scale_solve(templates, kf, bounded)
+        imu = imu._replace(scale=scale_out[0] / IM.SCALE_SCALE,
+                           scale_trapped=torch.ones_like(imu.scale_trapped))
+    else:
+        was = imu.scale_trapped
+        trap = IM.try_trap_scale(imu, s.scale_trap_thres)
+        newly = trap.scale_trapped & ~was
+        trap = trap._replace(state_zero=torch.where(newly, trap.state,
+                                                    trap.state_zero))
+        imu = _select(was, imu, trap)
+        scale_out = (imu.scale * IM.SCALE_SCALE, imu.scale_trapped,
+                     torch.zeros_like(kf["scale_state"][2]),
+                     torch.full_like(imu.scale, -1.0),
+                     torch.zeros_like(imu.scale_trapped))
+    tl = vio_tail(fs, hd, ba, imu, HdiF, pyr, pot, keys)
+    return dict(
+        state=dict(ba=tl["ba"], imu=tl["imu"], imm=tl["imm"], dI=tl["dI"],
+                   min_act=hd["min_act"], HdiF=HdiF, templates=templates,
+                   pc_l0=pc_l0),
+        ba_stats=ba_stats, T_cw_all_t=T_cw_all, affs_t=affs,
+        slot=hd["slot"], marg_ks=hd["marg_ks"], n_have=tl["n_have"],
+        host_out=tl["host_out"], scale_out=scale_out, bg=tl["bg"],
+        imm_pre_select=hd["imm"], marg=tl["marg"], marg_pts=tl["marg_pts"],
+        ecols=tl["ecols"])
+
+
+def vio_head(fs, st, imm, pyr, T_cw_new, aff_new, exposure, stats,
+             host_out, n_kf, kf: dict) -> dict:
+    """The VIO chain before its BA: the flags, the insertion with the
+    image, the staged IMU block's intake with the spline validity on the
+    device (>3 samples, a bounded gap to the previous window keyframe),
+    the spline propagation and the activation (K4). Returns dict(ba, imu,
+    imm, dI, min_act, slot, flags, marg_ks, host_out)."""
+    s = fs.settings
+    ba, imu, dI = st["ba"], st["imu"], st["dI"].clone()
+    F = ba.F
+    slot = torch.sum(ba.frame_valid)
+    flags, marg_ks = flag_frames(stats, ba.exposure, ba.frame_valid,
+                                 host_out, n_kf, s)
+    ba = WIN.insert_frame(ba, T_cw_new, aff_new, exposure,
+                          fs._prior_row(first=False))
+    dI.index_copy_(0, torch.clamp(slot, max=F - 1).reshape(1), pyr[0][None])
+    acc, gyro, ts, valid = kf["staged"]
+    timestamp = kf["timestamp"]
+    prev = torch.clamp(slot - 1, min=0)
+    dt_kf = timestamp - at(imu.timestamps, prev)
+    sv = (torch.sum(valid) > 3) & (dt_kf < s.max_imu_interval)
+    imu = fs._set_imu(imu, slot, acc, gyro, ts, valid, timestamp, sv)
+    # spline propagation for the incoming KF (HessianBlocks.cpp:357)
+    T_all = B.state_to_pose(ba.T_cw_eval, ba.state)
+    last_bias = (at(imu.state, prev) * IM._s21(imu.state))[:6]
+    imu = IM.propagate_imu_state(imu, slot, at(imu.timestamps, prev),
+                                 at(imu.vel, prev), at(T_all, prev)[:3, :3],
+                                 last_bias, s)
+    ba, imm, min_act = fs._activate(ba, imm, dI, st["min_act"])
+    return dict(ba=ba, imu=imu, imm=imm, dI=dI, min_act=min_act, slot=slot,
+                flags=flags, marg_ks=marg_ks, host_out=host_out)
+
+
+def vio_tail(fs, hd: dict, ba, imu, HdiF, pyr, pot: int, keys) -> dict:
+    """The VIO chain after its scale: the VIO point marginalization (K3,
+    use_rz) and the point drop, the selection (K1) into the pool of
+    `vio_head`'s `hd`, the masked VIO frame marginalizations with the
+    image stack's compaction, and the newest slot's gyro bias. Returns
+    dict(ba, imu, imm, dI, n_have, host_out, bg, marg, marg_pts,
+    ecols)."""
+    s = fs.settings
+    marg, drop, died = fs._flag_points(ba, HdiF, hd["flags"])
+    marg_pts = (ba.host, ba.u, ba.v, ba.idepth)
+    ba, imu = E.marginalize_points_vio(ba, imu, hd["dI"], marg, s, fs.w,
+                                       fs.h)
+    ba = E.drop_points(ba, drop)
+    imm, n_have = fs._select_insert(hd["imm"], pyr[0], hd["slot"], None, pot,
+                                    keys=keys)
+    ba, imm, imu, dI, host_out, ecols = marg_frames(
+        fs, ba, imm, hd["dI"], hd["host_out"] + died, hd["marg_ks"], imu=imu)
+    newest = B.newest_slot(ba.frame_valid)
+    bg = (at(imu.state, newest) * IM._s21(imu.state))[3:6]
+    return dict(ba=ba, imu=imu, imm=imm, dI=dI, n_have=n_have,
+                host_out=host_out, bg=bg, marg=marg, marg_pts=marg_pts,
+                ecols=ecols)
+
+
+def keyframe_inputs(fs, right, scale_state, staged=None, timestamp=None):
+    """The keyframe chain's inputs beyond the vision ones, as the bodies
+    read them: the right image (None without one: `have_right` false) and
+    the scale state (s, trapped, fails) as device tensors, and with VIO
+    the staged IMU block (acc, gyro, ts, valid) and the keyframe's
+    timestamp (0-dim)."""
+    kf = dict(right=right, scale_state=tuple(scale_state),
+              have_right=torch.full((), right is not None,
+                                    dtype=torch.bool, device=fs.device))
+    if staged is not None:
+        kf.update(staged=tuple(staged[k] for k in ("acc", "gyro", "ts",
+                                                   "valid")),
+                  timestamp=timestamp)
+    return kf
 
 
 # what a record keeps of a replay's outputs
 _KEEP_STATS = ("energy", "rmse", "n_its", "n_active", "is_lost")
-_KEEP = ("T_cw_all_t", "affs_t", "slot", "marg_ks", "n_have", "host_out")
+_KEEP = ("T_cw_all_t", "affs_t", "slot", "marg_ks", "n_have", "host_out",
+         "scale_out")
 
 
 class ChainGraph:
-    """The vision keyframe chain of one FullSystem as bodies on static
-    buffers; on a card, as the CUDA graphs of those bodies (module
-    docstring). `step` is the fused path's keyframe chain."""
+    """The keyframe chain of one FullSystem (vision, or with IMU the VIO
+    chain) as bodies on static buffers; on a card, as the CUDA graphs of
+    those bodies (module docstring). `step` is the fused path's keyframe
+    chain."""
 
     def __init__(self, fs):
         self.fs = fs
         self.device = fs.device
         self.on_card = self.device.type == "cuda"
+        self.vio = fs.settings.enable_imu
+        self.body = kf_chain_vio_body if self.vio else kf_chain_body
+        self.keep = _KEEP + (("bg",) if self.vio else ())
         self.inp = None          # the static inputs, made at the first load
         self.out = {}            # rung -> its outputs
         self.graphs = {}         # rung -> CUDA graph
@@ -294,13 +441,18 @@ class ChainGraph:
     # the body and its graphs
     # ------------------------------------------------------------------
     def _chain(self, pot: int):
-        """The whole chain on the static buffers, the BA bounded: the body
-        of rung `pot`'s graph. Reads nothing back."""
+        """The whole chain on the static buffers, the BA and the scale
+        solve bounded: the body of rung `pot`'s graph. Reads nothing
+        back."""
         i, fs = self.inp, self.fs
-        self.out[pot] = kf_chain_body(
+        kf = dict(right=i["right"], have_right=i["have_right"],
+                  scale_state=i["scale_state"])
+        if self.vio:
+            kf.update(staged=i["staged"], timestamp=i["timestamp"])
+        self.out[pot] = self.body(
             fs, i, i["imm"], i["pyr"], i["T_cw_new"], i["aff_new"],
             i["exposure"], i["stats"], i["host_out"], i["n_kf"], i["keys"],
-            pot, fs.settings.max_opt_iterations, bounded=True)
+            pot, fs.settings.max_opt_iterations, True, kf)
 
     def _run(self, pot: int) -> None:
         """One replay of rung `pot`'s graph (on the CPU: the body
@@ -373,19 +525,30 @@ class ChainGraph:
         self.inp["keys"].copy_(host, non_blocking=self.on_card)
 
     def _load(self, st, imm, pyr, T_cw_new, aff_new, exposure, stats,
-              host_out, n_kf: int) -> None:
-        """Fill the static inputs: copies on the device and one fill from
-        a host int, none of which waits for the card."""
+              host_out, n_kf: int, kf: dict) -> None:
+        """Fill the static inputs: copies on the device and fills from
+        host values, none of which waits for the card. The right image is
+        copied in only when the keyframe has one (`have_right` says
+        so)."""
         vals = dict(ba=st["ba"], dI=st["dI"], min_act=st["min_act"],
                     imm=imm, pyr=tuple(pyr), T_cw_new=T_cw_new,
                     aff_new=aff_new, exposure=exposure, stats=tuple(stats),
-                    host_out=host_out)
+                    host_out=host_out, have_right=kf["have_right"],
+                    scale_state=kf["scale_state"])
+        if self.vio:
+            vals.update(imu=st["imu"], staged=kf["staged"],
+                        timestamp=kf["timestamp"])
+        if kf["right"] is not None:
+            vals["right"] = kf["right"]
         if self.inp is None:
             self.inp = {k: _clone(v) for k, v in vals.items()}
             self.inp["n_kf"] = torch.zeros((), dtype=torch.int64,
                                            device=self.device)
             self.inp["keys"] = torch.zeros((4, 2), dtype=torch.int64,
                                            device=self.device)
+            if "right" not in self.inp:
+                self.inp["right"] = torch.zeros(
+                    self.fs.h, self.fs.w, device=self.device)
         for k, v in vals.items():
             if torch.is_tensor(v):
                 self.inp[k].copy_(v)
@@ -394,30 +557,35 @@ class ChainGraph:
         self.inp["n_kf"].fill_(n_kf)
 
     def prepare(self, st, imm, pyr, T_cw_new, aff_new, exposure, stats,
-                host_out, n_kf: int, key) -> float:
-        """Load the inputs and stage the selection's keys under `key`.
-        Returns the host ms of the keys and their staging."""
+                host_out, n_kf: int, key, kf: dict | None = None) -> float:
+        """Load the inputs (`kf`: `keyframe_inputs`'s; None: no right image
+        and the system's scale state) and stage the selection's keys under
+        `key`. Returns the host ms of the keys and their staging."""
+        if kf is None:
+            kf = keyframe_inputs(self.fs, None, self.fs._scale_state())
         self._load(st, imm, pyr, T_cw_new, aff_new, exposure, stats,
-                   host_out, n_kf)
+                   host_out, n_kf, kf)
         t0 = time.perf_counter()
         self._stage_keys(key)
         return (time.perf_counter() - t0) * 1e3
 
     def step(self, st, imm, pyr, T_cw_new, aff_new, exposure, stats,
-             host_out, n_kf: int, key, pot: int) -> dict:
+             host_out, n_kf: int, key, pot: int,
+             kf: dict | None = None) -> dict:
         """The chain of one keyframe at rung `pot` (`has(pot)` must hold)
-        on the state `st` (a record's: ba, dI, min_act, imu, key, ...): replays
-        the rung's graph, capturing it first if it is not yet. Returns
-        `kf_chain_body`'s dict (fresh tensors), its state merged into `st`,
-        without the host-completion entries of an export or a classic
-        keyframe."""
+        on the state `st` (a record's: ba, dI, min_act, imu, key, ...) with
+        the keyframe's other inputs `kf` (`keyframe_inputs`; None: see
+        `prepare`): replays the rung's graph, capturing it first if it is
+        not yet. Returns the body's dict (fresh tensors), its state merged
+        into `st`, without the host-completion entries of an export or a
+        classic keyframe."""
         self.draw_ms.append(self.prepare(st, imm, pyr, T_cw_new, aff_new,
                                          exposure, stats, host_out, n_kf,
-                                         key))
+                                         key, kf))
         self.capture(pot)
         self._run(pot)
         o = self.out[pot]
-        res = {k: _clone(o[k]) for k in _KEEP}
+        res = {k: _clone(o[k]) for k in self.keep}
         res["ba_stats"] = {k: _clone(o["ba_stats"][k]) for k in _KEEP_STATS}
         res["state"] = dict(st, **_clone(o["state"]))
         return res

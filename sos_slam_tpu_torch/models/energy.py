@@ -191,8 +191,7 @@ def optimize(ba: B.BAState, dI, settings: Settings, w: int, h: int,
         for _ in range(max_its):
             new, cb, _ = gn_step(ba, dI, settings, w, h, ev=ev)
             live = ~done
-            ba = B.BAState(*(a if b is a else torch.where(live, b, a)
-                             for a, b in zip(ba, new)))
+            ba = _freeze(live, new, ba)
             it = it + live.to(torch.int32)
             done = done | (live & cb & (it >= min_its))
     else:
@@ -424,45 +423,75 @@ def gn_step_vio(ba: B.BAState, imu: IM.ImuState, dI, settings: Settings,
 
 
 def optimize_vio(ba: B.BAState, imu: IM.ImuState, dI, settings: Settings,
-                 w: int, h: int, max_its: int = 6, min_its: int = 1):
+                 w: int, h: int, max_its: int = 6, min_its: int = 1,
+                 bounded: bool = False):
     """FullSystem::optimize with the IMU initialized: the VIO KKT solve per
     step, then the newest frame's FEJ reset, its velocity update and the
-    final linearization. Returns (ba, imu, stats dict)."""
+    final linearization. Returns (ba, imu, stats dict).
+
+    As `optimize`: the loop leaves early on the break test read on the
+    host; `bounded=True` runs `max_its` steps with every field of both
+    states frozen by `torch.where` from the step after a device `done`,
+    counts the steps on the device and reads nothing back (the JAX
+    package's `lax.while_loop`). Both forms give the same bits."""
     ba = ba._replace(res_state=torch.where(
         ba.res_exist, torch.full_like(ba.res_state, B.RES_IN), ba.res_state))
     ev = B.make_precalc_eval(ba)
-    it = 0
-    canbreak = False
-    while it < max_its and not (canbreak and it >= min_its):
-        ba, imu, cb, _ = gn_step_vio(ba, imu, dI, settings, w, h, ev=ev)
-        canbreak = bool(cb)
-        it += 1
+    if bounded:
+        dev = ba.state.device
+        it = torch.zeros((), dtype=torch.int32, device=dev)
+        done = torch.zeros((), dtype=torch.bool, device=dev)
+        for _ in range(max_its):
+            nba, nimu, cb, _ = gn_step_vio(ba, imu, dI, settings, w, h, ev=ev)
+            live = ~done
+            ba = _freeze(live, nba, ba)
+            imu = _freeze(live, nimu, imu)
+            it = it + live.to(torch.int32)
+            done = done | (live & cb & (it >= min_its))
+    else:
+        it = 0
+        canbreak = False
+        while it < max_its and not (canbreak and it >= min_its):
+            ba, imu, cb, _ = gn_step_vio(ba, imu, dI, settings, w, h, ev=ev)
+            canbreak = bool(cb)
+            it += 1
     ba = _fej_reset_newest(ba)
-    newest = int(torch.sum(ba.frame_valid)) - 1
+    F = ba.F
+    newest = B.newest_slot(ba.frame_valid)
+    sel = (torch.arange(F, device=ba.state.device) == newest)[:, None]
 
     # updateVel(newest) from the second-newest window frame
-    prev = max(newest - 1, 0)
-    t = imu.timestamps[prev] - imu.timestamps[newest]
+    prev = torch.clamp(newest - 1, min=0)
+    t = at(imu.timestamps, prev) - at(imu.timestamps, newest)
     T_cw2 = B.state_to_pose(ba.T_cw_eval, ba.state)
-    tsl_diff = T_cw2[prev, :3, 3] - T_cw2[newest, :3, 3]
-    sq = (imu.state[newest] * IM._s21(imu.state))[9:12]
+    tsl_diff = at(T_cw2, prev)[:3, 3] - at(T_cw2, newest)[:3, 3]
+    st_new = at(imu.state, newest)
+    sq = (st_new * IM._s21(imu.state))[9:12]
     vel_new = tsl_diff / torch.where(torch.abs(t) < 1e-6,
                                      torch.full_like(t, -1e-6), t) \
         - t * sq - t * t * sq
-    vel = imu.vel.clone()
-    vel[newest] = torch.where(imu.scale_trapped, vel_new, imu.vel[newest])
-    state_zero = imu.state_zero.clone()
-    state_zero[newest] = imu.state[newest]
-    imu = imu._replace(vel=vel, state_zero=state_zero)
+    vel_new = torch.where(imu.scale_trapped, vel_new, at(imu.vel, newest))
+    imu = imu._replace(vel=torch.where(sel, vel_new, imu.vel),
+                       state_zero=torch.where(sel, st_new, imu.state_zero))
     ba, stats = _final_linearization(ba, dI, settings, w, h, it)
     return ba, imu, stats
 
 
-def marginalize_frame_vio(ba: B.BAState, imu: IM.ImuState, k: int,
+def _freeze(live, new, old):
+    """`new` where the device bool `live` holds, else `old`, field by
+    field of a NamedTuple state."""
+    return type(old)(*(a if b is a else torch.where(live, b, a)
+                       for a, b in zip(old, new)))
+
+
+def marginalize_frame_vio(ba: B.BAState, imu: IM.ImuState, k,
                           settings: Settings, jax_form: bool = False):
     """VIO-mode frame marginalization (EnergyFunctional::marginalizeFrame,
     IMU branch): fold the dying frame's IMU links into HM, Schur out its
-    29-dim block, compact both states. Returns (ba, imu).
+    29-dim block, compact both states. Returns (ba, imu). `k`: an int or a
+    0-dim int tensor on the window's device; nothing is read back (the
+    window count, the dying slot's spline, the block order and the dying
+    block's dims stay on the device), as in `marginalize_frame`.
 
     Directions of the dying block that carry no information (the 15
     spline dims, which are zeroed when the slot's spline is not valid,
@@ -474,7 +503,10 @@ def marginalize_frame_vio(ba: B.BAState, imu: IM.ImuState, k: int,
     F = ba.F
     D = IM.vio_dim(F)
     dev = ba.state.device
-    n = int(torch.sum(ba.frame_valid))
+    if not torch.is_tensor(k):
+        k = torch.tensor(k, device=dev)
+    k = k.reshape(())
+    n = torch.sum(ba.frame_valid)
     fr = torch.arange(F, device=dev)
 
     # --- IMU connection terms of the pairs (k-1, k) and (k, k+1) ---
@@ -493,11 +525,12 @@ def marginalize_frame_vio(ba: B.BAState, imu: IM.ImuState, k: int,
 
     # --- add the dying frame's dso prior ---
     didx = CPARS + 1 + 29 * k + torch.arange(8, device=dev)
-    HM[didx, didx] += ba.prior[k]
-    bM[didx] += ba.prior[k] * ba.state[k]
+    prior_k = at(ba.prior, k)
+    HM[didx, didx] += prior_k
+    bM[didx] += prior_k * at(ba.state, k)
 
     # --- discard the unconstrained spline dims of the dying frame ---
-    spline_dead = not (k > 0 and bool(imu.spline_valid[k]))
+    spline_dead = ~((k > 0) & at(imu.spline_valid, k))
     dim_in_frame = torch.remainder(dims - (CPARS + 1), 29)
     dead = (dim_frame == k) & (dim_in_frame >= 14) & spline_dead
     keepm = (~dead).to(torch.float32)
@@ -505,9 +538,9 @@ def marginalize_frame_vio(ba: B.BAState, imu: IM.ImuState, k: int,
     bM = bM * keepm
 
     # --- move frame k's 29-block to the last valid block, Schur it out ---
-    order = [b for b in range(F) if b != k and b < n] + [k] \
-        + list(range(n, F))
-    order_t = torch.tensor(order, device=dev)
+    # new block order [0..k-1, k+1..n-1, k, n..F-1]: old slot per new slot
+    shifted = torch.where((fr >= k) & (fr < n - 1), fr + 1, fr)
+    order_t = torch.where(fr == n - 1, k, shifted)
     perm = torch.cat([torch.arange(CPARS + 1, device=dev),
                       (CPARS + 1 + 29 * order_t[:, None]
                        + torch.arange(29, device=dev)[None, :]).reshape(-1)])
@@ -527,9 +560,9 @@ def marginalize_frame_vio(ba: B.BAState, imu: IM.ImuState, k: int,
     # --- compact the imu frame arrays ---
     fv_new = ba.frame_valid[order_t] & (fr != n - 1)
     fvf = fv_new[:, None].to(torch.float32)
-    spline_valid = imu.spline_valid[order_t] & fv_new
     # the frame now following slot k-1 lost its spline predecessor
-    spline_valid[min(max(k, 0), F - 1)] = False
+    spline_valid = imu.spline_valid[order_t] & fv_new \
+        & (fr != torch.clamp(k, 0, F - 1))
     imu = imu._replace(
         state=imu.state[order_t] * fvf,
         state_zero=imu.state_zero[order_t] * fvf,
@@ -539,8 +572,8 @@ def marginalize_frame_vio(ba: B.BAState, imu: IM.ImuState, k: int,
         acc=imu.acc[order_t], gyro=imu.gyro[order_t], ts=imu.ts[order_t],
         imu_valid=imu.imu_valid[order_t] & fv_new[:, None],
         HM=HM2, bM=bM2)
-    prior = ba.prior.clone()
-    prior[k] = 0.0
+    prior = torch.where((fr == k)[:, None], torch.zeros_like(ba.prior),
+                        ba.prior)
     return marginalize_frame(ba._replace(prior=prior), k), imu
 
 
@@ -550,10 +583,11 @@ def marginalize_frame_vio(ba: B.BAState, imu: IM.ImuState, k: int,
 LIVE_CUT = 1e-6
 
 
-def fold_vio_block(Hs, bs, sl: int, in_marg, jax_form: bool = False):
+def fold_vio_block(Hs, bs, sl, in_marg, jax_form: bool = False):
     """The Schur fold of the scaled VIO prior (Hs, bs) over its 29 dims
-    from `sl` (`in_marg`). Returns the folded (Hs, bs), zero on the folded
-    dims.
+    from `sl` (`in_marg`; `sl` an int or a 0-dim device int, the block
+    taken by `index_select`). Returns the folded (Hs, bs), zero on the
+    folded dims.
 
     The fold runs in float64 over the numerically live subspace of the
     block only (`numerics.live_pinv`): a direction the marginalized
@@ -563,19 +597,21 @@ def fold_vio_block(Hs, bs, sl: int, in_marg, jax_form: bool = False):
     with its rounding. `jax_form=True` inverts the whole block in f32 as
     the JAX package does, which leaves the prior NaN when the block is
     singular (for the parity tests only)."""
+    gi = sl + torch.arange(29, device=Hs.device)
     keep = ~in_marg
     if jax_form:
-        Hmm = Hs[sl:sl + 29, sl:sl + 29]
+        Hmm = Hs.index_select(0, gi).index_select(1, gi)
         Hmm_inv = inv(0.5 * (Hmm + Hmm.T))
         Hmm_inv = 0.5 * (Hmm_inv + Hmm_inv.T)
         keep = keep.to(Hs.dtype)
     else:
         Hs, bs, keep = Hs.double(), bs.double(), keep.double()
-        Hmm_inv = live_pinv(Hs[sl:sl + 29, sl:sl + 29], LIVE_CUT)
-    Hxm = Hs[:, sl:sl + 29] * keep[:, None]
+        Hmm_inv = live_pinv(Hs.index_select(0, gi).index_select(1, gi),
+                            LIVE_CUT)
+    Hxm = Hs.index_select(1, gi) * keep[:, None]
     bli = Hxm @ Hmm_inv
     Hs_new = (Hs - bli @ Hxm.T) * keep[:, None] * keep[None, :]
-    bs_new = (bs - bli @ bs[sl:sl + 29]) * keep
+    bs_new = (bs - bli @ bs.index_select(0, gi)) * keep
     return Hs_new.float(), bs_new.float()
 
 

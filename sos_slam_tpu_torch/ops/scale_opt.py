@@ -12,12 +12,26 @@ takes a (G,) start and the multi-guess initialization
 vmap). The cutoff-doubling loop and the LM loop run while any guess is
 still active; a finished guess is frozen by masks, and the per-level
 repeat runs for every guess and is kept only where it is due, which is
-what the JAX while loops and cond do under vmap. The loop conditions are
-read on the host (one sync per iteration).
+what the JAX while loops and cond do under vmap.
+
+Three forms of the same loops: the eager one (`trips=None`) reads each
+loop condition on the host (one sync per trip) and leaves early;
+`trips=full_trips(n)` runs every loop to its bound (`rep < 50` allows 6 cutoff
+doublings, the LM loop `max_iters` trips, the repeat always, kept where
+due), with the finished guesses frozen, which gives the eager form's
+bits and reads nothing back (the counterpart of the JAX package's
+`while_loop`s and `cond`); a cut form (`trips` a tuple of (doublings,
+LM trips, repeat) a level, from the coarsest) runs fewer trips and
+returns an overrun flag wherever the eager form would have run more,
+whose caller then solves again eagerly. The scale-independent part of a
+level's warp (the template's bearings and the Jacobian's numerators) is
+made once a level.
 """
 
 from __future__ import annotations
 
+import collections
+import functools
 from typing import Tuple
 
 import torch
@@ -30,19 +44,25 @@ from sos_slam_tpu_torch.ops.tracker import (LAMBDA_EXTRAPOLATION_LIMIT,
 SCALE_GUESSES = (0.1, 0.2, 0.5, 1.0, 2.0, 5.0, 10.0)   # FullSystem.cpp:1135
 
 
-def res_and_hb_scale(dI_right: torch.Tensor, tmpl: LevelTemplate,
-                     scale: torch.Tensor, R01: torch.Tensor,
-                     t01: torch.Tensor, intr0: Tuple, intr1: Tuple,
-                     cutoff: torch.Tensor, huber: float) -> dict:
-    """Energy and 1-DoF normal equations at one level for G scales.
-    scale and cutoff (G,). Returns dict of (G,) E, num_in, num_sat, H, b."""
+def _level_consts(tmpl: LevelTemplate, R01, t01, intr0):
+    """The scale-independent part of a level's warp: the template points'
+    rotated bearings R01 K0^-1 x and the numerators of du/ds and dv/ds
+    (calcGSSSEScale, ScaleOptimizer.cpp:232-271)."""
     fx0, fy0, cx0, cy0 = intr0
-    fx1, fy1, cx1, cy1 = intr1
-    h, w = dI_right.shape[0], dI_right.shape[1]
-
     xn = torch.stack([(tmpl.u - cx0) / fx0, (tmpl.v - cy0) / fy0,
                       torch.ones_like(tmpl.u)], -1)
     rKx = xn @ R01.T                                      # (N,3)
+    rx = rKx / torch.clamp(tmpl.idepth, min=1e-12)[:, None]
+    xno = rx[:, 0] * t01[2] - rx[:, 2] * t01[0]
+    yno = rx[:, 1] * t01[2] - rx[:, 2] * t01[1]
+    return rKx, rx, xno, yno
+
+
+def _res(dI_right, tmpl, consts, scale, t01, intr1, cutoff, huber) -> dict:
+    """`res_and_hb_scale` on a level's `_level_consts`."""
+    rKx, rx, xno, yno = consts
+    fx1, fy1, cx1, cy1 = intr1
+    h, w = dI_right.shape[0], dI_right.shape[1]
     pt = scale[:, None, None] * rKx[None] \
         + t01[None, None, :] * tmpl.idepth[None, :, None]  # (G,N,3)
     u_ = pt[..., 0] / pt[..., 2]
@@ -70,13 +90,10 @@ def res_and_hb_scale(dI_right: torch.Tensor, tmpl: LevelTemplate,
     num_in = torch.sum(inb, -1)
     num_sat = torch.sum(saturated, -1)
 
-    # dr/ds with rx = R K^-1 x / id (calcGSSSEScale, ScaleOptimizer.cpp:
-    # 232-271): du/ds = (rx0*tz - rx2*tx) / (s*rx2 + tz)^2, alike for v
-    rx = rKx / torch.clamp(tmpl.idepth, min=1e-12)[:, None]
+    # dr/ds with rx = R K^-1 x / id: du/ds = (rx0*tz - rx2*tx) /
+    # (s*rx2 + tz)^2, alike for v
     denom = scale[:, None] * rx[None, :, 2] + t01[2]
     deno = 1.0 / torch.clamp(denom * denom, min=1e-18)
-    xno = rx[:, 0] * t01[2] - rx[:, 2] * t01[0]
-    yno = rx[:, 1] * t01[2] - rx[:, 2] * t01[1]
     J = hit[..., 1] * fx1 * deno * xno + hit[..., 2] * fy1 * deno * yno
 
     wts = torch.where(active, hw, zero)
@@ -86,28 +103,95 @@ def res_and_hb_scale(dI_right: torch.Tensor, tmpl: LevelTemplate,
     return dict(E=E, num_in=num_in, num_sat=num_sat, H=H, b=b)
 
 
+def res_and_hb_scale(dI_right: torch.Tensor, tmpl: LevelTemplate,
+                     scale: torch.Tensor, R01: torch.Tensor,
+                     t01: torch.Tensor, intr0: Tuple, intr1: Tuple,
+                     cutoff: torch.Tensor, huber: float) -> dict:
+    """Energy and 1-DoF normal equations at one level for G scales.
+    scale and cutoff (G,). Returns dict of (G,) E, num_in, num_sat, H, b."""
+    return _res(dI_right, tmpl, _level_consts(tmpl, R01, t01, intr0), scale,
+                t01, intr1, cutoff, huber)
+
+
+# the cutoff doubles while rep < 50: at most 6 times from 1
+MAX_DOUBLINGS = 6
+
+
+# the cut form's LM trips a level, from the coarsest; it doubles no cutoff
+# and runs no repeat (a doubling, which the repeat follows, overruns). The
+# flagship scene's trapped solves made at most 4, 2, 1 and 1 trips at
+# levels 3-0 (chip_smoke.py's trips line, NVIDIA H100)
+CUT_LM_TRIPS = (8, 4, 3, 3)
+
+
+def cut_trips(n_levels: int) -> tuple:
+    """The cut form's trips, a level from the coarsest (`CUT_LM_TRIPS`,
+    its last entry for further levels)."""
+    return tuple((0, CUT_LM_TRIPS[min(j, len(CUT_LM_TRIPS) - 1)], False)
+                 for j in range(n_levels))
+
+
+def full_trips(n_levels: int) -> tuple:
+    """The full bounded form's trips, a level from the coarsest."""
+    return tuple((MAX_DOUBLINGS, MAX_ITERS_PER_LEVEL[min(
+        lvl, len(MAX_ITERS_PER_LEVEL) - 1)], True)
+        for lvl in range(n_levels - 1, -1, -1))
+
+
+# the eager form's trips, counted by (G, level, doublings, LM trips,
+# repeat's doublings, repeat's LM trips): which cut form fits the data
+TRIPS = collections.Counter()
+
+
+def _loop(n: int | None, go_fn, body):
+    """`body()` while `go_fn()` holds on any lane: read on the host and at
+    most `n` times (None: no cap) in the eager form; with `n` an int and
+    `go_fn` None, exactly `n` times. Returns the trips made."""
+    if go_fn is None:
+        for _ in range(n):
+            body()
+        return n
+    k = 0
+    while (n is None or k < n) and bool(go_fn().any()):
+        body()
+        k += 1
+    return k
+
+
 def scale_level(dI_right, tmpl, scale0, R01, t01, intr0, intr1,
-                max_iters: int, coarse_cutoff_th: float, huber: float):
+                max_iters: int, coarse_cutoff_th: float, huber: float,
+                trips=None):
     """1-DoF LM at one level with the cutoff-doubling loop, for G scales
-    scale0 (G,). Returns (scale, rms, cutoff_repeat), each (G,)."""
+    scale0 (G,). `trips`: None (the eager form) or (doublings, LM trips)
+    run masked (module docstring). Returns (scale, rms, cutoff_repeat,
+    overrun, (doublings, LM trips) made), each of the first four (G,);
+    overrun: the lanes that would have run more trips."""
     G = scale0.shape[0]
     dev = scale0.device
+    consts = _level_consts(tmpl, R01, t01, intr0)
 
     def res(s, cutoff):
-        return res_and_hb_scale(dI_right, tmpl, s, R01, t01, intr0, intr1,
-                                cutoff, huber)
+        return _res(dI_right, tmpl, consts, s, t01, intr1, cutoff, huber)
 
-    rep = torch.ones(G, dtype=torch.float32, device=dev)
-    r0 = res(scale0, coarse_cutoff_th * rep)
-    sat = r0["num_sat"] / torch.clamp(r0["num_in"], min=1)
-    while True:
-        go = (sat > 0.6) & (rep < 50.0)
-        if not bool(go.any()):
-            break
-        rep = torch.where(go, rep * 2.0, rep)
-        rr = res(scale0, coarse_cutoff_th * rep)
-        sat = torch.where(go, rr["num_sat"] / torch.clamp(rr["num_in"], min=1),
-                          sat)
+    c = dict(rep=torch.ones(G, dtype=torch.float32, device=dev))
+    r0 = res(scale0, coarse_cutoff_th * c["rep"])
+    c["sat"] = r0["num_sat"] / torch.clamp(r0["num_in"], min=1)
+
+    def c_go():
+        return (c["sat"] > 0.6) & (c["rep"] < 50.0)
+
+    def c_body():
+        go = c_go()
+        c["rep"] = torch.where(go, c["rep"] * 2.0, c["rep"])
+        rr = res(scale0, coarse_cutoff_th * c["rep"])
+        c["sat"] = torch.where(
+            go, rr["num_sat"] / torch.clamp(rr["num_in"], min=1), c["sat"])
+
+    n_dbl = _loop(None if trips is None else trips[0],
+                  c_go if trips is None else None, c_body)
+    rep = c["rep"]
+    over = c_go() if trips is not None else torch.zeros(
+        G, dtype=torch.bool, device=dev)
     cutoff = coarse_cutoff_th * rep
     r0 = res(scale0, cutoff)
 
@@ -115,10 +199,12 @@ def scale_level(dI_right, tmpl, scale0, R01, t01, intr0, intr1,
              E=r0["E"], num=r0["num_in"], H=r0["H"], b=r0["b"],
              lam=torch.full((G,), 0.01, dtype=torch.float32, device=dev),
              done=torch.zeros(G, dtype=torch.bool, device=dev))
-    while True:
-        active = (s["it"] < max_iters) & ~s["done"]
-        if not bool(active.any()):
-            break
+
+    def lm_go():
+        return (s["it"] < max_iters) & ~s["done"]
+
+    def lm_body():
+        active = lm_go()
         Hl = s["H"] * (1.0 + s["lam"])
         inc = -s["b"] / torch.where(torch.abs(Hl) < 1e-18,
                                     torch.full_like(Hl, 1e-18), Hl)
@@ -143,16 +229,21 @@ def scale_level(dI_right, tmpl, scale0, R01, t01, intr0, intr1,
         new_lam = torch.where(accept, s["lam"] * 0.5,
                               torch.clamp(s["lam"] * 4.0,
                                           min=LAMBDA_EXTRAPOLATION_LIMIT))
-        s = dict(it=s["it"] + active.to(torch.int32),
+        s.update(it=s["it"] + active.to(torch.int32),
                  scale=sel(s_new, s["scale"]),
                  E=sel(rn["E"], s["E"]), num=sel(rn["num_in"], s["num"]),
                  H=sel(rn["H"], s["H"]), b=sel(rn["b"], s["b"]),
                  lam=torch.where(active, new_lam, s["lam"]),
                  done=torch.where(active, ~(inc > 1e-3), s["done"]))
+
+    n_lm = _loop(None if trips is None else trips[1],
+                 lm_go if trips is None else None, lm_body)
+    if trips is not None:
+        over = over | lm_go()
     rms = torch.sqrt(torch.where(
         s["num"] > 0, s["E"] / torch.clamp(s["num"], min=1),
         torch.full_like(s["E"], float("nan"))))
-    return s["scale"], rms, rep
+    return s["scale"], rms, rep, over, (n_dbl, n_lm)
 
 
 def optimize_scale(pyr_right, templates, scale_init: torch.Tensor,
@@ -160,39 +251,83 @@ def optimize_scale(pyr_right, templates, scale_init: torch.Tensor,
                    intr1: Tuple, n_levels: int,
                    coarse_cutoff_th: float = 20.0, huber: float = 9.0):
     """Coarse-to-fine scale LM (ScaleOptimizer::optimizeScale) for G start
-    scales scale_init (G,). Returns (scale, rms at level 0), each (G,)."""
+    scales scale_init (G,), eagerly. Returns (scale, rms at level 0), each
+    (G,)."""
+    return scale_lm(pyr_right, templates, scale_init, R01, t01, intr0,
+                    intr1, n_levels, coarse_cutoff_th, huber)[:2]
+
+
+def scale_lm(pyr_right, templates, scale_init: torch.Tensor,
+             R01: torch.Tensor, t01: torch.Tensor, intr0: Tuple,
+             intr1: Tuple, n_levels: int, coarse_cutoff_th: float = 20.0,
+             huber: float = 9.0, trips=None):
+    """`optimize_scale` in any form: `trips` None (eager), `full_trips` or
+    a cut form, one (doublings, LM trips, repeat) a level from the
+    coarsest (module docstring). Returns (scale, rms at level 0, overrun),
+    each (G,)."""
     scale = scale_init
+    G = scale.shape[0]
     rms0 = torch.full_like(scale, float("nan"))
     have_rep = torch.zeros_like(scale, dtype=torch.bool)
-    for lvl in range(n_levels - 1, -1, -1):
+    over = torch.zeros_like(scale, dtype=torch.bool)
+    for j, lvl in enumerate(range(n_levels - 1, -1, -1)):
         max_it = MAX_ITERS_PER_LEVEL[min(lvl, len(MAX_ITERS_PER_LEVEL) - 1)]
+        lt = None if trips is None else trips[j]
 
-        def run(s, lvl=lvl, max_it=max_it):
+        def run(s, lvl=lvl, max_it=max_it, lt=lt):
             return scale_level(pyr_right[lvl], templates[lvl], s, R01, t01,
                                intr0[lvl], intr1[lvl], max_it,
-                               coarse_cutoff_th, huber)
+                               coarse_cutoff_th, huber,
+                               None if lt is None else lt[:2])
 
-        scale, rms, cut_rep = run(scale)
+        scale, rms, cut_rep, ov, made = run(scale)
+        over = over | ov
         do_rep = (cut_rep > 1.0) & ~have_rep
         have_rep = have_rep | do_rep
-        if bool(do_rep.any()):
-            scale2, rms2, _ = run(scale)
+        made2 = (0, 0)
+        if lt is None:
+            if bool(do_rep.any()):
+                scale2, rms2, _, _, made2 = run(scale)
+                scale = torch.where(do_rep, scale2, scale)
+                rms = torch.where(do_rep, rms2, rms)
+            TRIPS[(G, lvl) + made + made2] += 1
+        elif lt[2]:
+            scale2, rms2, _, ov2, _ = run(scale)
             scale = torch.where(do_rep, scale2, scale)
             rms = torch.where(do_rep, rms2, rms)
+            over = over | (do_rep & ov2)
+        else:
+            over = over | do_rep
         if lvl == 0:
             rms0 = rms
-    return scale, rms0
+    return scale, rms0, over
+
+
+@functools.lru_cache(maxsize=None)
+def _guesses(device) -> torch.Tensor:
+    """SCALE_GUESSES on `device`, uploaded once."""
+    return torch.tensor(SCALE_GUESSES, dtype=torch.float32, device=device)
 
 
 def optimize_scale_multi_guess(pyr_right, templates, R01, t01, intr0, intr1,
                                n_levels: int, **kw):
     """The untrapped multi-guess initialization (FullSystem.cpp:1135-1147):
-    every guess in one batch. Returns (best scale, its error), 0-d."""
-    guesses = torch.tensor(SCALE_GUESSES, dtype=torch.float32,
-                           device=R01.device)
-    scales, errs = optimize_scale(pyr_right, templates, guesses, R01, t01,
-                                  tuple(intr0), tuple(intr1), n_levels, **kw)
+    every guess in one batch, eagerly. Returns (best scale, its error),
+    0-d."""
+    return multi_guess(pyr_right, templates, R01, t01, intr0, intr1,
+                       n_levels, **kw)[:2]
+
+
+def multi_guess(pyr_right, templates, R01, t01, intr0, intr1, n_levels: int,
+                **kw):
+    """`optimize_scale_multi_guess` in any form (`scale_lm`'s `trips`).
+    Returns (best scale, its error, overrun), 0-d (overrun: any
+    guess's)."""
+    scales, errs, over = scale_lm(
+        pyr_right, templates, _guesses(R01.device), R01, t01, tuple(intr0),
+        tuple(intr1), n_levels, **kw)
     errs = torch.where(torch.isfinite(errs) & (errs > 0), errs,
                        torch.full_like(errs, float("inf")))
-    i = torch.argmin(errs)
-    return scales[i], errs[i]
+    i = torch.argmin(errs).reshape(1)
+    return (scales.index_select(0, i)[0], errs.index_select(0, i)[0],
+            torch.any(over))

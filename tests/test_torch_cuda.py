@@ -23,8 +23,8 @@ def _dev():
 
 
 def _same_bits(a, b):
-    return torch.equal(a.contiguous().view(torch.uint8),
-                       b.contiguous().view(torch.uint8))
+    return torch.equal(a.reshape(-1).contiguous().view(torch.uint8),
+                       b.reshape(-1).contiguous().view(torch.uint8))
 
 
 def test_k1_pyramid_level():
@@ -351,7 +351,9 @@ def flagship_calls():
     sine trajectory, stereo + 200 Hz IMU) at 256x192, until K3 has served
     a VIO GN step and a VIO point marginalization of at least one point:
     those two calls' arguments, the scene's last right image and the
-    pyramid depth."""
+    pyramid depth. The eager form (`cuda_graphs=False`): the recorder
+    reads the card, which a chain graph's capture refuses, and a call's
+    arguments stay as they were called."""
     import sys
     from sos_slam_tpu_torch.models.full_system import FullSystem, StereoCalib
     from sos_slam_tpu_torch.ops import ba_p as BP
@@ -379,7 +381,8 @@ def flagship_calls():
     BP.fused_iteration = recording
     try:
         fs = FullSystem(calib, s, stereo=StereoCalib(
-            T_lr=sc["T_lr"], calib_right=calib), device=dev)
+            T_lr=sc["T_lr"], calib_right=calib), device=dev,
+            cuda_graphs=False)
         for i in range(44):
             fs.add_active_frame(sc["left"][i], timestamp=0.1 * i, frame_id=i,
                                 image_right=sc["right"][i],
@@ -1192,6 +1195,190 @@ def test_chain_graph_syncs_on_the_card():
     graph = [counts[True][i] for i in clean]
     eager = [counts[False][i] for i in clean]
     print(f"synchronising calls of a frame that replays the keyframe "
+          f"chain's graphs, frames {clean}: graph form {graph}, eager form "
+          f"{eager}; where, frame {clean[-1]}: graph form "
+          f"{where[True][clean[-1]]}, eager form {where[False][clean[-1]]}")
+    assert max(graph) <= 2, (graph, [where[True][i] for i in clean])
+
+
+# ---------------------------------------------------------------------------
+# the VIO keyframe chain as CUDA graphs (models/chain_graph.py)
+# ---------------------------------------------------------------------------
+def _vio_run(dev, cuda_graphs, feed=None, n=44):
+    """The flagship scene (stereo + spline VIO, utils/synthetic's sine
+    trajectory) at 256x192 through a FullSystem on the card at the
+    default depth 3; `feed(fs, i)` replaces the plain add_active_frame of
+    frame i."""
+    from sos_slam_tpu_torch.models.full_system import FullSystem, StereoCalib
+    from sos_slam_tpu_torch.utils import synthetic
+    from sos_slam_tpu_torch.utils.config import default_settings
+    calib = synthetic.default_calib(256, 192)
+    s = default_settings(weight_imu_dso=6.0, scale_opt_thres=12.0,
+                         min_g_imu=10, max_points=512, max_immature=1024,
+                         max_track_pts=4096, desired_point_density=400.0,
+                         desired_immature_density=400.0)
+    sc = synthetic.stereo_vio_scene(calib, n, 0.1, synthetic.sine_pose,
+                                    synthetic.sine_acc, device=dev)
+    fs = FullSystem(calib, s, stereo=StereoCalib(T_lr=sc["T_lr"],
+                                                 calib_right=calib),
+                    device=dev, cuda_graphs=cuda_graphs)
+
+    def add(i):
+        fs.add_active_frame(sc["left"][i], timestamp=0.1 * i, frame_id=i,
+                            image_right=sc["right"][i],
+                            imu_samples=sc["imu"][i])
+    for i in range(n):
+        if feed is None:
+            add(i)
+        else:
+            feed(fs, add, i)
+    fs.finish_pending()
+    return fs
+
+
+def test_vio_chain_graph_replays_bit_for_bit_on_the_card():
+    """The VIO keyframe chain's graphs (the visual-inertial BA bounded,
+    the stereo scale solve's branches chosen on the device) against the
+    eager chain (cuda_graphs=False) on the card: every keyframe, both
+    trajectories, and every tensor of the window, the immature pool and
+    the IMU state the same bits."""
+    dev = _dev()
+    eager = _vio_run(dev, cuda_graphs=False)
+    graph = _vio_run(dev, cuda_graphs=True)
+    g = graph.chain_graph
+    assert eager.chain_graph is None and graph.imu_initialized
+    assert sum(g.replays.values()) >= 2, g.replays
+    assert set(g.eager) <= {"classic", "budget", "export", "rung"}, g.eager
+    assert 0 < g.pool_bytes <= torch.cuda.memory_reserved(dev)
+    _assert_same_run(eager, graph)
+    exact(eager.trajectory(scaled=True), graph.trajectory(scaled=True))
+    for x, y in zip(eager.imu, graph.imu):
+        assert _same_bits(x, y)
+    assert eager.current_scale == graph.current_scale
+    assert eager.kf_n_its == graph.kf_n_its
+
+
+def test_vio_chain_graph_launch_counters_on_the_card():
+    """Over the flagship frames after the VIO chain's capture, under
+    torch.profiler, each kernel's launch counter moves by the kernels of
+    its name the profiler sees: a replay adds the launches captured in
+    it (K1: the right image's pyramid and the selection's; K2: the
+    template; K3: the bounded BA's steps, the final linearization and the
+    point marginalization; K4: the activation passes). The window opens
+    with 1000 throwaway launches, since the profiler may drop the first
+    device events of a window."""
+    from torch.profiler import ProfilerActivity, profile
+    from sos_slam_tpu_torch.models import chain_graph as CG
+    dev = _dev()
+    names = dict(K1="pyramid_kernel", K2="template_kernel",
+                 K3="ba_block_kernel", K4="act_pass_kernel")
+    seen = {}
+
+    def feed(fs, add, i):
+        g = fs.chain_graph
+        if i < 32 or not g.graphs:
+            add(i)
+            return
+        before = {c: fn.launches for c, fn in CG.COUNTERS}
+        replays = sum(g.replays.values())
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(1000):
+                torch.cuda._sleep(0)
+            torch.cuda.synchronize()
+            add(i)
+            fs.finish_pending()
+            torch.cuda.synchronize()
+        ev = prof.key_averages()
+        assert any("spin_kernel" in e.key for e in ev)
+        got = {c: sum(e.count for e in ev if names[c] in e.key)
+               for c in names}
+        seen[i] = (sum(g.replays.values()) - replays, got,
+                   {c: fn.launches - before[c] for c, fn in CG.COUNTERS})
+
+    fs = _vio_run(dev, cuda_graphs=True, feed=feed)
+    s = fs.settings
+    g = fs.chain_graph
+    want = dict(K1=2, K2=1, K3=s.max_opt_iterations + 2,
+                K4=1 + s.gn_its_on_point_activation)
+    for pot, per in g.per_replay.items():
+        assert per == want, (pot, per)
+    assert any(n for n, _, _ in seen.values()), seen
+    for i, (_, got, counted) in seen.items():
+        assert got == counted, (i, got, counted)
+
+
+def test_vio_chain_graph_capture_error_raises_on_the_card():
+    """A host read inside the VIO chain's captured body fails the
+    capture; the error reaches the caller and no eager chain takes its
+    place."""
+    from sos_slam_tpu_torch.models import chain_graph as CG
+    dev = _dev()
+    real = CG.vio_tail
+    eager = []
+
+    def reads_host(*a, **kw):
+        out = real(*a, **kw)
+        bool(out["n_have"] > 0)    # a synchronising read: refused
+        return out
+
+    def feed(fs, add, i):
+        eager.append(sum(fs.chain_graph.eager.values()))
+        add(i)
+
+    CG.vio_tail = reads_host
+    try:
+        with pytest.raises(RuntimeError):
+            _vio_run(dev, cuda_graphs=True, feed=feed)
+    finally:
+        CG.vio_tail = real
+    assert eager and eager[-1] == 0, eager
+    x = torch.ones(4, device=dev) + 1.0       # the card still works
+    torch.cuda.synchronize()
+    assert float(x.sum()) == 8.0
+
+
+def test_vio_chain_syncs_on_the_card():
+    """A flagship frame whose dispatch replays the VIO chain's graphs (no
+    retry, no overrun, no capture, no dispatch again) makes at most two
+    synchronising calls in the graph form: prim_ok with the tracker's
+    overrun, and need_kf. The eager form's count of the same frames is
+    printed beside it, each call named by file and line."""
+    import warnings
+    dev = _dev()
+    counts, where, clean = {}, {}, []
+    for cuda_graphs in (False, True):
+        c, w_ = {}, {}
+
+        def feed(fs, add, i, c=c, w_=w_, graphs=cuda_graphs):
+            g, fg = fs.chain_graph, fs.frame_graph
+            mark = (sum(g.replays.values()), fg.retries, fg.overruns,
+                    len(g.capture_ms),
+                    len(fs.telemetry.timers["redispatch"])) if graphs \
+                else None
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with warnings.catch_warnings(record=True) as got:
+                    warnings.simplefilter("always")
+                    add(i)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            syncs = [x for x in got if "synchroniz" in str(x.message)]
+            c[i] = len(syncs)
+            w_[i] = [f"{x.filename.split('/')[-1]}:{x.lineno}"
+                     for x in syncs]
+            if graphs:
+                now = (sum(g.replays.values()), fg.retries, fg.overruns,
+                       len(g.capture_ms),
+                       len(fs.telemetry.timers["redispatch"]))
+                if now[0] == mark[0] + 1 and now[1:] == mark[1:]:
+                    clean.append(i)
+        _vio_run(dev, cuda_graphs=cuda_graphs, feed=feed)
+        counts[cuda_graphs], where[cuda_graphs] = c, w_
+    assert len(clean) >= 2, clean
+    graph = [counts[True][i] for i in clean]
+    eager = [counts[False][i] for i in clean]
+    print(f"synchronising calls of a flagship frame that replays the VIO "
           f"chain's graphs, frames {clean}: graph form {graph}, eager form "
           f"{eager}; where, frame {clean[-1]}: graph form "
           f"{where[True][clean[-1]]}, eager form {where[False][clean[-1]]}")

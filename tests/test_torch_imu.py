@@ -244,3 +244,42 @@ def test_imu_hypothesis_on_device(ts_thresh):
     if ts_thresh > -0.005:
         exact(pt, T_prim)
         exact(ht, T_hyps)
+
+
+@pytest.mark.parametrize("ts_thresh", [-0.1, -0.001])
+def test_imu_hypothesis_reads_nothing_back(ts_thresh):
+    """The same hypothesis with the window start staged on the device (a
+    0-dim tensor, as the fused dispatch stages it) under the host-read
+    guard: the choice between the gyro-integrated and the constant-motion
+    hypothesis is made on the device, and the result is the float-input
+    result's bits."""
+    from sos_slam_tpu_torch.models.full_system import FullSystem
+    from sos_slam_tpu_torch.utils import lie, synthetic
+    from tests.test_torch_helpers import no_host_reads
+    r = np.random.RandomState(9)
+    N = TIM.N_IMU
+
+    def pose():
+        return lie.se3_exp(torch.as_tensor(
+            (0.1 * r.randn(6)).astype(np.float32)))
+
+    T_prev, T_ref, T_prim = pose(), pose(), pose()
+    T_hyps = torch.stack([pose() for _ in range(5)])
+    gyro = torch.as_tensor((0.2 * r.randn(N, 3)).astype(np.float32))
+    j = np.arange(N)
+    ts = torch.as_tensor(np.where(j < 30, -(30 - j) / 200.0, 0.0)
+                         .astype(np.float32))
+    valid = torch.as_tensor(j < 30)
+    bg = torch.as_tensor((0.01 * r.randn(3)).astype(np.float32))
+    fs = FullSystem(synthetic.default_calib(128, 96), SETTINGS_T[False],
+                    device="cpu")
+    args = (T_prev, T_ref, T_prim, T_hyps, gyro, ts, valid)
+    pf, hf = fs._imu_hyp_device(*args, float(np.float32(ts_thresh)), bg)
+    staged = torch.full((), float(np.float32(ts_thresh)))
+    with no_host_reads():
+        pt, ht = fs._imu_hyp_device(*args, staged, bg)
+    exact(pf, pt)
+    exact(hf, ht)
+    used = ts_thresh < -0.005
+    assert torch.equal(pt, T_prim) != used
+    assert torch.equal(ht[0], T_prim) == used
