@@ -35,9 +35,12 @@ In order, failing (exit code != 0, no result line) at the first fault:
      ms are printed), with every launch counter set to 0
      just before and read just after; initialized, not lost, and the
      scale-aligned ATE <= 0.05 * path + 0.02, as bench.py gates it; K1
-     launched once per pyramid built (build_pyramid calls and replays of
-     the frame graph's (A), each counting its captured launch) and K2
-     once per template built; the
+     launched once per pyramid built (build_pyramid calls outside a
+     capture, and the graphs' replays: the launches captured outside
+     their conditional nodes a replay, and those in the nodes' bodies
+     times the runs the nodes counted on the device) and K2 once per
+     template built; the conditional nodes run (branches taken, loop
+     trips: `launches` of graph_cond in the kernels line); the
      selector rung after each keyframe printed, and gated on staying in
      the prewarmed set from frame 26 on;
   5. the breakdown: 4 more frames through the same FullSystem under
@@ -73,17 +76,19 @@ In order, failing (exit code != 0, no result line) at the first fault:
      after the run, the stereo scale after every keyframe from frame 35 on
      within 1% of the first one's, the scaled trajectory's metric ATE (no
      alignment) <= 0.15 * path + 0.03, K1-K4 each launched, K1 once per
-     pyramid built (left and right; a chain replay counts its captured
-     launches) and K2 once per template; it prints the keyframe count,
+     pyramid built (left and right; a replay counts its launches as in
+     step 4) and K2 once per template; it prints the keyframe count,
      ATE, scale, steady fps over frames 30-43 (as bench.py measures it),
      the median of the frames that dispatch a keyframe chain (the frames
      that captured a chain graph named apart), the chain graphs' replays,
      capture ms, pool bytes and launches (the capture warm-ups' apart),
-     and a VIO chain replay's device ms whole and by stage (each stage
-     captured alone; the scale solve in its cut and its full bounded form
-     against the eager solve's wall ms, and the eager solve's LM trips by
-     level); then the eager form (cuda_graphs=False), gated at K1-K4
-     launches FLAG_EAGER_LAUNCHES, bit for bit the graph run and a finite
+     and a VIO chain replay's device ms whole, with the GN steps and the
+     frame marginalizations it ran, and by stage (each stage captured
+     alone: the scale solve's branch and each branch alone against the
+     eager solve's wall ms, and the eager solve's LM trips by level);
+     then the eager form (cuda_graphs=False), gated at K1-K4 launches
+     FLAG_EAGER_LAUNCHES and the graph form's at those plus its capture
+     warm-ups', bit for bit the graph run and a finite
      prior before every VIO frame marginalization, with K3 on a VIO GN
      step and a VIO point marginalization, K4 on an activation pass and K1
      on a right image of that run against their plain twins, and every
@@ -109,25 +114,34 @@ In order, failing (exit code != 0, no result line) at the first fault:
      and 3, each drained, bit for bit on the trajectories, the window and
      the VIO prior; the most frames seen in flight (at least 2);
   6a'. the [graph] phase: the mono scene in the eager form
-     (cuda_graphs=False) and the graph form in turns (the order
-     alternating), three times each, every run bit for bit the mono
+     (cuda_graphs=False) and the graph form (one graph a frame, the
+     retry and the tracker's loops as conditional nodes) in turns (the
+     order alternating), three times each, every run bit for bit the mono
      slice of step 4, with its steady fps, its median frame with and
      without a keyframe chain, the card's busy share, device ms and device
-     ops a frame under the profiler, and for the graph form the capture
-     ms, the graph pool's bytes, the replays of each graph, the frames
-     tracked again eagerly, the retries and the LM iterations (mean and
-     most) of the primary track by
-     level; one more run of each form counting the synchronising calls of
-     each frame (torch.cuda.set_sync_debug_mode): at most 2 in a steady
-     frame that dispatches no keyframe chain in the graph form (gated),
-     the eager form's beside it; the primary track on one steady frame's
-     inputs as graph (A) in the steady and the full bounded form (device
-     ms a replay) and eagerly (wall ms); the flagship in both forms (fps
-     over frames 30-35, then frames 36-43 counting the synchronising
-     calls: at most 2 in a frame that replays the VIO chain's graphs,
-     gated, the eager form's beside it), bit for bit on the trajectories,
-     the window, the immature pool, the IMU state, the scale and the gyro
+     ops a frame under the profiler, K1-K4 launches (the graph form's
+     gated at the eager form's plus its capture warm-ups'), and for the
+     graph form the capture ms, the graph pool's bytes, the replays, the
+     retries (inside the graph; no frame stepped eagerly, gated) and the
+     LM iterations (mean and most) of the primary track by level; one
+     more run of each form counting the synchronising calls of each frame
+     (torch.cuda.set_sync_debug_mode): at most 1 in a steady frame that
+     dispatches no keyframe chain and at most 2 in one that replays the
+     keyframe chain in the graph form (gated), the eager form's beside
+     them; the frame graph's replay on one steady frame's inputs (device
+     ms) and the eager primary track (wall ms); the flagship in both
+     forms (fps over frames 30-35, the first keyframe from frame 31 on
+     handed an untrapped scale state, its chain replayed in the graph
+     form, gated; then frames 36-43 counting the synchronising calls: at
+     most 2 in a frame that replays the VIO chain's graphs, gated, the
+     eager form's beside it), bit for bit on the trajectories, the
+     window, the immature pool, the IMU state, the scale and the gyro
      bias;
+  6a''. the [control] phase: scripts/torch_graph_probe.py's cases of the
+     conditional nodes (IF, IF/else, nested IF, WHILE of no trip, three
+     trips and to its cap, the counters' credit) bit for bit their eager
+     forms (gated), and the device us of a skipped IF node, its plain
+     twin, a tiny kernel's node and a WHILE trip;
   6b. the [loop] phase: (a) the flagship scene's frames through the port's
      SlamNode (pinhole camera files, no rectification, loop closure on
      at a 40 m LiDAR range, the loop handler synchronous so that its
@@ -183,7 +197,9 @@ In order, failing (exit code != 0, no result line) at the first fault:
      build_track_template, fused_iteration, act_pass) the device ops a
      call and the host-device copies among them (K3: none allowed);
      then the launch counts of the four runs and the kernels line (one
-     JSON object; `launches` counts the mono slice, `launches_flagship`
+     JSON object, K1-K4 and graph_cond, whose `ms` is a skipped IF node
+     and `launches` the bodies its nodes ran on the mono slice;
+     `launches` counts the mono slice, `launches_flagship`
      the flagship scene, `launches_node` the SlamNode run,
      `launches_snapshot` the resumed half of step 5b,
      `launches_multidevice` the calls of step 6c: (a)'s and the ranks');
@@ -244,10 +260,15 @@ FLAG_SCALE_FROM = 35   # the flagship's stereo scale holds within 1% from here
 # WARMUP..PIPE_PROF_FROM-1 and the busy share over the rest; the flagship
 # frames up to two VIO frame marginalizations after the IMU initialization
 PIPE_PAIRS, PIPE_PROF_FROM, PIPE_FLAG_FRAMES = 3, 46, 36
+# [graph]'s flagship part hands the first keyframe from this frame on an
+# untrapped scale state, in both forms
+FLAG_UNTRAP = 31
 GRAPH_PAIRS = 3   # the [graph] phase: eager and graph form in turns
 # K1-K4 launches of the eager form (cuda_graphs=False) over the mono scene's
 # frames: the mono slice's count before the keyframe chain ran as graphs
-MONO_EAGER_LAUNCHES = [73, 22, 134, 88]
+# (K3 134 until numerics.solve took LU factors and two triangular solves on
+# a card, whose rounding ends one keyframe's BA a GN step sooner)
+MONO_EAGER_LAUNCHES = [73, 22, 133, 88]
 # the flagship's K1-K4 launches in the eager form (cuda_graphs=False)
 FLAG_EAGER_LAUNCHES = [65, 10, 64, 40]
 # the reasons a flagship keyframe chain may run eagerly in the graph form
@@ -293,8 +314,13 @@ class Recorder:
         self.calls = collections.deque(maxlen=keep)
         self.last_of = {}
         self.n_of = collections.Counter()
-        self.n_calls = 0
+        self.n_calls = self.n_captured = 0
         setattr(module, name, self)
+
+    @property
+    def n_launched(self):
+        """The calls that launched (made outside a capture)."""
+        return self.n_calls - self.n_captured
 
     @property
     def launches(self):
@@ -305,8 +331,11 @@ class Recorder:
         self.orig.launches = n
 
     def __call__(self, *args, **kw):
+        import torch
         self.calls.append((args, kw))
         self.n_calls += 1
+        # a call while a graph is captured launches nothing
+        self.n_captured += torch.cuda.is_current_stream_capturing()
         kind = self.kind(args, kw)
         self.last_of[kind] = (args, kw)
         self.n_of[kind] += 1
@@ -561,7 +590,7 @@ def k3_caller(args, kw):
 def pyramid_side(args, kw):
     """"right" for the stereo scale solve's pyramid of the right image,
     "left" for every other pyramid FullSystem builds."""
-    return "right" if sys._getframe(2).f_code.co_name == "_scale_solve" \
+    return "right" if "_scale_solve" in sys._getframe(2).f_code.co_qualname \
         else "left"
 
 
@@ -677,20 +706,37 @@ def chain_replays(fs) -> int:
     return 0 if g is None else sum(g.replays[k] for k in g.graphs)
 
 
-def busy_window(torch, fs, feed, first, n):
+def busy_window(torch, fs, feed, first, n, exact=False):
     """n frames of the scene from `first` (`feed(i)` hands frame i to the
     same FullSystem) under torch.profiler, the frames in flight completed
     inside the window: (wall ms a frame, device ms a frame, device ops a
     frame, the window's device events, the launches). The profiler slows
     the host, so the busy share dev / wall is a lower bound. The launches
-    are (the K1 kernels the profiler saw, the replays of graph (A) in the
-    window, {kernel: the K2-K4 kernels seen}, the replays of the keyframe
-    chain's graphs); each kernel's launch counter, to which a replay adds
-    the launches it captured, must have moved by the kernels of its name
-    seen, or this raises."""
+    are (the K1 kernels the profiler saw, the replays of the frame graph
+    in the window, {kernel: the K2-K4 kernels seen}, the replays of the
+    keyframe chain's graphs, {kernel: (seen, counted, counted inside
+    conditional nodes, what the profiler shows by control.PROFILED's
+    rule)}). Each kernel's launch counter moves by the launches outside
+    conditional nodes (a replay adds those it captured) plus those inside
+    them (`control` credits the nodes' runs at the frames' reads and at
+    finish_pending); the profiler reports those inside an IF body at each
+    run and those inside a WHILE body once each time the node is entered
+    (control.PROFILED). Without graphs (the eager form), and with them
+    where `exact` (the first window of the graph form in this process),
+    the profiler must see exactly that many kernels of each name, or this
+    raises. Later windows of the graph form raise only where a counted
+    kernel is not seen at all: a process that has made many conditional
+    nodes gets records of their bodies' kernels lost, and some added
+    (`[control]`'s profiler view logs it), which the same frames in a
+    fresh process do not show."""
+    from sos_slam_tpu_torch.ops import control
     counters = kernel_counters()
+    # the runs made before the window are credited before it
+    torch.cuda.synchronize()
+    control.account()
     before = [fn.launches for _, fn, _ in counters]
-    replays, chains = graph_pyramids(fs), chain_replays(fs)
+    in_nodes, shown = dict(control.CREDITED), dict(control.PROFILED)
+    replays, chains = frame_replays(fs), chain_replays(fs)
 
     def body():
         t0 = time.perf_counter()
@@ -701,34 +747,47 @@ def busy_window(torch, fs, feed, first, n):
         return (time.perf_counter() - t0) * 1e3 / n
     wall, ev = prof_window(torch, body, tries=1)   # body feeds the frames
     dev_ms = sum(e.self_device_time_total for e in ev) / 1e3 / n
-    replays = graph_pyramids(fs) - replays
+    replays = frame_replays(fs) - replays
     chains = chain_replays(fs) - chains
-    seen = {}
+    graphs = fs.frame_graph is not None or fs.chain_graph is not None
+    seen, held = {}, {}
     for (name, fn, kernel), b in zip(counters, before):
         seen[name] = sum(e.count for e in ev if kernel in e.key)
-        if seen[name] != fn.launches - b:
+        counted = fn.launches - b
+        inside = control.CREDITED[name] - in_nodes.get(name, 0)
+        rule = counted - inside + control.PROFILED[name] \
+            - shown.get(name, 0)
+        held[name] = (seen[name], counted, inside, rule)
+        if (seen[name] != rule) if (exact or not graphs) else (
+                counted and not seen[name]):
             raise AssertionError(
                 f"frames {first}-{first + n - 1}: the profiler saw "
                 f"{seen[name]} {name} launches ({kernel}), the launch "
-                f"counter counted {fn.launches - b} ({replays} replays of "
-                f"graph (A), {chains} of the keyframe chain's graphs)")
+                f"counter counted {counted}, {inside} of them inside "
+                f"conditional nodes, of which the profiler shows "
+                f"{rule - counted + inside} by control.PROFILED's rule "
+                f"({replays} replays of the frame graph, {chains} of the "
+                f"keyframe chain's graphs)")
     return wall, dev_ms, sum(e.count for e in ev) / n, ev, (
-        seen.pop("K1"), replays, seen, chains)
+        seen.pop("K1"), replays, seen, chains, held)
 
 
-def profile_frames(torch, fs, feed, first, n, tag="profile"):
+def profile_frames(torch, fs, feed, first, n, tag="profile", exact=False):
     """Where a frame's time goes: n more frames of the scene through the
-    same FullSystem under torch.profiler (`busy_window`). Logs the wall
-    and device time per frame, the card's busy share, its launches per
-    frame and the device ops that take the most time."""
+    same FullSystem under torch.profiler (`busy_window`, `exact` passed
+    on). Logs the wall and device time per frame, the card's busy share,
+    its launches per frame and the device ops that take the most time."""
     n_kf = fs.stats["n_kf"]
-    wall, dev_ms, ops, ev, k1 = busy_window(torch, fs, feed, first, n)
+    wall, dev_ms, ops, ev, k1 = busy_window(torch, fs, feed, first, n,
+                                            exact=exact)
     log(f"[{tag}] frames {first}-{first + n - 1} ({fs.stats['n_kf'] - n_kf} "
         f"keyframes), profiler on: wall {wall:.1f} ms/frame, device "
         f"{dev_ms:.2f} ms/frame, card busy {100 * dev_ms / wall:.1f}%, "
         f"{ops:.0f} device ops/frame; K1 kernels the profiler saw {k1[0]} "
-        f"(replays of graph (A) {k1[1]}), K2-K4 {k1[2]} (replays of the "
-        f"keyframe chain's graphs {k1[3]}), as counted")
+        f"(replays of the frame graph {k1[1]}), K2-K4 {k1[2]} (replays of the "
+        f"keyframe chain's graphs {k1[3]}); (seen, counted, counted inside "
+        f"conditional nodes, shown by control.PROFILED's rule) by kernel "
+        f"{k1[4]}" + ("; held exactly" if exact else ""))
     top = sorted(ev, key=lambda e: -e.self_device_time_total)[:8]
     log(f"[{tag}] top device ops, ms/frame (count/frame): " + "; ".join(
         f"{e.key[:48]} {e.self_device_time_total / 1e3 / n:.3f} "
@@ -1001,8 +1060,7 @@ def snapshot_checks(torch, dev, card, kernels, imgs, mono, tmp):
     size = os.path.getsize(path)
     del fs
 
-    for w_ in wrappers:
-        w_.launches = 0
+    zero_launches(wrappers)
     fs2 = FullSystem(calib, default_settings(), device=dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1274,13 +1332,6 @@ class FoldProbe:
         return out
 
 
-def sum_launches(cg) -> list:
-    """K1-K4 launches of the chain graphs' capture warm-ups (one run of
-    each captured rung's body, which launches what a replay launches)."""
-    return [sum(p[c] for p in cg.per_replay.values())
-            for c in ("K1", "K2", "K3", "K4")]
-
-
 def check_flagship_kernels(torch, BP, IMG, k3, k4, right, calib, tag,
                            kernels):
     """K3 on a VIO GN step and a VIO point marginalization, K4 on an
@@ -1310,16 +1361,19 @@ def check_flagship_kernels(torch, BP, IMG, k3, k4, right, calib, tag,
         k["max_abs_err"] = max(k["max_abs_err"], e[0])
 
 
-def captured_ms(torch, fn, pool):
-    """fn captured alone into a CUDA graph (after a warm-up on a side
-    stream), then the device ms a replay (`replay_ms`)."""
+def captured_ms(torch, fn):
+    """fn captured alone into a CUDA graph of its own pool (after a
+    warm-up on a side stream), its branches and loops as conditional
+    nodes (`control.capture`), then the device ms a replay
+    (`replay_ms`)."""
+    from sos_slam_tpu_torch.ops import control
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         fn()
     torch.cuda.current_stream().wait_stream(side)
     g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g, pool=pool, stream=side):
+    with control.capture(g, torch.cuda.graph_pool_handle(), side):
         fn()
     torch.cuda.synchronize()
     return replay_ms(torch, g.replay, n=5)
@@ -1327,18 +1381,20 @@ def captured_ms(torch, fn, pool):
 
 def vio_stages(torch, card, fs):
     """A VIO keyframe chain replay's device ms, whole and by stage, on the
-    inputs of the run's last chain (the chain graph's static buffers):
-    each stage captured alone into a graph and replayed under a pair of
-    CUDA events: `vio_head` (flags, insertion, IMU intake, spline
-    propagation, activation), one VIO GN step, the scale solve with both
-    branches in the graph form's trips and in the full bounded form, each
-    branch alone (the unused branch's cost), `vio_tail` (point
-    marginalization, selection, the four masked VIO frame
-    marginalizations, compaction) and one VIO frame marginalization
-    (its float64 fold included) and the fold's `live_pinv` alone on a
-    29x29 block of the IMU prior; beside them the eager scale solve's wall
-    ms (one branch, early exits, the card synchronized around it) and the
-    stereo scale LM's trips a level in the eager runs so far."""
+    inputs of the run's last chain (the chain graph's static buffers),
+    with the GN steps and the frame marginalizations that replay ran
+    (the conditional nodes leave the BA at its break and skip the folds
+    of padded slots): each stage captured alone into a graph and replayed
+    under a pair of CUDA events: `vio_head` (flags, insertion, IMU
+    intake, spline propagation, activation), one VIO GN step, the scale
+    solve (the branch `trapped` chooses, under `control.cond`) and each
+    branch alone, `vio_tail` (point marginalization, selection, the VIO
+    frame marginalizations of the flagged slots, compaction), one VIO
+    frame marginalization (its float64 fold included) and the fold's
+    `live_pinv` alone on a 29x29 block of the IMU prior; beside them the
+    eager scale solve's wall ms (one branch, early exits, the card
+    synchronized around it) and the stereo scale LM's trips a level in
+    the eager runs so far."""
     from sos_slam_tpu_torch.models import chain_graph as CG
     from sos_slam_tpu_torch.models import energy as E
     from sos_slam_tpu_torch.ops import ba as B
@@ -1354,12 +1410,20 @@ def vio_stages(torch, card, fs):
               timestamp=i["timestamp"])
     out = cg.out[pot]
     tmpl = out["state"]["templates"]
-    pool = torch.cuda.graph_pool_handle()
     whole = replay_ms(torch, cg.graphs[pot].replay, n=5)
+    folds = int((out["marg_ks"] >= 0).sum())
+    n_its = int(out["ba_stats"]["n_its"])
+    trapped = bool(i["scale_state"][1])
     hd = CG.vio_head(fs, i, i["imm"], i["pyr"], i["T_cw_new"],
                      i["aff_new"], i["exposure"], i["stats"], i["host_out"],
                      i["n_kf"], kf)
     ev = B.make_precalc_eval(hd["ba"])
+    D = hd["imu"].HM.shape[0]
+    blk = hd["imu"].HM[D - 29:, D - 29:].double()
+    R01, t01, intr1 = fs._lr
+    pyr_r, _ = build_pyramid(i["right"], fs.n_levels)
+    args = (R01, t01, fs._intr, intr1, fs.n_levels)
+    s_cur = i["scale_state"][0].reshape(1)
     ms = dict(
         head=lambda: CG.vio_head(fs, i, i["imm"], i["pyr"], i["T_cw_new"],
                                  i["aff_new"], i["exposure"], i["stats"],
@@ -1367,46 +1431,35 @@ def vio_stages(torch, card, fs):
         gn_step=lambda: E.gn_step_vio(hd["ba"], hd["imu"], hd["dI"], s,
                                       fs.w, fs.h, ev=ev),
         scale=lambda: fs._scale_solve(tmpl, kf, True),
+        trapped=lambda: SO.scale_lm(pyr_r, tmpl, s_cur, *args,
+                                    bounded=True),
+        multi=lambda: SO.multi_guess(pyr_r, tmpl, *args, bounded=True),
         tail=lambda: CG.vio_tail(fs, hd, hd["ba"], hd["imu"],
                                  out["state"]["HdiF"], i["pyr"], pot,
                                  i["keys"]),
         frame_marg=lambda: E.marginalize_frame_vio(
             hd["ba"], hd["imu"], torch.clamp(hd["slot"] - 2, min=0), s),
         live_pinv=lambda: live_pinv(blk, E.LIVE_CUT))
-    D = hd["imu"].HM.shape[0]
-    blk = hd["imu"].HM[D - 29:, D - 29:].double()
-    trips = SO.cut_trips(fs.n_levels)
-    ms["scale_full"] = lambda: fs._scale_solve(tmpl, kf, True,
-                                               SO.full_trips(fs.n_levels))
-    got = {k: captured_ms(torch, fn, pool) for k, fn in ms.items()}
-    R01, t01, intr1 = fs._lr
-    pyr_r, _ = build_pyramid(i["right"], fs.n_levels)
-    args = (R01, t01, fs._intr, intr1, fs.n_levels)
-    s_cur = i["scale_state"][0].reshape(1)
-    got["trapped"] = captured_ms(torch, lambda: SO.scale_lm(
-        pyr_r, tmpl, s_cur, *args, trips=trips), pool)
-    got["multi"] = captured_ms(torch, lambda: SO.multi_guess(
-        pyr_r, tmpl, *args, trips=trips), pool)
+    got = {k: captured_ms(torch, fn) for k, fn in ms.items()}
     eager = median([wall_ms(torch, lambda: fs._scale_solve(
         tmpl, kf, False)) for _ in range(5)])
-    log(f"{tag} rung {pot}: a replay {whole:.3f} ms of device work; each "
-        f"stage in a graph of its own (these need not add up to the "
-        f"replay): before the BA (vio_head) {got['head']:.3f}, one VIO GN "
-        f"step {got['gn_step']:.3f} (x{s.max_opt_iterations} in the "
-        f"graph), the scale solve, both branches, in the graph's cut form "
+    log(f"{tag} rung {pot}: a replay {whole:.3f} ms of device work, with "
+        f"{n_its} GN steps and {folds} of {CG.MAX_MARG_FRAMES} frame "
+        f"marginalizations run (the rest skipped by their nodes), the "
+        f"scale {'trapped' if trapped else 'untrapped'}; each stage in a "
+        f"graph of its own (these need not add up to the replay): before "
+        f"the BA (vio_head) {got['head']:.3f}, one VIO GN step "
+        f"{got['gn_step']:.3f}, the scale solve (its one branch) "
         f"{got['scale']:.3f} (trapped alone {got['trapped']:.3f}, the "
-        f"multi-guess alone {got['multi']:.3f}) and in the full bounded "
-        f"form {got['scale_full']:.3f}, after the scale (vio_tail) "
-        f"{got['tail']:.3f} of which one VIO frame marginalization "
-        f"{got['frame_marg']:.3f} (its float64 live_pinv on a 29x29 block "
-        f"{got['live_pinv']:.3f}); the eager scale solve (trapped: one "
-        f"branch, early exits) {eager:.3f} ms wall")
+        f"multi-guess alone {got['multi']:.3f}), after the scale "
+        f"(vio_tail, on the last chain's flags) {got['tail']:.3f} of which "
+        f"one VIO frame marginalization {got['frame_marg']:.3f} (its "
+        f"float64 live_pinv on a 29x29 block {got['live_pinv']:.3f}); the "
+        f"eager scale solve (one branch, early exits) {eager:.3f} ms wall")
     log(f"{tag} the stereo scale LM's trips in the eager runs so far, by "
         f"(guesses, level, doublings, LM trips, repeat's doublings, "
         f"repeat's LM trips): " + ", ".join(
-            f"{k}: {v}" for k, v in sorted(SO.TRIPS.items()))
-        + f"; the graph form's trips a level from the coarsest {trips}")
-    del pool
+            f"{k}: {v}" for k, v in sorted(SO.TRIPS.items())))
 
 
 def flagship(torch, dev, card, kernels):
@@ -1454,10 +1507,11 @@ def flagship(torch, dev, card, kernels):
     # refuses it
     recs = [Recorder(FSM, "build_pyramid", 1, kind=pyramid_side),
             Recorder(INIT, "build_pyramid", 1),
-            Recorder(WIN, "build_track_template", 1)]
-    for w_ in wrappers:
-        w_.launches = 0
+            Recorder(WIN, "build_track_template", 1),
+            Recorder(IMG, "build_pyramid", 1)]      # the frame graph's
+    zero_launches(wrappers)
     fs = FSM.FullSystem(calib, settings, stereo=stereo, device=dev)
+    warm, rep0 = WarmUps(fs), replay_launched(fs)
     kf_scale = {}       # the stereo scale after each fused keyframe
     finish_kf = fs._finish_kf
 
@@ -1487,7 +1541,7 @@ def flagship(torch, dev, card, kernels):
     counts = [w_.launches for w_ in wrappers]
     for r in recs:
         r.restore()
-    pyr_l, pyr_i, tmpl = recs
+    pyr_l, pyr_i, tmpl, pyr_f = recs
 
     tag = f"[flagship] ({card})"
     if not fs.initialized or fs.is_lost or fs.init_failed:
@@ -1516,7 +1570,6 @@ def flagship(torch, dev, card, kernels):
         + (", ".join(f"{i} ({frame_ms[i]:.1f} ms)" for i in captured_at)
            or "none"))
     log(f"{tag} reference: {JAX_FLAGSHIP}")
-    warm = sum_launches(cg)
     log(f"{tag} the VIO keyframe chain's graphs: replays "
         f"{dict(cg.replays)}, eager chains by reason {dict(cg.eager)}, "
         f"capture ms " + ", ".join(f"rung {k}: {v:.1f}"
@@ -1524,8 +1577,9 @@ def flagship(torch, dev, card, kernels):
         + f", the VIO chain graphs' pool {cg.pool_bytes} bytes (its own: "
         f"apart from this system's frame graphs' {fs.frame_graph.pool_bytes}"
         f" and the mono slice's pools), launches K1-K4 {counts} of which "
-        f"the capture warm-ups' {warm}, a replay's "
-        f"{dict((k, v) for k, v in cg.per_replay.items())}; GN steps a "
+        f"the capture warm-ups' {warm.n}, a replay's outside its "
+        f"conditional nodes {dict((k, v) for k, v in cg.per_replay.items())}"
+        f"; GN steps a "
         f"keyframe (n_its), keyframes by count "
         f"{dict(sorted(fs.kf_n_its.items()))}")
     if chain_replays(fs) == 0 or not set(cg.eager) <= FLAG_EAGER_REASONS:
@@ -1568,23 +1622,23 @@ def flagship(torch, dev, card, kernels):
             raise AssertionError(f"{name} was not launched on the flagship "
                                  "path")
     n_right = pyr_l.n_of["right"]
-    rep_c, cap_c = chain_launched(fs), chain_captured(fs)
-    n_pyr = pyr_l.n_calls + pyr_i.n_calls + graph_pyramids(fs) \
-        + rep_c["K1"] - cap_c["K1"]
-    n_tmpl = tmpl.n_calls + rep_c["K2"] - cap_c["K2"]
+    rep = {c: n - rep0[c] for c, n in replay_launched(fs).items()}
+    n_pyr = pyr_l.n_launched + pyr_i.n_launched + pyr_f.n_launched \
+        + rep["K1"]
+    n_tmpl = tmpl.n_launched + rep["K2"]
     if counts[0] != n_pyr or counts[1] != n_tmpl:
         raise AssertionError(
             f"flagship: K1 launched {counts[0]} times for {n_pyr} pyramids "
             f"({n_right} right pyramids called), K2 {counts[1]} times for "
             f"{n_tmpl} templates: a call is not one launch")
     log(f"{tag} {n_pyr} pyramids built in {counts[0]} K1 launches ("
-        f"{rep_c['K1']} in chain graph replays, {cap_c['K1']} calls while "
+        f"{rep['K1']} in graph replays, {pyr_l.n_captured} calls while "
         f"capturing; {n_right} right pyramids called), {n_tmpl} templates "
         f"in {counts[1]} K2 launches; K3 {counts[2]} launches; K4 "
         f"{counts[3]} launches")
     for k, c in zip(kernels, counts):
         k["launches_flagship"] = c
-    del recs, pyr_l, pyr_i, tmpl
+    del recs, pyr_l, pyr_i, tmpl, pyr_f
     vio_stages(torch, card, fs)
     phase_done("flagship run and checks")
 
@@ -1596,8 +1650,7 @@ def flagship(torch, dev, card, kernels):
     recs = [Recorder(BP, "fused_iteration", 1, kind=k3_caller),
             Recorder(BP, "act_pass", 1),
             Recorder(E, "marginalize_frame_vio", 1, kind=prior_in)]
-    for w_ in wrappers:
-        w_.launches = 0
+    zero_launches(wrappers)
     fp = FSM.FullSystem(calib, settings, stereo=stereo, device=dev,
                         cuda_graphs=False)
     for i in range(FLAG_FRAMES):
@@ -1625,6 +1678,14 @@ def flagship(torch, dev, card, kernels):
         raise AssertionError(
             f"flagship: the eager form launched K1-K4 {eager_counts} times, "
             f"not {FLAG_EAGER_LAUNCHES}")
+    plus = [e + w_ for e, w_ in zip(eager_counts, warm.n)]
+    log(f"{ptag} graph-form launches K1-K4 {counts} against the eager "
+        f"form's plus the graph form's capture warm-ups {plus} (gate: "
+        "equal)")
+    if counts != plus:
+        raise AssertionError(
+            f"flagship: the graph form launched K1-K4 {counts} times, not "
+            f"the eager form's plus its warm-ups' {plus}")
     if mfv.n_of["NaN"] or not same:
         raise AssertionError(
             f"flagship: a NaN VIO prior {dict(mfv.n_of)} or the eager form "
@@ -1942,8 +2003,7 @@ def loop_phase(torch, dev, card, kernels, flag):
               for i in range(FLAG_FRAMES)]
     wrappers = (IMG.pyramid_levels, WIN.template_levels, BP.fused_iteration,
                 BP.act_pass)
-    for w_ in wrappers:
-        w_.launches = 0
+    zero_launches(wrappers)
     node = SlamNode(settings, cam, calib1=cam, T_stereo=scene["T_lr"],
                     device=dev, async_loop=False)
     torch.cuda.synchronize()
@@ -2189,8 +2249,7 @@ def multidevice_phase(torch, dev, card, kernels, md):
         gn_in = dict(main=(ba_m, dI_m, settings_m, w_m, h_m),
                      tiny=(ba_t, dI_t, settings_t, DR.W, DR.H))
         trace_in = (ba_tr, imm, *tr, W, H, md["settings"])
-        for w_ in wrappers:
-            w_.launches = 0
+        zero_launches(wrappers)
         one = {k: S.sharded_gn_step(mesh, *v) for k, v in gn_in.items()}
         one["vio"] = S.sharded_vio_gn_step(mesh, ba_v, imu_v, dI_v,
                                            settings_v, DR.W, DR.H)
@@ -2269,8 +2328,7 @@ def multidevice_phase(torch, dev, card, kernels, md):
               settings_m),
              ("main_scale", "scale", DR.window_inputs(ba_m, dI_m, w_m, h_m),
               settings_m)]
-    for w_ in wrappers:
-        w_.launches = 0
+    zero_launches(wrappers)
     t0 = time.perf_counter()
     res = DR.dryrun_multichip(2, dev, extra_jobs=extra)
     wall_b = time.perf_counter() - t0
@@ -2358,12 +2416,64 @@ def first_use_costs(torch, dev, report):
         f"{inv[1]:.3f}")
 
 
-def graph_pyramids(fs) -> int:
-    """The pyramids the frame graph built: one a replay of its graph (A),
-    whose K1 launch the replay counts (build_pyramid runs only while the
-    graph is captured; `busy_window` holds that count to the K1 kernels
-    the profiler sees)."""
-    return 0 if fs.frame_graph is None else fs.frame_graph.replays["A"]
+def zero_launches(wrappers):
+    """Set the launch counters to 0, after crediting them with the runs
+    of every conditional node so far (a replay's runs are credited at a
+    later read: they belong to the work before)."""
+    import torch
+    from sos_slam_tpu_torch.ops import control
+    torch.cuda.synchronize()
+    control.account()
+    for w_ in wrappers:
+        w_.launches = 0
+
+
+def frame_replays(fs) -> int:
+    """The replays of the frame step's graph (models/frame_graph.py)."""
+    return 0 if fs.frame_graph is None else fs.frame_graph.replays
+
+
+def replay_launched(fs) -> dict:
+    """{K1, K2}: the launches of graph replays without a Python call: the
+    frame graph's and the keyframe chain's replays times the launches
+    captured outside their conditional nodes, plus what `control` credited
+    from the nodes' runs (every system's: take differences)."""
+    from sos_slam_tpu_torch.ops import control
+    fg, cg = fs.frame_graph, fs.chain_graph
+    out = {}
+    for c in ("K1", "K2"):
+        n = control.CREDITED[c]
+        if fg is not None:
+            n += fg.replays * fg.per_replay.get(c, 0)
+        if cg is not None:
+            n += sum(k * cg.per_replay[p][c] for p, k in cg.replays.items()
+                     if p in cg.per_replay)
+        out[c] = n
+    return out
+
+
+class WarmUps:
+    """The K1-K4 launches of the capture warm-ups of one FullSystem's
+    graphs (its FrameGraph's and ChainGraph's `capture`): a warm-up runs
+    the bodies' plain twins (every loop to its bound, every branch) and
+    its launches count; the capture after it launches nothing."""
+
+    def __init__(self, fs):
+        self.n = [0, 0, 0, 0]
+        for g in (fs.frame_graph, fs.chain_graph):
+            if g is not None:
+                g.capture = self._wrap(g.capture)
+
+    def _wrap(self, capture):
+        counters = kernel_counters()
+
+        def counted(*a, **kw):
+            before = [fn.launches for _, fn, _ in counters]
+            out = capture(*a, **kw)
+            self.n = [n + fn.launches - b for n, (_, fn, _), b
+                      in zip(self.n, counters, before)]
+            return out
+        return counted
 
 
 def timed_prewarm(torch, fs, wrappers, callers=()):
@@ -2372,13 +2482,14 @@ def timed_prewarm(torch, fs, wrappers, callers=()):
     the callers' call counts, which then count frames alone), the ms of
     its two fallback tracks (5 wide, 78 wide) and of its dummy frame
     dispatch at each rung (stage-timed)."""
+    from sos_slam_tpu_torch.ops import control
     from sos_slam_tpu_torch.ops import tracker as TK
     # the frames in flight are frames: their completions count as such
     fs.finish_pending()
     launches = [w_.launches for w_ in wrappers]
-    calls = [r.n_calls for r in callers]
-    replays = graph_pyramids(fs)
-    captured = chain_captured(fs)
+    calls = [(r.n_calls, r.n_captured) for r in callers]
+    replayed, runs = replay_launched(fs), control.CREDITED["runs"]
+    setters = control.setter_launches(fs.device)
     track = StageTimer(torch, TK, "track_hypotheses")
     dispatch = StageTimer(torch, fs, "_dispatch_fused")
     try:
@@ -2390,33 +2501,16 @@ def timed_prewarm(torch, fs, wrappers, callers=()):
     launched = [w_.launches - n for w_, n in zip(wrappers, launches)]
     for w_, n in zip(wrappers, launched):
         w_.launches -= n
-    for r, n in zip(callers, calls):
-        r.n_calls = n
+    for r, (n, c) in zip(callers, calls):
+        r.n_calls, r.n_captured = n, c
     g = fs.chain_graph
     return dict(ms=ms, launches=launched, tracks=track.ms[:2],
-                dispatch=dispatch.ms, pyramids=graph_pyramids(fs) - replays,
-                chain_captured={c: n - captured[c] for c, n in
-                                chain_captured(fs).items()},
+                dispatch=dispatch.ms,
+                replayed={c: n - replayed[c]
+                          for c, n in replay_launched(fs).items()},
+                runs=control.CREDITED["runs"] - runs,
+                setters=control.setter_launches(fs.device) - setters,
                 chain_capture_ms=dict(g.capture_ms) if g else {})
-
-
-def chain_captured(fs) -> dict:
-    """{K1, K2}: the calls of build_pyramid and build_track_template made
-    while the keyframe chain's graphs were captured (Python calls that
-    launched nothing)."""
-    g = fs.chain_graph
-    return {c: 0 if g is None else sum(p[c] for p in g.per_replay.values())
-            for c in ("K1", "K2")}
-
-
-def chain_launched(fs) -> dict:
-    """{K1, K2}: the launches of the keyframe chain's graph replays (a
-    replay launches what its capture called, without a Python call)."""
-    g = fs.chain_graph
-    return {c: 0 if g is None else sum(n * g.per_replay[k][c]
-                                       for k, n in g.replays.items()
-                                       if k in g.per_replay)
-            for c in ("K1", "K2")}
 
 
 def prewarm_state(fs) -> dict:
@@ -2468,8 +2562,8 @@ def synced_frames(torch, fs, feed, frames):
     the synchronising calls of each add_active_frame call; returns {frame:
     (count, whether the call dispatched frames again after a rung change,
     the calls by file:line, whether it replayed the keyframe chain's
-    graphs once with no retry and no overrun of the frame step and no
-    graph captured)}."""
+    graphs once with no retry of the frame step and no graph
+    captured)}."""
     import warnings
     out = {}
     redo = fs.telemetry.timers["redispatch"]
@@ -2477,7 +2571,7 @@ def synced_frames(torch, fs, feed, frames):
 
     def marks():
         return (chain_replays(fs), fg.retries if fg else 0,
-                fg.overruns if fg else 0, len(cg.capture_ms) if cg else 0)
+                len(cg.capture_ms) if cg else 0)
 
     torch.cuda.set_sync_debug_mode("warn")
     try:
@@ -2512,22 +2606,16 @@ def replay_ms(torch, fn, n=20):
 
 
 def graph_forms(torch, fs, args):
-    """The primary track three ways on one steady frame's inputs (`args`
-    of FrameGraph.step): graph (A) in the cut form (at most
-    CUT_LM_TRIPS LM trips a level, no doubling) and in the full
-    bounded form (every loop to its bound, the re-pass and the level
-    repeat always), device ms a replay; and the eager early-exit track,
-    wall ms a call (it reads the host every trip). Returns (cut ms, full
-    ms, eager ms, the cut form's overrun)."""
-    from sos_slam_tpu_torch.models import frame_graph as FG
+    """The frame step on one steady frame's inputs (`args` of
+    FrameGraph.step): the frame graph's replay (the pyramid, the primary
+    track with its loops as WHILE nodes, the retry's IF node skipped, the
+    trace and the decisions), device ms a replay; and the eager
+    early-exit primary track alone, wall ms a call (it reads the host
+    every trip). Returns (replay ms, eager track ms)."""
     from sos_slam_tpu_torch.ops import tracker as TK
     g = fs.frame_graph
-    full = FG.FrameGraph(fs, cut=False)
-    full.step(*args)
     g.step(*args)
-    over = bool(g.a["flags"][1])
-    steady_ms = replay_ms(torch, g.graphs["A"].replay)
-    full_ms = replay_ms(torch, full.graphs["A"].replay)
+    replay = replay_ms(torch, g.graph.replay)
     s, i = fs.settings, g.inp
 
     def eager():
@@ -2538,13 +2626,12 @@ def graph_forms(torch, fs, args):
             fs.n_levels, coarse_cutoff_th=s.coarse_cutoff_th,
             huber=s.huber_th)
 
-    eager_ms = median([wall_ms(torch, eager) for _ in range(5)])
-    del full
-    return steady_ms, full_ms, eager_ms, over
+    return replay, median([wall_ms(torch, eager) for _ in range(5)])
 
 
 def graph_phase(torch, dev, card, mono, flag):
-    """Phase [graph]: the frame step's CUDA graphs (models/frame_graph.py)
+    """Phase [graph]: the frame step's CUDA graph (models/frame_graph.py:
+    one graph, the retry and the tracker's loops as conditional nodes)
     against its eager dispatch (cuda_graphs=False). The mono scene's 48
     frames in both forms, in turns, GRAPH_PAIRS times each (the order
     alternating), every run bit for bit the mono slice (keyframes,
@@ -2553,21 +2640,23 @@ def graph_phase(torch, dev, card, mono, flag):
     keyframe chain, the card's busy share, device ms and device ops a
     frame under the profiler over the rest (with K1's launches there, seen
     by the profiler against the counter: `busy_window`), and for the graph
-    form the capture ms, the graph pool's bytes, the replays of each
-    graph, the frames that tracked again eagerly (overrun), the retries
-    and the LM iterations of the primary track a frame by level; and the
-    keyframe chain's graphs (models/chain_graph.py): K1-K4 launches of
-    each run (the eager form's gated at MONO_EAGER_LAUNCHES), replays,
-    eager chains by reason, capture ms, pool bytes, GN steps a keyframe,
-    the selection keys' host ms; the K2-K4 kernels the profiler sees held
-    to the counters. Then one more run of each form counting the synchronising
-    calls of every frame (a steady frame that dispatches no keyframe chain, and
-    a frame that replays the keyframe chain's graphs: at most 2 in the graph
-    form, gated, each call named), the primary track three ways on one steady
-    frame (`graph_forms`), and the flagship's first PIPE_FLAG_FRAMES frames in
-    both forms, bit for bit."""
+    form the capture ms, the graph pool's bytes, the replays, the retries
+    (run inside the graph: the eager step is never called, gated) and the
+    LM iterations of the primary track a frame by level; and the keyframe
+    chain's graphs (models/chain_graph.py): K1-K4 launches of each run
+    (the eager form's gated at MONO_EAGER_LAUNCHES, the graph form's at
+    the eager form's plus its capture warm-ups), replays, eager chains by
+    reason, capture ms, pool bytes, GN steps a keyframe, the selection
+    keys' host ms; the K2-K4 kernels the profiler sees held to the
+    counters. Then one more run of each form counting the synchronising
+    calls of every frame (a steady frame that dispatches no keyframe
+    chain: at most 1 in the graph form, gated; a frame that replays the
+    keyframe chain's graphs: at most 2, gated; each call named), the frame
+    graph's replay and the eager primary track on one steady frame
+    (`graph_forms`), and the flagship's frames in both forms, bit for
+    bit, one keyframe forced untrapped (`graph_flagship`)."""
     from sos_slam_tpu_torch.models import full_system as FSM
-    from sos_slam_tpu_torch.ops import tracker as TK
+    from sos_slam_tpu_torch.ops import control
     from sos_slam_tpu_torch.utils.config import default_settings
 
     tag = f"[graph] ({card})"
@@ -2590,6 +2679,10 @@ def graph_phase(torch, dev, card, mono, flag):
         for graphs in ((False, True), (True, False))[p % 2]:
             gc.collect()
             fs, feed = mono_fs(graphs)
+            warm = WarmUps(fs)
+            eager_steps = Recorder(fs, "_frame_step", 1)
+            torch.cuda.synchronize()
+            control.account()       # the runs before count before
             before = [fn.launches for _, fn, _ in counters]
             frame_ms = []
             for i in range(PIPE_PROF_FROM):
@@ -2613,23 +2706,25 @@ def graph_phase(torch, dev, card, mono, flag):
                     and np.array_equal(fs.trajectory(), mono["traj"])
                     and all(torch.equal(v, getattr(fs.ba, k))
                             for k, v in mono["ba"].items()))
+            eager_steps.restore()
+            del fs._frame_step          # the instance's method again
             extra = ""
             g = fs.frame_graph
             if g is not None:
-                it = (g.lm_iters[0].cpu().numpy()
-                      / max(g.replays["A"], 1))
+                it = (g.lm_iters[0].cpu().numpy() / max(g.replays, 1))
                 most = g.lm_iters_max[0].tolist()
                 extra = (f"; K1 kernels the profiler saw {k1[0]} in "
-                         f"{k1[1]} replays of graph (A), as counted; "
+                         f"{k1[1]} replays of the frame graph; "
                          f"capture {g.capture_ms:.1f} ms, graph pool "
                          f"{g.pool_bytes} bytes, replays {g.replays}, "
-                         f"frames tracked again eagerly (overrun) "
-                         f"{g.overruns}, retries (eager) {g.retries}, the "
-                         f"state copied in {g.copy_ins}, LM iterations of "
-                         "the primary track a frame by level (0 = finest), "
-                         "mean / most (trips in the graph): " + ", ".join(
-                             f"{lv}: {v:.2f} / {m} ({t})" for lv, (v, m, t)
-                             in enumerate(zip(it, most, TK.CUT_LM_TRIPS))))
+                         f"retries (inside the graph) {g.retries}, eager "
+                         f"frame steps {eager_steps.n_calls}, the state "
+                         f"copied in {g.copy_ins}, the capture warm-ups' "
+                         f"launches K1-K4 {warm.n}, LM iterations of the "
+                         "primary track a frame by level (0 = finest), "
+                         "mean / most: " + ", ".join(
+                             f"{lv}: {v:.2f} / {m}" for lv, (v, m)
+                             in enumerate(zip(it, most))))
             cg = fs.chain_graph
             if cg is not None:
                 extra += (
@@ -2640,7 +2735,9 @@ def graph_phase(torch, dev, card, mono, flag):
                                 for k, v in cg.capture_ms.items())
                     + f", pool {cg.pool_bytes} bytes (apart from the "
                     f"frame graphs'), K2-K4 kernels the profiler saw "
-                    f"{k1[2]} in {k1[3]} replays, as counted, the "
+                    f"{k1[2]} in {k1[3]} replays ((seen, counted, inside "
+                    f"conditional nodes, shown by control.PROFILED's rule) "
+                    f"{k1[4]}), the "
                     f"selection keys' host ms median "
                     f"{median(cg.draw_ms):.3f}")
             log(f"{tag} mono {W}x{H} {name[graphs]} form: steady fps "
@@ -2663,6 +2760,16 @@ def graph_phase(torch, dev, card, mono, flag):
                 raise AssertionError(
                     f"the eager form launched K1-K4 {launched[False][-1]} "
                     f"times, not {MONO_EAGER_LAUNCHES}")
+            plus = [e + w_ for e, w_ in zip(MONO_EAGER_LAUNCHES, warm.n)]
+            if graphs and launched[True][-1] != plus:
+                raise AssertionError(
+                    f"the graph form launched K1-K4 {launched[True][-1]} "
+                    f"times, not the eager form's plus its capture "
+                    f"warm-ups' {plus}")
+            if graphs and eager_steps.n_calls:
+                raise AssertionError(
+                    f"the graph form stepped {eager_steps.n_calls} frames "
+                    "eagerly (a retry or a track outside the graph)")
             if graphs and (cg is None or chain_replays(fs) == 0):
                 raise AssertionError("the graph form replayed no keyframe "
                                      "chain graph")
@@ -2715,12 +2822,12 @@ def graph_phase(torch, dev, card, mono, flag):
         f"frames {steady}: graph form "
         + ", ".join(str(syncs[True][i]) for i in steady) + "; eager form "
         + ", ".join(str(syncs[False].get(i, "-")) for i in steady))
-    if not steady or max(syncs[True].values()) > 2:
-        raise AssertionError(f"the graph form syncs more than twice in a "
+    if not steady or max(syncs[True].values()) > 1:
+        raise AssertionError(f"the graph form syncs more than once in a "
                              f"steady frame: {syncs[True]}")
     kg, ke = kf_syncs[True], kf_syncs[False]
     log(f"{tag} synchronising calls of each add_active_frame call that "
-        f"replays the keyframe chain's graphs (no retry, no overrun, no "
+        f"replays the keyframe chain's graphs (no retry, no capture, no "
         f"dispatch again), frames {chained}: graph form "
         + ", ".join(str(kg[i][0]) for i in chained) + "; eager form "
         + ", ".join(str(ke[i][0]) for i in chained)
@@ -2731,11 +2838,10 @@ def graph_phase(torch, dev, card, mono, flag):
         raise AssertionError(
             "the graph form syncs more than twice in a frame that replays "
             "the keyframe chain: " + str({i: kg[i][2] for i in chained}))
-    log(f"{tag} the primary track on one steady frame's inputs: graph (A) "
-        f"in the cut form (LM trips by level at most {TK.CUT_LM_TRIPS}) "
-        f"{forms[0]:.3f} ms a replay (overrun {forms[3]}), in the full "
-        f"bounded form {forms[1]:.3f} ms a replay, the eager early-exit "
-        f"track {forms[2]:.3f} ms wall a call")
+    log(f"{tag} one steady frame's inputs: the frame graph's replay "
+        f"{forms[0]:.3f} ms of device work (the retry skipped, the "
+        f"tracker's loops left on the device), the eager early-exit "
+        f"primary track alone {forms[1]:.3f} ms wall a call")
     phase_done("[graph] syncs and forms")
     graph_flagship(torch, dev, card, flag)
 
@@ -2744,21 +2850,35 @@ def graph_flagship(torch, dev, card, flag):
     """[graph]'s flagship part: the scene's first PIPE_FLAG_FRAMES frames
     in the eager and the graph form (frame step and VIO keyframe chain),
     with each run's fps and its keyframe-chain frames' median over frames
-    FLAG_WARMUP-(PIPE_FLAG_FRAMES - 1) (each frame synchronised);
-    then the rest of the scene's frames through the same two systems
-    counting the synchronising calls of each frame, gated at 2 in a frame
-    that replays the VIO chain's graphs (graph form, each call named, the
-    eager form's count beside it); both forms bit for bit at the end."""
+    FLAG_WARMUP-(PIPE_FLAG_FRAMES - 1) (each frame synchronised); the
+    first keyframe from frame FLAG_UNTRAP on is handed an untrapped scale
+    state in both forms (`untrap_once`), so that its chain solves the
+    scale from the multi-guess start (`control.cond(trapped)`'s other
+    branch; gated: the graph form replays it); then the rest of the scene's frames
+    through the same two systems counting the synchronising calls of each
+    frame, gated at 2 in a frame that replays the VIO chain's graphs
+    (graph form, each call named, the eager form's count beside it); both
+    forms bit for bit at the end."""
     from sos_slam_tpu_torch.models import full_system as FSM
     tag = f"[graph] ({card})"
     name = {False: "eager", True: "graph"}
     scene, calib = flag["scene"], flag["calib"]
     stereo = FSM.StereoCalib(T_lr=scene["T_lr"], calib_right=calib)
-    runs, syncs = {}, {}
+    runs, syncs, untrapped = {}, {}, []
     for graphs in (False, True):
         gc.collect()
         fs = FSM.FullSystem(calib, flag["settings"], stereo=stereo,
                             device=dev, cuda_graphs=graphs)
+        forced = untrap_once(fs, FLAG_UNTRAP)
+        if graphs:
+            # the trapped flag each VIO chain replay read (kept on the
+            # device: a read here would be one more synchronising call)
+            step = fs.chain_graph.step
+
+            def recorded(*a, kf=None, **kw):
+                untrapped.append(~kf["scale_state"][1].clone())
+                return step(*a, kf=kf, **kw)
+            fs.chain_graph.step = recorded
 
         def feed(i, fs=fs):
             fs.add_active_frame(scene["left"][i], timestamp=i * FLAG_DT,
@@ -2788,12 +2908,14 @@ def graph_flagship(torch, dev, card, flag):
             + ", ".join(f"{v:.1f}" for v in kf_ms) + "), the others: "
             f"median {median(nonkf):.1f} ms"
             + (f"; capture {g.capture_ms:.1f} ms, graph pool "
-               f"{g.pool_bytes} bytes, replays {g.replays}, overrun "
-               f"{g.overruns}, retries {g.retries}; the VIO chain's "
-               f"graphs (frames 0-{FLAG_FRAMES - 1}): replays "
-               f"{dict(cg.replays)}, eager chains by reason "
-               f"{dict(cg.eager)}" if g is not None else ""))
+               f"{g.pool_bytes} bytes, replays {g.replays}, retries "
+               f"{g.retries}; the VIO chain's graphs (frames 0-"
+               f"{FLAG_FRAMES - 1}): replays {dict(cg.replays)}, eager "
+               f"chains by reason {dict(cg.eager)}" if g is not None
+               else ""))
     a, b = runs[False], runs[True]
+    del b.chain_graph.step          # the instance's methods again
+    del a._run_chain, b._run_chain
     same = (a.kf_shell_ids == b.kf_shell_ids
             and np.array_equal(a.trajectory(), b.trajectory())
             and np.array_equal(a.trajectory(scaled=True),
@@ -2803,14 +2925,22 @@ def graph_flagship(torch, dev, card, flag):
             and all(bits_equal(x, y) for x, y in zip(a.imu, b.imu))
             and a.current_scale == b.current_scale
             and np.array_equal(a._last_bg, b._last_bg))
-    log(f"{tag} flagship: keyframes {b.kf_shell_ids}, graph form bit for "
-        f"bit the eager form (both trajectories, every tensor of the "
-        f"window, the immature pool and the IMU state, the scale, the gyro "
-        f"bias; frames 0-{FLAG_FRAMES - 1}): {same}")
+    n_untrapped = int(sum(int(u) for u in untrapped))
+    log(f"{tag} flagship: keyframe {forced} (the first from frame "
+        f"{FLAG_UNTRAP} on) handed an untrapped scale state: "
+        f"{n_untrapped} VIO chain replays solved from "
+        f"the multi-guess start (of {len(untrapped)}), eager chains by "
+        f"reason {dict(b.chain_graph.eager)}; keyframes {b.kf_shell_ids}, "
+        f"scale {b.current_scale:.6f}, graph form bit for bit the eager "
+        f"form (both trajectories, every tensor of the window, the immature "
+        f"pool and the IMU state, the scale, the gyro bias; frames "
+        f"0-{FLAG_FRAMES - 1}): {same}")
     if not same:
         raise AssertionError("the flagship's graph form is not bit for bit "
                              "its eager form")
-    if b.frame_graph.replays["A"] == 0 or chain_replays(b) == 0:
+    if n_untrapped == 0:
+        raise AssertionError("no VIO chain replay solved an untrapped scale")
+    if b.frame_graph.replays == 0 or chain_replays(b) == 0:
         raise AssertionError("the flagship's graph form replayed no frame "
                              "or no VIO chain graph")
     del runs, a, b, fs
@@ -2819,7 +2949,7 @@ def graph_flagship(torch, dev, card, flag):
                if clean and not redo]
     log(f"{tag} flagship: synchronising calls of each add_active_frame "
         f"call that replays the VIO keyframe chain's graphs (no retry, no "
-        f"overrun, no capture, no dispatch again), frames {chained}: graph "
+        f"capture, no dispatch again), frames {chained}: graph "
         f"form " + ", ".join(str(kg[i][0]) for i in chained)
         + "; eager form " + ", ".join(str(ke[i][0]) for i in chained)
         + (f"; the calls, frame {chained[-1]}: graph form "
@@ -2831,12 +2961,107 @@ def graph_flagship(torch, dev, card, flag):
             "replays the VIO chain: " + str({i: kg[i][2] for i in chained}))
 
 
+def control_phase(torch, dev, card, node_runs, setters):
+    """Phase [control]: the conditional graph nodes of ops/control.py
+    (csrc/graph_cond.cu) alone, as scripts/torch_graph_probe.py runs them:
+    each case (an IF taken and skipped, an IF with an else, nested IFs, a
+    WHILE of no trip, of three and to its cap, the launch counters
+    credited from the run counts and the setter launches counted on the
+    device) captured, replayed and held bit for bit to its eager form and
+    its plain twin (gated); the device us of a
+    skipped IF node, of a node of one tiny kernel and of a WHILE trip of
+    one tiny kernel; and the plain twin of the skipped IF (its branch run
+    and selected on the device) in a graph of the same shape; what
+    torch.profiler reports of the kernels in a WHILE body and in IF
+    bodies against control.PROFILED's rule (`profiler_view`; logged, not
+    gated: late in this process the profiler loses such records, which is
+    why `busy_window` holds the rule only in the first window of the graph
+    form). Returns the kernels line's entry of graph_cond (`launches`: the
+    setter kernels run on the mono slice, `setters`; `bodies_run`: the
+    bodies its nodes ran, `node_runs`)."""
+    import importlib.util
+    import os
+    from sos_slam_tpu_torch.ops import control
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "scripts", "torch_graph_probe.py")
+    spec = importlib.util.spec_from_file_location("torch_graph_probe", path)
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    tag = f"[control] ({card})"
+    log(f"{tag} driver CUDA {control.driver_version()}, torch "
+        f"{torch.__version__} (CUDA {torch.version.cuda})")
+    bad = []
+    for name, ok, detail in probe.control_cases(dev):
+        log(f"{tag} {name}: bit for bit its eager form and plain twin "
+            f"{ok} ({detail})")
+        if not ok:
+            bad.append(name)
+    if bad:
+        raise AssertionError(f"conditional node cases off their eager "
+                             f"form: {bad}")
+    us = probe.node_costs(dev)
+    view = probe.profiler_view(dev)
+    log(f"{tag} what torch.profiler reports of kernels inside conditional "
+        f"nodes, late in this process (K1 launches: seen, by "
+        f"control.PROFILED's rule): " + "; ".join(
+            f"{k}: {v[0]}, {v[1]}" for k, v in view.items()))
+    n = 500
+    x = torch.zeros(16, device=dev)
+    off = torch.zeros((), dtype=torch.bool, device=dev)
+
+    def plain_if():
+        for _ in range(n):
+            x.copy_(torch.where(off, x + 1.0, x))
+
+    g = probe._captured(dev, plain_if)
+    plain_us = 1e3 * replay_ms(torch, g.replay, n=10) / n
+    log(f"{tag} device us, 10 replays of a graph under CUDA events: a "
+        f"skipped IF node {us['skipped IF node']:.3f}, its plain twin "
+        f"(branch run and selected) {plain_us:.3f}, a node of one tiny "
+        f"kernel {us['tiny kernel node']:.3f}, a WHILE trip of one tiny "
+        f"kernel {us['WHILE trip of one tiny kernel']:.3f}")
+    # a setter reads one flag, writes one counter (and the trip count) and
+    # adds one to the count of setter launches
+    b_ms, b_by = bound(1 + 8 + 8, 0)
+    return dict(name="graph_cond (conditional graph nodes: a skipped IF "
+                     "node)", route="cuda",
+                source="sos_slam_tpu_torch/csrc/graph_cond.cu",
+                replaces="sos_slam_tpu/models/full_system.py:2656 "
+                         "(lax.cond; no Pallas kernel)",
+                launches=setters, bodies_run=node_runs, max_abs_err=0.0,
+                ms=us["skipped IF node"] / 1e3, plain_ms=plain_us / 1e3,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                while_trip_ms=us["WHILE trip of one tiny kernel"] / 1e3,
+                kernel_node_ms=us["tiny kernel node"] / 1e3)
+
+
+def untrap_once(fs, first_id):
+    """Hand the keyframe chain of the first keyframe from frame `first_id`
+    on (and any dispatch of it again) an untrapped scale state: the same
+    intervention in either form. Returns the list that gets that
+    keyframe's id."""
+    import torch
+    run_chain = fs._run_chain
+    hit = []
+
+    def untrapped(*a, **kw):
+        a = list(a)
+        if a[9] >= first_id and (not hit or hit[0] == a[9]):
+            hit[:1] = [a[9]]
+            s_, t_, f_ = a[12]["scale_state"]
+            a[12] = dict(a[12], scale_state=(s_, torch.zeros_like(t_), f_))
+        return run_chain(*a, **kw)
+    fs._run_chain = untrapped
+    return hit
+
+
 def run(torch):
     from sos_slam_tpu_torch.models import full_system as FSM
     from sos_slam_tpu_torch.models import initializer as INIT
     from sos_slam_tpu_torch.models import window as WIN
     from sos_slam_tpu_torch.models.full_system import FullSystem
     from sos_slam_tpu_torch.ops import ba_p as BP
+    from sos_slam_tpu_torch.ops import control
     from sos_slam_tpu_torch.ops import image as IMG
     from sos_slam_tpu_torch.utils import cuda_build, synthetic
     from sos_slam_tpu_torch.utils import evaluate as EV
@@ -2987,10 +3212,13 @@ def run(torch):
     # the callers of K1 and K2, counted: a call of theirs is one launch
     callers = [Recorder(FSM, "build_pyramid", 1),
                Recorder(INIT, "build_pyramid", 1),
-               Recorder(WIN, "build_track_template", 1)]
-    for w_ in wrappers:
-        w_.launches = 0
+               Recorder(WIN, "build_track_template", 1),
+               Recorder(IMG, "build_pyramid", 1)]      # the frame graph's
+    zero_launches(wrappers)
     fs = FullSystem(calib, settings, device=dev)
+    control.account()
+    rep0, runs0 = replay_launched(fs), control.CREDITED["runs"]
+    setters0 = control.setter_launches(dev)
     frame_ms, in_flight, rungs, pw = [], 0, [], None
 
     def rung_after_keyframe(i):
@@ -3020,15 +3248,17 @@ def run(torch):
     counts = [w_.launches for w_ in wrappers]
     for r in callers:
         r.restore()
-    # the chain graphs' replays launch without a Python call; their
-    # captures called without a launch (those in prewarm are not counted)
-    rep_c, cap_c = chain_launched(fs), chain_captured(fs)
-    cap_pw = pw["chain_captured"] if pw else dict(K1=0, K2=0)
-    n_pyramids = callers[0].n_calls + callers[1].n_calls \
-        + graph_pyramids(fs) - (pw["pyramids"] if pw else 0) \
-        + rep_c["K1"] - (cap_c["K1"] - cap_pw["K1"])
-    n_templates = callers[2].n_calls + rep_c["K2"] \
-        - (cap_c["K2"] - cap_pw["K2"])
+    # the graphs' replays launch without a Python call; a call while a
+    # graph is captured launches nothing (prewarm's are not counted)
+    rep = {c: replay_launched(fs)[c] - rep0[c] - (pw["replayed"][c]
+                                                   if pw else 0)
+           for c in ("K1", "K2")}
+    n_pyramids = callers[0].n_launched + callers[1].n_launched \
+        + callers[3].n_launched + rep["K1"]
+    n_templates = callers[2].n_launched + rep["K2"]
+    node_runs = control.CREDITED["runs"] - runs0 - (pw["runs"] if pw else 0)
+    setters = control.setter_launches(dev) - setters0 \
+        - (pw["setters"] if pw else 0)
     del callers
     if not fs.initialized or fs.is_lost or fs.init_failed:
         raise AssertionError(f"slice failed: initialized={fs.initialized} "
@@ -3091,7 +3321,12 @@ def run(torch):
             "one launch")
     log(f"[slice] {n_pyramids} pyramids built in {counts[0]} K1 launches, "
         f"{n_templates} templates ({n_kf} keyframes) in {counts[1]} K2 "
-        "launches")
+        f"launches; the graphs' conditional nodes ran {node_runs} bodies "
+        f"(branches taken and loop trips) after {setters} launches of their "
+        "setter kernels (csrc/graph_cond.cu)")
+    if node_runs <= 0 or setters <= 0:
+        raise AssertionError("no conditional graph node ran on the main "
+                             "path")
     for k, c in zip(kernels, counts):
         k["launches"] = c
     # the [multidevice] phase's trace: the pool and window at the end of the
@@ -3110,8 +3345,10 @@ def run(torch):
                 ba={k: v.clone() for k, v in fs.ba._asdict().items()},
                 imgs=imgs, poses=poses, in_flight=in_flight)
     phase_done("mono slice")
+    # the first window of the graph form: held exactly
     profile_frames(torch, fs, lambda i: fs.add_active_frame(
-        imgs[i], timestamp=i * 0.05, frame_id=i), N_FRAMES, PROF_FRAMES)
+        imgs[i], timestamp=i * 0.05, frame_id=i), N_FRAMES, PROF_FRAMES,
+        exact=True)
     phase_done("mono profile")
     prewarm_phase(torch, card, fs, pw, wrappers)
     phase_done("[prewarm] phase")
@@ -3125,6 +3362,8 @@ def run(torch):
     graph_phase(torch, dev, card, mono, flag)
     del mono
     phase_done("[graph] phase")
+    graph_cond = control_phase(torch, dev, card, node_runs, setters)
+    phase_done("[control] phase")
     loop_phase(torch, dev, card, kernels, flag)
     del flag
     phase_done("loop phase")
@@ -3165,7 +3404,7 @@ def run(torch):
         + "; the [multidevice] phase (K3: (a)'s calls and the ranks'): "
         + ", ".join(f"K{i + 1}={k['launches_multidevice']}"
                     for i, k in enumerate(kernels)))
-    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"kernels": kernels + [graph_cond]}))
     log(f"{card}")
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -9,43 +9,43 @@ card as CUDA graphs.
 (`flag_frames`), frame insertion, activation (K4), the windowed BA (K3),
 HdiF, the tracker template (K2), point marginalization (K3) with the
 new-trace selection (K1 for its gradient pyramid), `MAX_MARG_FRAMES`
-masked frame marginalizations and one image-stack compaction, and with
-stereo the scale solve on the fresh template (K1 for the right image's
-pyramid; both branches run and the device `trapped` chooses, as a graph
-takes no branch alone). `kf_chain_vio_body` is the VIO chain's: the
-staged IMU block's intake and the spline propagation before the
-activation, the visual-inertial KKT BA, the stereo scale solve or the
-scale trapping, the VIO point and masked VIO frame marginalizations.
-Nothing in either reads the card: the window's slot, the flagged slots
-(`marg_ks`, descending, padded with -1), the selection count `n_have`
-and the per-host dead-point counts `host_out` stay device tensors, and
-the host learns them from the frame's one pinned readback when the
-frame completes. Its random draws (the selector's block directions and the
-density subsample) are the threefry twin's, made on the device from four
-keys that the host derives at dispatch, where it knows the keyframe's
-key, and copies in; the subsample is drawn always and applied where the
-count asks for it. The eager chain
-(`FullSystem._kf_chain` with `cuda_graphs=False`, on the CPU, or for a
-keyframe the graphs do not take) runs the body with the BA's early-exit
-loop, which reads its break test on the host after each step, and the
-scale LM's early-exit loops; the graphs run them bounded
-(`models/energy.py`, `ops/scale_opt.py`), which gives the same bits. The
-scale solve's cut form (`ops/scale_opt.py::cut_trips`) flags an
-overrun where the eager loops would run more trips: the keyframe's
-completion then dispatches it again with the chain eager
-(`FullSystem._settle`). With an export consumer attached (`_exporting()`)
-the body also computes the dying keyframes' energy columns, and the
-keyframe's completion reads them with the marginalized points, which a
-graph's outputs do not keep: such a chain stays eager.
+frame marginalizations and one image-stack compaction, and with stereo
+the scale solve on the fresh template (K1 for the right image's
+pyramid). `kf_chain_vio_body` is the VIO chain's: the staged IMU block's
+intake and the spline propagation before the activation, the
+visual-inertial KKT BA, the stereo scale solve or the scale trapping, the
+VIO point and VIO frame marginalizations. Nothing in either reads the
+card: the window's slot, the flagged slots (`marg_ks`, descending, padded
+with -1), the selection count `n_have` and the per-host dead-point counts
+`host_out` stay device tensors, and the host learns them from the frame's
+one pinned readback when the frame completes. Its random draws (the
+selector's block directions and the density subsample) are the threefry
+twin's, made on the device from four keys that the host derives at
+dispatch, where it knows the keyframe's key, and copies in; the subsample
+is drawn always and applied where the count asks for it.
+
+The JAX chain's control flow is the device's here too (ops/control.py):
+the BA's `lax.while_loop` (models/energy.py), the scale solve's
+`lax.cond(trapped, do_trap, do_multi)` under the right image's presence
+and its LM loops (ops/scale_opt.py), and each frame marginalization's
+`lax.cond(k >= 0, do, skip)` are conditional graph nodes in a capture, so
+a replay leaves the BA at its break, runs one scale branch and skips the
+folds of padded slots. The eager chain (`FullSystem._kf_chain` with
+`cuda_graphs=False`, on the CPU, or for a keyframe the graphs do not
+take) runs the body with the BA's and the scale LM's early-exit loops,
+which read their tests on the host; both give the same bits. With an
+export consumer attached (`_exporting()`) the body also computes the
+dying keyframes' energy columns, and the keyframe's completion reads
+them with the marginalized points, which a graph's outputs do not keep:
+such a chain stays eager.
 
 `ChainGraph` holds the static buffers the body reads (the window `ba`,
 the immature pool, the image stack, the activation distance, `host_out`,
 the keyframe's pyramid, pose, affine and exposure, the frame's window
 stats, the keyframe count, the selection's keys, the right image with
 `have_right` and the scale state, and with IMU the IMU state, the staged
-sample block and the keyframe's timestamp) and,
-on a card, the captured graphs. The card's PyTorch has no conditional
-graph nodes, so the graphs take only what their shape allows:
+sample block and the keyframe's timestamp) and, on a card, the captured
+graphs. Their shape still fixes two things:
   * the BA budget `settings.max_opt_iterations` (the bootstrap's 20 and
     15 run eagerly);
   * one graph per selector rung (`pot` is static in the JAX chain as it
@@ -53,18 +53,18 @@ graph nodes, so the graphs take only what their shape allows:
     keeps the rung among them, or at the first keyframe of a rung before
     any prewarm; a rung without a graph after prewarm runs eagerly.
 Each keyframe that runs eagerly is counted in `eager` by its reason.
-A rung's graph holds the whole chain, its BA run to the bound: a replay
-reads nothing back. Every graph is warmed up on a side stream and
-captured in "thread_local" mode (the loop handler's worker launches on
-the same card from another thread), all into one private pool kept apart
-from the frame step's (`models/frame_graph.py`): the rung graphs are
-alternatives, each holding its own outputs, and the frame graphs replay
-between them in no fixed order. A replay overwrites the outputs of the
-last one, so `step` returns clones of what a record keeps, and adds the
-K1-K4 launches captured in the replayed graphs to the kernels' launch
-counters. A failed capture raises; there is no fallback to the eager
-chain. On the CPU the bodies run as they are: that is how the tests hold
-them.
+A rung's graph holds the whole chain: a replay reads nothing back. Every
+graph is warmed up on a side stream and captured in "thread_local" mode
+(the loop handler's worker launches on the same card from another
+thread), all into one private pool kept apart from the frame step's
+(`models/frame_graph.py`): the rung graphs are alternatives, each holding
+its own outputs, and the frame graphs replay between them in no fixed
+order. A replay overwrites the outputs of the last one, so `step` returns
+clones of what a record keeps, and adds the K1-K4 launches captured
+outside the conditional nodes to the kernels' launch counters (those
+inside are credited from the nodes' run counts, `control.read`). A failed
+capture raises; there is no fallback to the eager chain. On the CPU the
+bodies run as they are: that is how the tests hold them.
 """
 
 from __future__ import annotations
@@ -78,19 +78,17 @@ import torch
 from sos_slam_tpu_torch.models import energy as E
 from sos_slam_tpu_torch.models import imu as IM
 from sos_slam_tpu_torch.models import window as WIN
-from sos_slam_tpu_torch.models.frame_graph import _clone, _copy_into
 from sos_slam_tpu_torch.ops import ba as B
-from sos_slam_tpu_torch.ops import ba_p as BP
-from sos_slam_tpu_torch.ops import image as IMG
+from sos_slam_tpu_torch.ops import control
 from sos_slam_tpu_torch.ops import selector
 from sos_slam_tpu_torch.ops.numerics import at
 from sos_slam_tpu_torch.utils import rng
 
 MAX_MARG_FRAMES = 4   # >= (max_frames - min_frames) + 1 for the defaults
 
-# the kernels' launch counters, which a replay adds its captured launches to
-COUNTERS = (("K1", IMG.pyramid_levels), ("K2", WIN.template_levels),
-            ("K3", BP.fused_iteration), ("K4", BP.act_pass))
+# the kernels' launch counters, which a replay adds the launches captured
+# outside its conditional nodes to
+COUNTERS = control.counters()
 
 
 def flag_frames(stats, exposure, frame_valid, host_out, n_kf, settings):
@@ -171,32 +169,46 @@ def marg_frames(fs, ba, imm, dI, host_out, marg_ks, imu=None):
     image rows tracked in a slot -> row map `dimap`, then one compaction
     of the image stack (the counterpart of `_compact_dI`: one gather, the
     rows from the live count on zeroed). Each marginalization runs on the
-    clamped device slot (a -1 is clamped to slot 0) and is selected field
-    by field of the window, the pool and the IMU state where its slot is
-    >= 0, which reads nothing back. With an export consumer attached, also
-    each slot's energy column on the state before its fold, its image read
-    through `dimap` (the entries of padded slots are not used). Returns
-    (ba, imm, imu, dI, host_out, [(e_col, n_col)])."""
+    clamped device slot (a -1 is clamped to slot 0) under
+    `control.cond(k >= 0)`, the JAX package's `lax.cond(k >= 0, do,
+    skip)`: inside a capture a conditional node that a padded slot skips,
+    elsewhere its plain twin. It writes the window, the pool and the IMU
+    state into copies of their own made before the first, which reads
+    nothing back; `dimap` and `host_out` are kept by device arithmetic.
+    With an export consumer attached, also each slot's energy column on
+    the state before its fold, its image read through `dimap` (the
+    entries of padded slots are not used). Returns (ba, imm, imu, dI,
+    host_out, [(e_col, n_col)])."""
     F = ba.F
     idx = torch.arange(F, device=dI.device)
     dimap = idx
     exporting = fs._exporting()
     ecols = []
+    # a skipped fold writes nothing: the folds write into states of their
+    # own
+    state = (control.clone(ba), control.clone(imm)) + (() if imu is None
+                                         else (control.clone(imu),))
     for j in range(MAX_MARG_FRAMES):
         k = marg_ks[j]
         do = k >= 0
         kc = torch.clamp(k, min=0)
         if exporting:
-            ecols.append(B.col_energy(ba, dI, kc, fs.settings, fs.w, fs.h,
-                                      row=at(dimap, kc)))
-        ba2, imm2, imu2 = fs._marg_frame(ba, imm, imu, kc)
-        ba, imm = _select(do, ba2, ba), _select(do, imm2, imm)
-        if imu is not None:
-            imu = _select(do, imu2, imu)
+            ecols.append(B.col_energy(state[0], dI, kc, fs.settings, fs.w,
+                                      fs.h, row=at(dimap, kc)))
+
+        def fold(kc=kc):
+            ba2, imm2, imu2 = fs._marg_frame(state[0], state[1],
+                                             state[2] if imu is not None
+                                             else None, kc)
+            return (ba2, imm2) + (() if imu is None else (imu2,))
+
+        control.cond(do, fold, None, out=state)
         src = torch.clamp(torch.where(idx < kc, idx, idx + 1), max=F - 1)
         dimap = torch.where(do, torch.where(idx == F - 1, at(dimap, kc),
                                             dimap[src]), dimap)
         host_out = shift_host_out(host_out, k)
+    ba, imm = state[:2]
+    imu = state[2] if imu is not None else None
     live = idx < torch.sum(ba.frame_valid)
     dI = torch.where(live[:, None, None, None], dI[dimap],
                      torch.zeros_like(dI))
@@ -319,8 +331,7 @@ def kf_chain_vio_body(fs, st, imm, pyr, T_cw_new, aff_new, exposure, stats,
         imu = _select(was, imu, trap)
         scale_out = (imu.scale * IM.SCALE_SCALE, imu.scale_trapped,
                      torch.zeros_like(kf["scale_state"][2]),
-                     torch.full_like(imu.scale, -1.0),
-                     torch.zeros_like(imu.scale_trapped))
+                     torch.full_like(imu.scale, -1.0))
     tl = vio_tail(fs, hd, ba, imu, HdiF, pyr, pot, keys)
     return dict(
         state=dict(ba=tl["ba"], imu=tl["imu"], imm=tl["imm"], dI=tl["dI"],
@@ -442,8 +453,8 @@ class ChainGraph:
     # ------------------------------------------------------------------
     def _chain(self, pot: int):
         """The whole chain on the static buffers, the BA and the scale
-        solve bounded: the body of rung `pot`'s graph. Reads nothing
-        back."""
+        solve bounded (`control`'s loops and branches): the body of rung
+        `pot`'s graph. Reads nothing back."""
         i, fs = self.inp, self.fs
         kf = dict(right=i["right"], have_right=i["have_right"],
                   scale_state=i["scale_state"])
@@ -480,6 +491,7 @@ class ChainGraph:
     def capture(self, pot: int) -> None:
         """Warm rung `pot`'s body up on a side stream, then capture it into
         a CUDA graph in the chain's private pool, in "thread_local" mode,
+        its branches and loops as conditional nodes (`control.capture`),
         unless it is captured already. Needs the static buffers filled (a
         `_load`). A failed capture raises; there is no fallback to the
         eager chain."""
@@ -498,8 +510,7 @@ class ChainGraph:
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
         g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g, pool=self.pool, stream=side,
-                              capture_error_mode="thread_local"):
+        with control.capture(g, self.pool, side):
             self._chain(pot)
         self.per_replay[pot] = {c: fn.launches - before[c]
                                 for c, fn in COUNTERS}
@@ -541,7 +552,7 @@ class ChainGraph:
         if kf["right"] is not None:
             vals["right"] = kf["right"]
         if self.inp is None:
-            self.inp = {k: _clone(v) for k, v in vals.items()}
+            self.inp = {k: control.clone(v) for k, v in vals.items()}
             self.inp["n_kf"] = torch.zeros((), dtype=torch.int64,
                                            device=self.device)
             self.inp["keys"] = torch.zeros((4, 2), dtype=torch.int64,
@@ -553,7 +564,7 @@ class ChainGraph:
             if torch.is_tensor(v):
                 self.inp[k].copy_(v)
             else:
-                _copy_into(self.inp[k], v)
+                control.copy_into(self.inp[k], v)
         self.inp["n_kf"].fill_(n_kf)
 
     def prepare(self, st, imm, pyr, T_cw_new, aff_new, exposure, stats,
@@ -585,7 +596,7 @@ class ChainGraph:
         self.capture(pot)
         self._run(pot)
         o = self.out[pot]
-        res = {k: _clone(o[k]) for k in self.keep}
-        res["ba_stats"] = {k: _clone(o["ba_stats"][k]) for k in _KEEP_STATS}
-        res["state"] = dict(st, **_clone(o["state"]))
+        res = {k: control.clone(o[k]) for k in self.keep}
+        res["ba_stats"] = {k: control.clone(o["ba_stats"][k]) for k in _KEEP_STATS}
+        res["state"] = dict(st, **control.clone(o["state"]))
         return res

@@ -9,9 +9,11 @@ frame's FEJ point moves to its current pose and a final linearization
 drops OOB/outlier residuals. Every linearization goes through kernel K3
 (ops/ba_p.py:fused_iteration) at the `_iter_quants` and `_marg_Hb` seams.
 `optimize` reads its loop condition on the host; `optimize(bounded=True)`
-runs the step count to its bound with the steps after the break frozen,
-which gives the same bits and reads nothing back (the counterpart of the
-JAX package's `lax.while_loop`). The visual-inertial twins
+reads nothing back: its loop is an `ops/control.py` `while_loop` (the JAX
+package's `lax.while_loop`; inside a CUDA graph's capture a WHILE node,
+which leaves after the break), whose plain twin runs the step count to
+its bound with the steps after the break frozen, which gives the same
+bits. The visual-inertial twins
 (`gn_step_vio`, `optimize_vio`, `marginalize_frame_vio`,
 `marginalize_points_vio`) solve the (5+29F)-dim KKT system of
 models/imu.py around the same K3 linearizations.
@@ -24,6 +26,7 @@ import torch
 from sos_slam_tpu_torch.models import imu as IM
 from sos_slam_tpu_torch.ops import ba as B
 from sos_slam_tpu_torch.ops import ba_p as BP
+from sos_slam_tpu_torch.ops import control
 from sos_slam_tpu_torch.ops.numerics import at, inv, live_pinv
 from sos_slam_tpu_torch.parallel import comm
 from sos_slam_tpu_torch.utils import lie
@@ -176,24 +179,30 @@ def optimize(ba: B.BAState, dI, settings: Settings, w: int, h: int,
     """The windowed BA (FullSystem::optimize). Returns (ba, stats dict).
 
     The loop leaves early on the break test, read on the host after each
-    step. `bounded=True` reads nothing back: it runs `max_its` steps, sets
-    a device `done` once the break test holds with `min_its` steps made,
-    and from the step after it keeps every field of the state as it was
-    (`torch.where`), counting the steps made on the device (stats'
-    `n_its`, a 0-dim tensor). Both forms give the same bits."""
+    step. `bounded=True` reads nothing back: the loop is a
+    `control.while_loop` of at most `max_its` steps while a device `done`
+    is unset (set once the break test holds with `min_its` steps made),
+    each step updating the state in place and keeping every field as it
+    was once `done` is set (`torch.where`), counting the steps made on the
+    device (stats' `n_its`, a 0-dim tensor). Both forms give the same
+    bits."""
     ba = ba._replace(res_state=torch.where(
         ba.res_exist, torch.full_like(ba.res_state, B.RES_IN), ba.res_state))
     ev = B.make_precalc_eval(ba)
     if bounded:
         dev = ba.state.device
+        ba = control.clone(ba)
         it = torch.zeros((), dtype=torch.int32, device=dev)
         done = torch.zeros((), dtype=torch.bool, device=dev)
-        for _ in range(max_its):
+
+        def step():
             new, cb, _ = gn_step(ba, dI, settings, w, h, ev=ev)
             live = ~done
-            ba = _freeze(live, new, ba)
-            it = it + live.to(torch.int32)
-            done = done | (live & cb & (it >= min_its))
+            control.copy_into(ba, _freeze(live, new, ba))
+            it.copy_(it + live.to(torch.int32))
+            done.copy_(done | (live & cb & (it >= min_its)))
+
+        control.while_loop(lambda: ~done, step, max_its)
     else:
         it = 0
         canbreak = False
@@ -430,24 +439,30 @@ def optimize_vio(ba: B.BAState, imu: IM.ImuState, dI, settings: Settings,
     final linearization. Returns (ba, imu, stats dict).
 
     As `optimize`: the loop leaves early on the break test read on the
-    host; `bounded=True` runs `max_its` steps with every field of both
-    states frozen by `torch.where` from the step after a device `done`,
-    counts the steps on the device and reads nothing back (the JAX
-    package's `lax.while_loop`). Both forms give the same bits."""
+    host; `bounded=True` runs it as a `control.while_loop` of at most
+    `max_its` steps with every field of both states frozen by
+    `torch.where` once a device `done` is set, counts the steps on the
+    device and reads nothing back (the JAX package's `lax.while_loop`).
+    Both forms give the same bits."""
     ba = ba._replace(res_state=torch.where(
         ba.res_exist, torch.full_like(ba.res_state, B.RES_IN), ba.res_state))
     ev = B.make_precalc_eval(ba)
     if bounded:
         dev = ba.state.device
+        ba, imu = control.clone(ba), control.clone(imu)
         it = torch.zeros((), dtype=torch.int32, device=dev)
         done = torch.zeros((), dtype=torch.bool, device=dev)
-        for _ in range(max_its):
-            nba, nimu, cb, _ = gn_step_vio(ba, imu, dI, settings, w, h, ev=ev)
+
+        def step():
+            nba, nimu, cb, _ = gn_step_vio(ba, imu, dI, settings, w, h,
+                                           ev=ev)
             live = ~done
-            ba = _freeze(live, nba, ba)
-            imu = _freeze(live, nimu, imu)
-            it = it + live.to(torch.int32)
-            done = done | (live & cb & (it >= min_its))
+            control.copy_into(ba, _freeze(live, nba, ba))
+            control.copy_into(imu, _freeze(live, nimu, imu))
+            it.copy_(it + live.to(torch.int32))
+            done.copy_(done | (live & cb & (it >= min_its)))
+
+        control.while_loop(lambda: ~done, step, max_its)
     else:
         it = 0
         canbreak = False

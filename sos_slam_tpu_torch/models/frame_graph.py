@@ -1,45 +1,35 @@
 """The fused path's frame step as one device program with its decisions on
 the device (port of sos_slam_tpu/models/full_system.py `_frame_step_jit`
-and `_need_kf_jit`), replayed on a card as CUDA graphs.
+and `_need_kf_jit`), replayed on a card as one CUDA graph.
 
 The JAX package runs a frame as one jitted program that the host reads
 nothing back from: the tracker's loops are `lax.while_loop`s, the retry a
 `lax.cond`, and the trace runs always and is then selected by `accept`.
-Here the same step is two graphs, each free of host reads, around the
-retry:
-  (A) `primary`: the pyramid (K1) and the primary-hypothesis track, with
-      `prim_ok` and the tracker's `overrun`;
-  (B) `finish`: `accept`, the trace (run always, then selected field by
-      field), the window stats, the keyframe decision and the next
-      frame's chained inputs.
-The card's PyTorch (2.11) has no conditional graph nodes, so `lax.cond`
-at `prim_ok` becomes a split: the host reads `prim_ok` after (A) and,
-only when the primary misses, runs the 5-wide retry over the standard
-hypotheses and its pick eagerly, before (B). A graph cannot leave a loop early
-either, so (A) runs the tracker's cut form (ops/tracker.py):
-`CUT_LM_TRIPS` LM trips a level and no cutoff doubling, which a steady
-frame's primary hypothesis does not need. Where the eager form would run
-more it flags `overrun`, and such a frame tracks again in the eager form,
-which gives the same bits as the full loops. A steady frame then reads
-the host twice: `prim_ok` with `overrun`, and `need_kf`. Everything is
-bit for bit the eager step (`FullSystem._frame_step` + `_need_kf`).
-`FrameGraph(fs, cut=False)` captures the full bounded form instead
-(every loop to its bound, no overrun), for measuring.
+Here the same step is one body, captured on a card as one graph:
+  * the pyramid (K1) and the primary-hypothesis track, with `prim_ok`;
+  * `control.cond(~prim_ok, retry)`: the 5-wide retry over the standard
+    hypotheses and its pick, which a replay skips where the primary
+    holds (ops/control.py: a conditional graph node);
+  * `accept`, the trace (run always, then selected field by field), the
+    window stats, the keyframe decision and the next frame's chained
+    inputs.
+The tracker runs its bounded form (ops/tracker.py): each loop a
+`control.while_loop`, which leaves on the device where the eager loop
+leaves, and the level repeat a `control.cond`. A steady frame reads the
+host once: `need_kf`, in the same copy as the conditional nodes' run
+counts (`control.read`). Everything is bit for bit the eager step
+(`FullSystem._frame_step` + `_need_kf`).
 
-The retry is no graph: as one it overran on every retry frame of the
-mono and flagship scenes on an NVIDIA H100 (PERF.md §6), because the
-retry's far hypotheses double their cutoff and run the LM loop to its
-cap, and its full bounded form would cost several times (A)'s.
-
-`FrameGraph` holds the static buffers the bodies read (the frame's
-inputs, the window `ba`, the immature pool and the four-level templates,
-copied in before a replay: `ba` and the templates only when a keyframe
-chain replaced them) and, on a card, the captured graphs: warmed up on a
-side stream, captured into one private pool in "thread_local" mode (the
-loop handler's worker launches on the same card from another thread).
-A replay overwrites the outputs of the last one, so `step` returns clones
-of everything a record keeps. On the CPU the bodies run as they are
-(there is no graph): that is how the tests hold them to the eager step.
+`FrameGraph` holds the static buffers the body reads (the frame's inputs,
+the window `ba`, the immature pool and the four-level templates, copied in
+before a replay: `ba` and the templates only when a keyframe chain
+replaced them) and, on a card, the captured graph: warmed up on a side
+stream, captured into a private pool in "thread_local" mode (the loop
+handler's worker launches on the same card from another thread). A replay
+overwrites the outputs of the last one, so `step` returns clones of
+everything a record keeps. On the CPU the body runs as it is (there is no
+graph, and `control` runs its plain twins): that is how the tests hold it
+to the eager step.
 """
 
 from __future__ import annotations
@@ -48,6 +38,7 @@ import time
 
 import torch
 
+from sos_slam_tpu_torch.ops import control
 from sos_slam_tpu_torch.ops import image as IMG
 from sos_slam_tpu_torch.ops import tracker as TK
 from sos_slam_tpu_torch.ops import trace as TR
@@ -135,37 +126,21 @@ def chain_inputs(T_prev, T_me, T_ref, res0, rms0, first_rmse, accept,
                                first_rmse))
 
 
-def _clone(x):
-    if torch.is_tensor(x):
-        return x.clone()
-    if isinstance(x, dict):
-        return {k: _clone(v) for k, v in x.items()}
-    if isinstance(x, tuple) and hasattr(x, "_fields"):
-        return type(x)(*(_clone(v) for v in x))
-    return tuple(_clone(v) for v in x)
-
-
-def _copy_into(dst, src) -> None:
-    for d, s_ in zip(dst, src):
-        d.copy_(s_)
-
-
 class FrameGraph:
-    """The frame step of one FullSystem as the bodies (A) and (B) on
-    static buffers; on a card, as the CUDA graphs of those bodies
-    (module docstring). `step` is the fused path's frame step."""
+    """The frame step of one FullSystem as one body on static buffers; on
+    a card, as the CUDA graph of that body (module docstring). `step` is
+    the fused path's frame step."""
 
-    def __init__(self, fs, cut: bool = True):
+    def __init__(self, fs):
         self.fs = fs
         self.device = dev = fs.device
-        self.cut = cut
         self.on_card = dev.type == "cuda"
         self.inp = {k: torch.zeros(shape, device=dev)
                     for k, shape in _INPUTS.items()}
         self.img = torch.zeros(fs.h, fs.w, device=dev)
         self.no_kf = torch.zeros((), dtype=torch.bool, device=dev)
-        self.ba = _clone(fs.ba)
-        self.imm = _clone(fs.imm)
+        self.ba = control.clone(fs.ba)
+        self.imm = control.clone(fs.imm)
         self.templates = None           # made at the first step
         self.sel = dict(T=torch.eye(4, device=dev)[None],
                         aff=torch.zeros(1, 2, device=dev),
@@ -173,48 +148,69 @@ class FrameGraph:
                         flow=torch.zeros(1, 2, device=dev),
                         good=torch.zeros(1, dtype=torch.bool, device=dev))
         # the LM iterations the primary track ran at each level, summed
-        # over the replays of (A) and their most in one (a frame that
-        # overran counts its trips)
+        # over the replays and their most in one
         self.lm_iters = torch.zeros(1, fs.n_levels, dtype=torch.int32,
                                     device=dev)
         self.lm_iters_max = torch.zeros_like(self.lm_iters)
         self._held = {}      # static input -> the object it holds
-        self.graphs = None
-        self.k1_per_primary = 0   # K1 launches captured in (A)
-        self.replays = dict(A=0, B=0)
+        self.graph = None
+        self.per_replay = {}  # counter -> launches a replay outside nodes
+        self.replays = 0
         self.copy_ins = dict(ba=0, templates=0)   # the state copied in
-        self.overruns = 0     # frames tracked again eagerly
         self.retries = 0      # frames whose primary missed
         self.capture_ms = None
         self.pool_bytes = None
         self.a = self.b = None
 
     # ------------------------------------------------------------------
-    # the bodies: device work only, no host read
+    # the body: device work only, no host read
     # ------------------------------------------------------------------
+    def _frame(self):
+        """The whole step: the primary track, the retry under
+        `control.cond`, then `_finish`."""
+        self._primary()
+        self._retry()
+        self._finish()
+
     def _primary(self):
-        """(A) pyramid + primary track + prim_ok, into `sel`."""
+        """The pyramid + the primary track + `miss` (not prim_ok), the
+        track into `sel`."""
         fs, i = self.fs, self.inp
         pyr, _ = IMG.build_pyramid(self.img, fs.n_levels)
         exposures = torch.stack([i["ref_exp"], i["exposure"]])
-        over = torch.zeros((), dtype=torch.bool, device=self.device)
         iters = torch.zeros_like(self.lm_iters)
         out = TK.track_newest_coarse(
             pyr, self.templates, i["T_primary"][None], i["aff"],
             i["ref_aff"], exposures,
             torch.full((6,), float("nan"), device=self.device), fs._intr,
             fs.n_levels, coarse_cutoff_th=fs.settings.coarse_cutoff_th,
-            huber=fs.settings.huber_th, bounded=True, cut=self.cut,
-            overrun=over, iters=iters)
+            huber=fs.settings.huber_th, bounded=True, iters=iters)
         self.lm_iters += iters
         torch.maximum(self.lm_iters_max, iters, out=self.lm_iters_max)
-        _copy_into((self.sel[k] for k in _SEL_KEYS),
+        control.copy_into((self.sel[k] for k in _SEL_KEYS),
                    (out[k] for k in _SEL_KEYS))
         self.a = dict(pyr=pyr, exposures=exposures, out=out,
-                      flags=torch.stack([primary_ok(out, i["th"]), over]))
+                      miss=~primary_ok(out, i["th"]))
+
+    def _retry(self):
+        """`_frame_step_jit`'s retry: where the primary misses, the 5-wide
+        track over the standard hypotheses and its pick, into `sel`."""
+        fs, i, a = self.fs, self.inp, self.a
+
+        def retry():
+            outb = TK.track_hypotheses(
+                a["pyr"], self.templates, i["T_hyps"], i["aff"],
+                i["ref_aff"], a["exposures"], fs._intr, fs.n_levels,
+                coarse_cutoff_th=fs.settings.coarse_cutoff_th,
+                huber=fs.settings.huber_th, bounded=True)
+            best = pick(a["out"], outb)
+            return [best[k] for k in _SEL_KEYS]
+
+        control.cond(a["miss"], retry, None,
+                     out=[self.sel[k] for k in _SEL_KEYS])
 
     def _finish(self):
-        """(B) accept, the trace run always and selected, the window stats,
+        """accept, the trace run always and selected, the window stats,
         the keyframe decision and the next frame's chained inputs (for a
         frame that makes no keyframe)."""
         fs, i, out = self.fs, self.inp, self.sel
@@ -236,50 +232,46 @@ class FrameGraph:
                              s.re_track_threshold))
 
     # ------------------------------------------------------------------
-    # graphs
+    # the graph
     # ------------------------------------------------------------------
-    def _run(self, name: str) -> None:
-        """One replay of body `name` (on the CPU: the body itself)."""
-        body = dict(A=self._primary, B=self._finish)[name]
-        if self.graphs is None:
-            body()
+    def _run(self) -> None:
+        """One replay (on the CPU: the body itself)."""
+        if self.graph is None:
+            self._frame()
         else:
-            self.graphs[name].replay()
-            if name == "A":
-                IMG.pyramid_levels.launches += self.k1_per_primary
-        self.replays[name] += 1
+            self.graph.replay()
+            for name, fn in control.counters():
+                fn.launches += self.per_replay.get(name, 0)
+        self.replays += 1
 
     def capture(self) -> None:
-        """Warm the two bodies up on a side stream, then capture each
-        into a CUDA graph, all in one private pool, in "thread_local"
-        mode. Needs the static buffers filled (a first `_load`). A failed
-        capture raises; there is no fallback to the eager step."""
-        if self.graphs is not None or not self.on_card:
+        """Warm the body up on a side stream, then capture it into a CUDA
+        graph in a private pool, in "thread_local" mode, its branch and
+        loops as conditional nodes (`control.capture`). Needs the static
+        buffers filled (a first `_load`). A failed capture raises; there is
+        no fallback to the eager step."""
+        if self.graph is not None or not self.on_card:
             return
         dev = self.device
         t0 = time.perf_counter()
-        k1 = IMG.pyramid_levels.launches
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            self._primary()
-            self._finish()
+            # the warm-up runs: its launches count
+            self._frame()
         torch.cuda.current_stream(dev).wait_stream(side)
-        IMG.pyramid_levels.launches = k1
+        before = {n: fn.launches for n, fn in control.counters()}
         pool = torch.cuda.graph_pool_handle()
-        graphs = {}
-        for name, body in (("A", self._primary), ("B", self._finish)):
-            g = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(g, pool=pool, stream=side,
-                                  capture_error_mode="thread_local"):
-                body()
-            graphs[name] = g
-            if name == "A":
-                self.k1_per_primary = IMG.pyramid_levels.launches - k1
-                IMG.pyramid_levels.launches = k1
+        g = torch.cuda.CUDAGraph()
+        with control.capture(g, pool, side):
+            self._frame()
+        # a capture launches nothing: the counters stay as they were
+        for n, fn in control.counters():
+            self.per_replay[n] = fn.launches - before[n]
+            fn.launches = before[n]
         self.lm_iters.zero_()
         self.lm_iters_max.zero_()
-        self.graphs = graphs
+        self.graph = g
         torch.cuda.synchronize(dev)
         # the private pool's own segments
         self.pool_bytes = sum(
@@ -293,7 +285,7 @@ class FrameGraph:
     def _hold(self, name: str, src, dst) -> None:
         """Copy `src` into the static `dst` unless it already holds it."""
         if self._held.get(name) is not src:
-            _copy_into(dst, src)
+            control.copy_into(dst, src)
             self._held[name] = src
             self.copy_ins[name.split(".")[0]] += 1
 
@@ -302,11 +294,11 @@ class FrameGraph:
         """Fill the static inputs for one frame: copies on the device and
         fills from host scalars, none of which waits for the card."""
         if self.templates is None:
-            self.templates = _clone(st["templates"])
+            self.templates = control.clone(st["templates"])
         for lvl, (d, s_) in enumerate(zip(self.templates, st["templates"])):
             self._hold(f"templates.{lvl}", s_, d)
         self._hold("ba", st["ba"], self.ba)
-        _copy_into(self.imm, st["imm"])
+        control.copy_into(self.imm, st["imm"])
         self.img.copy_(img)
         vals = dict(inp, T_primary=T_primary, T_hyps=T_hyps)
         for k, buf in self.inp.items():
@@ -317,47 +309,21 @@ class FrameGraph:
 
     def step(self, st, img, T_primary, T_hyps, inp, exposure: float):
         """The frame step on the state `st` from the chained inputs `inp`
-        (a `_dispatch_fused` record's `nxt`, or the host's): replays (A),
-        runs the retry when the primary misses, replays (B). Returns a
-        dict of fresh tensors: pyr, out (the `_OUT_KEYS` dict), imm (the
-        pool, traced when accepted), accept (device bool), T_cw_new,
-        stats, nxt (the chained inputs of a frame without keyframe), and
-        need_kf read on the host."""
-        fs = self.fs
+        (a `_dispatch_fused` record's `nxt`, or the host's): one replay.
+        Returns a dict of fresh tensors: pyr, out (the `_OUT_KEYS` dict),
+        imm (the pool, traced when accepted), accept (device bool),
+        T_cw_new, stats, nxt (the chained inputs of a frame without
+        keyframe), and need_kf read on the host with whether the primary
+        missed (one copy, which also credits the launch counters)."""
         self._load(st, img, T_primary, T_hyps, inp, exposure, inp["n_kf"])
         self.capture()
-        self._run("A")
-        prim_ok, over = self.a["flags"].tolist()
-        kw = dict(coarse_cutoff_th=fs.settings.coarse_cutoff_th,
-                  huber=fs.settings.huber_th)
-        pyr, ex, i = self.a["pyr"], self.a["exposures"], self.inp
-        if over:
-            # the eager form's loops leave early; its bits are those of the
-            # full loops
-            self.overruns += 1
-            out = TK.track_newest_coarse(
-                pyr, self.templates, i["T_primary"][None], i["aff"],
-                i["ref_aff"], ex,
-                torch.full((6,), float("nan"), device=self.device), fs._intr,
-                fs.n_levels, **kw)
-            _copy_into((self.a["out"][k] for k in _SEL_KEYS),
-                       (out[k] for k in _SEL_KEYS))
-            _copy_into((self.sel[k] for k in _SEL_KEYS),
-                       (out[k] for k in _SEL_KEYS))
-            prim_ok = bool(primary_ok(out, i["th"]))
-        if not prim_ok:
-            self.retries += 1
-            outb = TK.track_hypotheses(pyr, self.templates, i["T_hyps"],
-                                       i["aff"], i["ref_aff"], ex, fs._intr,
-                                       fs.n_levels, **kw)
-            best = pick(self.a["out"], outb)
-            _copy_into((self.sel[k] for k in _SEL_KEYS),
-                       (best[k] for k in _SEL_KEYS))
-        self._run("B")
+        self._run()
         b = self.b
-        res = _clone(dict(pyr=self.a["pyr"], out=self.sel,
+        res = control.clone(dict(pyr=self.a["pyr"], out=self.sel,
                           imm=b["imm"], accept=b["accept"],
                           T_cw_new=b["T_cw_new"], stats=b["stats"],
                           nxt=b["nxt"]))
-        res["need_kf"] = bool(b["need_kf"])
+        need, miss = control.read(self.device, b["need_kf"], self.a["miss"])
+        self.retries += miss
+        res["need_kf"] = bool(need)
         return res

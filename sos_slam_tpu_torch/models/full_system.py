@@ -37,9 +37,10 @@ step refused invalidates the frames in flight after it, and a
 selector-rung change those from the first keyframe among them on (only a
 keyframe's chain reads the rung); `_drain_pending` dispatches them again,
 as the synchronous path would. With the graphs a steady frame's
-dispatch reads the host twice (the primary track's outcome, the keyframe
-decision); the keyframe chain (vision or VIO) replays its own graphs
-(`models/chain_graph.py`) and reads nothing back, while the eager step
+dispatch reads the host once (the keyframe decision; the retry and the
+loops are conditional graph nodes, `ops/control.py`); the keyframe chain
+(vision or VIO) replays its own graphs (`models/chain_graph.py`) and
+reads nothing back, while the eager step
 and chain (`cuda_graphs=False`, the CPU) read the tracker's loop exits,
 its accept tests, the BA's break and the scale LM's loop conditions.
 
@@ -76,6 +77,7 @@ from sos_slam_tpu_torch.models import imu as IM
 from sos_slam_tpu_torch.models import initializer as CI
 from sos_slam_tpu_torch.models import window as WIN
 from sos_slam_tpu_torch.ops import ba as B
+from sos_slam_tpu_torch.ops import control
 from sos_slam_tpu_torch.ops import scale_opt as SO
 from sos_slam_tpu_torch.ops import selector
 from sos_slam_tpu_torch.ops import trace as TR
@@ -322,9 +324,6 @@ class FullSystem:
         graphs = cuda_graphs and dev.type == "cuda"
         self.frame_graph = FG.FrameGraph(self) if graphs else None
         self.chain_graph = CG.ChainGraph(self) if graphs else None
-        # the chain runs eagerly while set (a keyframe done again after
-        # its scale solve overran)
-        self._eager_chain = None
         if stereo is not None:
             T_lr = torch.as_tensor(np.asarray(stereo.T_lr, np.float32),
                                    device=dev)
@@ -419,7 +418,7 @@ class FullSystem:
         q = self._pending_fused
         while len(q) > depth:
             pot_before = self._sel_pot
-            rec = self._settle(q.popleft(), q)
+            rec = q.popleft()
             with self.telemetry.timed("complete"):
                 redo = self._complete_fused(rec)
             self._last_chain = None if redo else rec
@@ -430,9 +429,9 @@ class FullSystem:
                 stale = list(q)
                 q.clear()
                 for r in stale:
-                    again = self._settle(self._dispatch_fused(
+                    again = self._dispatch_fused(
                         r["image"], r["shell"], r["exposure"],
-                        self._last_chain, r["stereo_right"]), q)
+                        self._last_chain, r["stereo_right"])
                     with self.telemetry.timed("complete"):
                         redo2 = self._complete_fused(again)
                     self._last_chain = None if redo2 else again
@@ -455,38 +454,14 @@ class FullSystem:
                                                    r["stereo_right"])
                     q.append(src)
 
-    def _settle(self, rec, q):
-        """`rec`, the oldest frame in flight, unless its keyframe chain's
-        cut scale solve overran (read from its readback): then the frame
-        is dispatched again from the record before it with the chain
-        eager (reason `overrun`), and the frames in flight in `q`, which
-        were chained from it, again from the new record, in order. Returns
-        the record to complete."""
-        if not (rec["need_kf"] and self._fetch(rec["readback"]).get(
-                "scale_over", False)):
-            return rec
-        self._eager_chain = "overrun"
-        try:
-            with self.telemetry.timed("redispatch"):
-                rec = self._dispatch_fused(rec["image"], rec["shell"],
-                                           rec["exposure"], self._last_chain,
-                                           rec["stereo_right"])
-        finally:
-            self._eager_chain = None
-        stale, src = list(q), rec
-        q.clear()
-        for r in stale:
-            with self.telemetry.timed("redispatch"):
-                src = self._dispatch_fused(r["image"], r["shell"],
-                                           r["exposure"], src,
-                                           r["stereo_right"])
-            q.append(src)
-        return rec
-
     def finish_pending(self) -> None:
         """Complete every frame in flight. Call it before reading the
-        trajectory or the state at the end of a sequence."""
+        trajectory or the state at the end of a sequence. On a card, also
+        credit the kernels' launch counters with the conditional graph
+        nodes' runs so far (`ops/control.py`)."""
         self._drain_pending(0)
+        if self.device.type == "cuda":
+            control.account(self.device)
 
     def prewarm(self, pots=(1, 2, 3, 4)) -> None:
         """Run the rare variants of the per-frame work once, so that their
@@ -554,6 +529,7 @@ class FullSystem:
             self._prewarm_chain(pots)
         if cuda:
             torch.cuda.synchronize(self.device)
+            control.account(self.device)
 
     def _prewarm_chain(self, pots) -> None:
         """Capture the vision keyframe chain's graphs of each rung of
@@ -1046,7 +1022,7 @@ class FullSystem:
             back["bg"] = bg
 
         # next-frame chaining inputs (FullSystem.cpp:148-173), in f32; the
-        # graph (B) made them for a frame without keyframe
+        # frame graph made them for a frame without keyframe
         nxt = step["nxt"] if graph is not None and not need_kf else \
             FG.chain_inputs(T_prev_f, T_me, T_ref_n, out["residuals"][0, 0],
                             inp["rms0"], inp["first_rmse"], accept_t,
@@ -1076,7 +1052,7 @@ class FullSystem:
         back.update({k: chain_out[k] for k in
                      ("slot", "marg_ks", "n_have", "host_out")})
         back.update(zip(("scale_s", "scale_trapped", "scale_fails",
-                         "scale_err", "scale_over"), chain_out["scale_out"]))
+                         "scale_err"), chain_out["scale_out"]))
         return back
 
     def _complete_fused(self, rec) -> bool:
@@ -1409,15 +1385,12 @@ class FullSystem:
                    pot: int, kf: dict, classic: bool = False):
         """A keyframe chain through the graphs, or eagerly for a reason
         counted in `chain_graph.eager`: `classic`, `export`, `budget` (the
-        bootstrap's 20/15 GN steps), `rung` (a rung prewarm() left out),
-        `overrun` (the keyframe done again after its cut scale solve
-        overran)."""
+        bootstrap's 20/15 GN steps), `rung` (a rung prewarm() left out)."""
         key = rng.fold_in(st["key"], shell_id)
         g = self.chain_graph
         why = None
         if g is not None:
-            why = self._eager_chain or (
-                "classic" if classic else "export" if self._exporting()
+            why = ("classic" if classic else "export" if self._exporting()
                 else "budget" if max_its != self.settings.max_opt_iterations
                 else None if g.has(pot) else "rung")
         if g is not None and why is None:
@@ -1461,54 +1434,62 @@ class FullSystem:
                 torch.full((), int(self.scale_opt_fails), dtype=torch.int32,
                            device=dev))
 
-    def _scale_solve(self, templates, kf: dict, bounded: bool, trips=None):
+    def _scale_solve(self, templates, kf: dict, bounded: bool):
         """The stereo 1-DoF scale solve of the keyframe's right image on
         its template with trapping and fail counting (FullSystem::
         optimizeScale; the chains' in-chain solve, `_kf_chain_vio_jit`'s
         at sos_slam_tpu/models/full_system.py:2299-2325), on device
         tensors: `kf` holds the right image (None: no solve), `have_right`
         and the scale state (s, trapped, fails). Returns (s, trapped,
-        fails, error, overrun), 0-dim device tensors; without a right image
-        (or without stereo) the state passes through with error -1.
+        fails, error), 0-dim device tensors; without a right image (or
+        without stereo) the state passes through with error -1.
 
         Eagerly the host reads `trapped` and runs its branch with the
-        early-exit loops. `bounded` runs both branches, the trapped one
-        from s (one guess) and the multi-guess one (seven), in the scale
-        LM's cut form (`trips`: `SO.cut_trips` unless given; the chain's
-        completion solves again eagerly where it overran), and chooses by
-        the device `trapped`: a CUDA graph takes no branch alone.
-        `overrun`: the chosen branch ran out of trips."""
+        early-exit loops. `bounded` reads nothing back: the right image's
+        pyramid (K1) and the solve run under `control.cond(have_right)`,
+        the trapped solve from s (one guess) and the multi-guess one
+        (seven) are the two branches of `control.cond(trapped)` (the JAX
+        chain's `lax.cond(trapped, do_trap, do_multi)`), and the scale
+        LM's loops are `control.while_loop`s: inside a capture,
+        conditional nodes."""
         s_cur, trapped, fails = kf["scale_state"]
         right = kf["right"]
         if not self._stereo_solve() or right is None:
-            return (s_cur, trapped, fails, torch.full_like(s_cur, -1.0),
-                    torch.zeros_like(trapped))
-        pyr_r, _ = build_pyramid(right, self.n_levels)
+            return (s_cur, trapped, fails, torch.full_like(s_cur, -1.0))
         R01, t01, intr1 = self._lr
         args = (R01, t01, self._intr, intr1, self.n_levels)
-        if bounded:
-            trips = trips or SO.cut_trips(self.n_levels)
-            sv_t, err_t, ov_t = SO.scale_lm(pyr_r, templates,
-                                            s_cur.reshape(1), *args,
-                                            trips=trips)
-            sv_m, err_m, ov_m = SO.multi_guess(pyr_r, templates, *args,
-                                               trips=trips)
-            sv = torch.where(trapped, sv_t[0], sv_m)
-            err = torch.where(trapped, err_t[0], err_m)
-            over = torch.where(trapped, ov_t[0], ov_m)
-        elif bool(trapped):
-            sv, err, over = (x[0] for x in SO.scale_lm(
-                pyr_r, templates, s_cur.reshape(1), *args))
-        else:
-            sv, err, over = SO.multi_guess(pyr_r, templates, *args)
         have = kf["have_right"]
-        err = torch.where(have, err, torch.full_like(err, -1.0))
+        if bounded:
+            res = (s_cur.clone(), torch.full_like(s_cur, -1.0))
+
+            def solve():
+                pyr_r, _ = build_pyramid(right, self.n_levels)
+                got = (torch.empty_like(s_cur), torch.empty_like(s_cur))
+                control.cond(
+                    trapped,
+                    lambda: [x[0] for x in SO.scale_lm(
+                        pyr_r, templates, s_cur.reshape(1), *args,
+                        bounded=True)[:2]],
+                    lambda: SO.multi_guess(pyr_r, templates, *args,
+                                           bounded=True),
+                    out=got)
+                return got
+
+            control.cond(have, solve, None, out=res)
+            sv, err = res
+        else:
+            pyr_r, _ = build_pyramid(right, self.n_levels)
+            if bool(trapped):
+                sv, err = (x[0] for x in SO.scale_lm(
+                    pyr_r, templates, s_cur.reshape(1), *args))
+            else:
+                sv, err = SO.multi_guess(pyr_r, templates, *args)
+            err = torch.where(have, err, torch.full_like(err, -1.0))
         ok = (err > 0) & (err < self.settings.scale_opt_thres)
         fails = torch.where(ok, torch.zeros_like(fails),
                             torch.where(have, fails + 1, fails))
         trapped = ok | torch.where(have, trapped & (fails <= 5), trapped)
-        return (torch.where(ok, sv, s_cur), trapped, fails, err,
-                over & have)
+        return (torch.where(ok, sv, s_cur), trapped, fails, err)
 
     def _update_scaled_poses(self):
         """camToWorldScaled chain (FullSystemOptimize.cpp:437-456): every
@@ -1615,7 +1596,7 @@ class FullSystem:
 
         # stereo scale optimization (optimizeScale, FullSystem.cpp:1117-1180)
         if s.enable_scale_opt:
-            sv, trapped, fails, err, _ = self._scale_solve(
+            sv, trapped, fails, err = self._scale_solve(
                 self.templates,
                 CG.keyframe_inputs(self, right, self._scale_state()), False)
             shell.scale_error = float(err)

@@ -2,6 +2,11 @@
 
 * `solve` / `inv`: like jnp.linalg, a singular system yields NaN (which
   callers turn into a zero step) instead of raising, as torch.linalg does.
+  One system on a card is solved by its LU factors and two triangular
+  solves: `torch.linalg.solve_ex`'s own route there (cuSOLVER's getrs, at
+  29 <= n <= 128 on an H100 with PyTorch 2.11) allocates stream-ordered
+  memory, which a conditional graph node's body may not hold
+  (ops/control.py).
 * `live_pinv`: the pseudo-inverse of a symmetric matrix over its
   numerically live eigen-directions, with no host read.
 * `at`: an entry at a device index, without a host read.
@@ -19,8 +24,28 @@ import torch
 
 
 def solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Batched A x = b; NaN for a singular system."""
-    x, info = torch.linalg.solve_ex(A, b)
+    """Batched A x = b; NaN for a singular system.
+
+    One system on a card goes through its LU factors and two triangular
+    solves (module docstring: a conditional body may not hold what
+    `solve_ex` records there). The CPU keeps `solve_ex`: it holds no
+    graph, and the LU route's four calls a system make the block solves
+    of loop/pose_graph.py, one call a block, slower for nothing; a batch
+    keeps it on a card too, where its route records no stream-ordered
+    memory."""
+    if A.is_cuda and A.dim() == 2:
+        LU, piv, info = torch.linalg.lu_factor_ex(A)
+        P, L, U = torch.lu_unpack(LU, piv)
+        # A = P L U: the rows of b in the pivots' order, gathered (a
+        # product with P would turn an inf into NaNs)
+        B = b[:, None] if b.dim() == 1 else b
+        pb = B.index_select(0, torch.argmax(P, dim=0))
+        y = torch.linalg.solve_triangular(L, pb, upper=False,
+                                          unitriangular=True)
+        x = torch.linalg.solve_triangular(U, y, upper=True)
+        x = x[:, 0] if b.dim() == 1 else x
+    else:
+        x, info = torch.linalg.solve_ex(A, b)
     return torch.where((info != 0)[..., None], torch.full_like(x, float("nan")),
                        x)
 

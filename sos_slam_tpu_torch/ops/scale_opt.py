@@ -14,18 +14,17 @@ still active; a finished guess is frozen by masks, and the per-level
 repeat runs for every guess and is kept only where it is due, which is
 what the JAX while loops and cond do under vmap.
 
-Three forms of the same loops: the eager one (`trips=None`) reads each
-loop condition on the host (one sync per trip) and leaves early;
-`trips=full_trips(n)` runs every loop to its bound (`rep < 50` allows 6 cutoff
-doublings, the LM loop `max_iters` trips, the repeat always, kept where
-due), with the finished guesses frozen, which gives the eager form's
-bits and reads nothing back (the counterpart of the JAX package's
-`while_loop`s and `cond`); a cut form (`trips` a tuple of (doublings,
-LM trips, repeat) a level, from the coarsest) runs fewer trips and
-returns an overrun flag wherever the eager form would have run more,
-whose caller then solves again eagerly. The scale-independent part of a
-level's warp (the template's bearings and the Jacobian's numerators) is
-made once a level.
+Two forms of the same loops: the eager one reads each loop condition on
+the host (one sync per trip) and leaves early; the bounded one
+(`bounded=True`) reads nothing back: each loop is an `ops/control.py`
+`while_loop` and the repeat a `cond`, which inside a CUDA graph's capture
+are conditional nodes (the JAX package's `while_loop`s and `cond`: the
+loop leaves, the repeat is skipped, on the device) and elsewhere run each
+loop to its bound (`rep < 50` allows 6 cutoff doublings, the LM loop
+`max_iters` trips) and the repeat always, kept where due; the finished
+guesses are frozen, so both forms give the eager form's bits. The
+scale-independent part of a level's warp (the template's bearings and the
+Jacobian's numerators) is made once a level.
 """
 
 from __future__ import annotations
@@ -36,10 +35,11 @@ from typing import Tuple
 
 import torch
 
+from sos_slam_tpu_torch.ops import control
 from sos_slam_tpu_torch.ops.image import interp_bilinear
 from sos_slam_tpu_torch.ops.tracker import (LAMBDA_EXTRAPOLATION_LIMIT,
                                             MAX_ITERS_PER_LEVEL,
-                                            LevelTemplate)
+                                            LevelTemplate, _loop, _set)
 
 SCALE_GUESSES = (0.1, 0.2, 0.5, 1.0, 2.0, 5.0, 10.0)   # FullSystem.cpp:1135
 
@@ -117,55 +117,18 @@ def res_and_hb_scale(dI_right: torch.Tensor, tmpl: LevelTemplate,
 MAX_DOUBLINGS = 6
 
 
-# the cut form's LM trips a level, from the coarsest; it doubles no cutoff
-# and runs no repeat (a doubling, which the repeat follows, overruns). The
-# flagship scene's trapped solves made at most 4, 2, 1 and 1 trips at
-# levels 3-0 (chip_smoke.py's trips line, NVIDIA H100)
-CUT_LM_TRIPS = (8, 4, 3, 3)
-
-
-def cut_trips(n_levels: int) -> tuple:
-    """The cut form's trips, a level from the coarsest (`CUT_LM_TRIPS`,
-    its last entry for further levels)."""
-    return tuple((0, CUT_LM_TRIPS[min(j, len(CUT_LM_TRIPS) - 1)], False)
-                 for j in range(n_levels))
-
-
-def full_trips(n_levels: int) -> tuple:
-    """The full bounded form's trips, a level from the coarsest."""
-    return tuple((MAX_DOUBLINGS, MAX_ITERS_PER_LEVEL[min(
-        lvl, len(MAX_ITERS_PER_LEVEL) - 1)], True)
-        for lvl in range(n_levels - 1, -1, -1))
-
-
 # the eager form's trips, counted by (G, level, doublings, LM trips,
-# repeat's doublings, repeat's LM trips): which cut form fits the data
+# repeat's doublings, repeat's LM trips)
 TRIPS = collections.Counter()
-
-
-def _loop(n: int | None, go_fn, body):
-    """`body()` while `go_fn()` holds on any lane: read on the host and at
-    most `n` times (None: no cap) in the eager form; with `n` an int and
-    `go_fn` None, exactly `n` times. Returns the trips made."""
-    if go_fn is None:
-        for _ in range(n):
-            body()
-        return n
-    k = 0
-    while (n is None or k < n) and bool(go_fn().any()):
-        body()
-        k += 1
-    return k
 
 
 def scale_level(dI_right, tmpl, scale0, R01, t01, intr0, intr1,
                 max_iters: int, coarse_cutoff_th: float, huber: float,
-                trips=None):
+                bounded: bool = False):
     """1-DoF LM at one level with the cutoff-doubling loop, for G scales
-    scale0 (G,). `trips`: None (the eager form) or (doublings, LM trips)
-    run masked (module docstring). Returns (scale, rms, cutoff_repeat,
-    overrun, (doublings, LM trips) made), each of the first four (G,);
-    overrun: the lanes that would have run more trips."""
+    scale0 (G,), in the eager or the bounded form (module docstring).
+    Returns (scale, rms, cutoff_repeat, (doublings, LM trips) made; 0 in
+    the bounded form), each of the first three (G,)."""
     G = scale0.shape[0]
     dev = scale0.device
     consts = _level_consts(tmpl, R01, t01, intr0)
@@ -182,20 +145,18 @@ def scale_level(dI_right, tmpl, scale0, R01, t01, intr0, intr1,
 
     def c_body():
         go = c_go()
-        c["rep"] = torch.where(go, c["rep"] * 2.0, c["rep"])
-        rr = res(scale0, coarse_cutoff_th * c["rep"])
-        c["sat"] = torch.where(
-            go, rr["num_sat"] / torch.clamp(rr["num_in"], min=1), c["sat"])
+        rep = torch.where(go, c["rep"] * 2.0, c["rep"])
+        rr = res(scale0, coarse_cutoff_th * rep)
+        _set(c, bounded, rep=rep, sat=torch.where(
+            go, rr["num_sat"] / torch.clamp(rr["num_in"], min=1), c["sat"]))
 
-    n_dbl = _loop(None if trips is None else trips[0],
-                  c_go if trips is None else None, c_body)
+    n_dbl = _loop(bounded, c_go, c_body, MAX_DOUBLINGS)
     rep = c["rep"]
-    over = c_go() if trips is not None else torch.zeros(
-        G, dtype=torch.bool, device=dev)
     cutoff = coarse_cutoff_th * rep
     r0 = res(scale0, cutoff)
 
-    s = dict(it=torch.zeros(G, dtype=torch.int32, device=dev), scale=scale0,
+    s = dict(it=torch.zeros(G, dtype=torch.int32, device=dev),
+             scale=scale0.clone() if bounded else scale0,
              E=r0["E"], num=r0["num_in"], H=r0["H"], b=r0["b"],
              lam=torch.full((G,), 0.01, dtype=torch.float32, device=dev),
              done=torch.zeros(G, dtype=torch.bool, device=dev))
@@ -229,21 +190,18 @@ def scale_level(dI_right, tmpl, scale0, R01, t01, intr0, intr1,
         new_lam = torch.where(accept, s["lam"] * 0.5,
                               torch.clamp(s["lam"] * 4.0,
                                           min=LAMBDA_EXTRAPOLATION_LIMIT))
-        s.update(it=s["it"] + active.to(torch.int32),
-                 scale=sel(s_new, s["scale"]),
-                 E=sel(rn["E"], s["E"]), num=sel(rn["num_in"], s["num"]),
-                 H=sel(rn["H"], s["H"]), b=sel(rn["b"], s["b"]),
-                 lam=torch.where(active, new_lam, s["lam"]),
-                 done=torch.where(active, ~(inc > 1e-3), s["done"]))
+        _set(s, bounded, it=s["it"] + active.to(torch.int32),
+                scale=sel(s_new, s["scale"]),
+                E=sel(rn["E"], s["E"]), num=sel(rn["num_in"], s["num"]),
+                H=sel(rn["H"], s["H"]), b=sel(rn["b"], s["b"]),
+                lam=torch.where(active, new_lam, s["lam"]),
+                done=torch.where(active, ~(inc > 1e-3), s["done"]))
 
-    n_lm = _loop(None if trips is None else trips[1],
-                 lm_go if trips is None else None, lm_body)
-    if trips is not None:
-        over = over | lm_go()
+    n_lm = _loop(bounded, lm_go, lm_body, max_iters)
     rms = torch.sqrt(torch.where(
         s["num"] > 0, s["E"] / torch.clamp(s["num"], min=1),
         torch.full_like(s["E"], float("nan"))))
-    return s["scale"], rms, rep, over, (n_dbl, n_lm)
+    return s["scale"], rms, rep, (n_dbl, n_lm)
 
 
 def optimize_scale(pyr_right, templates, scale_init: torch.Tensor,
@@ -254,53 +212,47 @@ def optimize_scale(pyr_right, templates, scale_init: torch.Tensor,
     scales scale_init (G,), eagerly. Returns (scale, rms at level 0), each
     (G,)."""
     return scale_lm(pyr_right, templates, scale_init, R01, t01, intr0,
-                    intr1, n_levels, coarse_cutoff_th, huber)[:2]
+                    intr1, n_levels, coarse_cutoff_th, huber)
 
 
 def scale_lm(pyr_right, templates, scale_init: torch.Tensor,
              R01: torch.Tensor, t01: torch.Tensor, intr0: Tuple,
              intr1: Tuple, n_levels: int, coarse_cutoff_th: float = 20.0,
-             huber: float = 9.0, trips=None):
-    """`optimize_scale` in any form: `trips` None (eager), `full_trips` or
-    a cut form, one (doublings, LM trips, repeat) a level from the
-    coarsest (module docstring). Returns (scale, rms at level 0, overrun),
-    each (G,)."""
+             huber: float = 9.0, bounded: bool = False):
+    """`optimize_scale` in either form (module docstring). Returns (scale,
+    rms at level 0), each (G,)."""
     scale = scale_init
     G = scale.shape[0]
     rms0 = torch.full_like(scale, float("nan"))
     have_rep = torch.zeros_like(scale, dtype=torch.bool)
-    over = torch.zeros_like(scale, dtype=torch.bool)
-    for j, lvl in enumerate(range(n_levels - 1, -1, -1)):
+    for lvl in range(n_levels - 1, -1, -1):
         max_it = MAX_ITERS_PER_LEVEL[min(lvl, len(MAX_ITERS_PER_LEVEL) - 1)]
-        lt = None if trips is None else trips[j]
 
-        def run(s, lvl=lvl, max_it=max_it, lt=lt):
+        def run(s, lvl=lvl, max_it=max_it):
             return scale_level(pyr_right[lvl], templates[lvl], s, R01, t01,
                                intr0[lvl], intr1[lvl], max_it,
-                               coarse_cutoff_th, huber,
-                               None if lt is None else lt[:2])
+                               coarse_cutoff_th, huber, bounded)
 
-        scale, rms, cut_rep, ov, made = run(scale)
-        over = over | ov
+        scale, rms, cut_rep, made = run(scale)
         do_rep = (cut_rep > 1.0) & ~have_rep
         have_rep = have_rep | do_rep
-        made2 = (0, 0)
-        if lt is None:
-            if bool(do_rep.any()):
-                scale2, rms2, _, _, made2 = run(scale)
-                scale = torch.where(do_rep, scale2, scale)
-                rms = torch.where(do_rep, rms2, rms)
-            TRIPS[(G, lvl) + made + made2] += 1
-        elif lt[2]:
-            scale2, rms2, _, ov2, _ = run(scale)
-            scale = torch.where(do_rep, scale2, scale)
-            rms = torch.where(do_rep, rms2, rms)
-            over = over | (do_rep & ov2)
+
+        def repeat(scale=scale, rms=rms, do_rep=do_rep, run=run):
+            scale2, rms2, _, made2 = run(scale)
+            repeat.made = made2
+            return (torch.where(do_rep, scale2, scale),
+                    torch.where(do_rep, rms2, rms))
+
+        repeat.made = (0, 0)
+        if bounded:
+            control.cond(do_rep.any(), repeat, None, out=(scale, rms))
         else:
-            over = over | do_rep
+            if bool(do_rep.any()):
+                scale, rms = repeat()
+            TRIPS[(G, lvl) + made + repeat.made] += 1
         if lvl == 0:
             rms0 = rms
-    return scale, rms0, over
+    return scale, rms0
 
 
 @functools.lru_cache(maxsize=None)
@@ -315,19 +267,17 @@ def optimize_scale_multi_guess(pyr_right, templates, R01, t01, intr0, intr1,
     every guess in one batch, eagerly. Returns (best scale, its error),
     0-d."""
     return multi_guess(pyr_right, templates, R01, t01, intr0, intr1,
-                       n_levels, **kw)[:2]
+                       n_levels, **kw)
 
 
 def multi_guess(pyr_right, templates, R01, t01, intr0, intr1, n_levels: int,
                 **kw):
-    """`optimize_scale_multi_guess` in any form (`scale_lm`'s `trips`).
-    Returns (best scale, its error, overrun), 0-d (overrun: any
-    guess's)."""
-    scales, errs, over = scale_lm(
+    """`optimize_scale_multi_guess` in either form (`scale_lm`'s
+    `bounded`). Returns (best scale, its error), 0-d."""
+    scales, errs = scale_lm(
         pyr_right, templates, _guesses(R01.device), R01, t01, tuple(intr0),
         tuple(intr1), n_levels, **kw)
     errs = torch.where(torch.isfinite(errs) & (errs > 0), errs,
                        torch.full_like(errs, float("inf")))
     i = torch.argmin(errs).reshape(1)
-    return (scales.index_select(0, i)[0], errs.index_select(0, i)[0],
-            torch.any(over))
+    return scales.index_select(0, i)[0], errs.index_select(0, i)[0]

@@ -8,22 +8,18 @@ while any hypothesis is still active; finished hypotheses are frozen by
 masks, which is exactly the batched while-loop semantics of the JAX form.
 
 Every control point (the cutoff-doubling loop, the re-pass at a raised
-cutoff, the LM loop, the level repeat) runs in one of three forms:
+cutoff, the LM loop, the level repeat) runs in one of two forms:
   * eager (the default): the host reads the condition, one sync a trip,
     and leaves a loop early;
-  * bounded (`bounded=True`): each loop runs to its bound and each branch
-    always, with no host read. Each update is chosen by the masks (`go`,
-    `redo`, `active`, `do_rep`), so a trip past the early exit changes no
-    bit: the same bits as the eager form (the counterpart of the JAX
-    package's `SOS_TRACK_UNROLL` cond unroll, which it states is
-    bit-identical to its while loop);
-  * cut (`cut=True`, bounded too), for a CUDA graph that cannot leave a
-    loop early: at most `CUT_LM_TRIPS` LM trips a level and no cutoff
-    doubling, hence no re-pass and no level repeat either. It sets
-    `overrun` wherever the eager form would run more (hypotheses still
-    active after the last LM trip, a saturated share that asks for a
-    doubling); where `overrun` stays False it gave the eager bits, and
-    where it is set its result is to be thrown away.
+  * bounded (`bounded=True`), with no host read: each loop is an
+    `ops/control.py` `while_loop` and each branch a `cond`, which inside a
+    CUDA graph's capture are conditional nodes (the JAX package's
+    `lax.while_loop` and `lax.cond`: the loop leaves, the branch is
+    skipped, on the device) and elsewhere run each loop to its bound and
+    each branch always. Each update is chosen by the masks (`go`, `redo`,
+    `active`, `do_rep`), so a trip past the early exit changes no bit:
+    both give the eager form's bits (as the JAX package's `SOS_TRACK_UNROLL`
+    cond unroll gives its while loop's).
 
 Parity: Jacobian, Huber/cutoff energy, (1/n) normalization, DSO's
 conditioning rescale S = [1,1,1,.5,.5,.5,10,1000], lambda schedule
@@ -38,6 +34,7 @@ from typing import NamedTuple
 
 import torch
 
+from sos_slam_tpu_torch.ops import control
 from sos_slam_tpu_torch.ops.numerics import solve
 from sos_slam_tpu_torch.ops.image import interp_bilinear
 from sos_slam_tpu_torch.utils import lie
@@ -46,16 +43,12 @@ _SCALE8 = (1.0, 1.0, 1.0, 0.5, 0.5, 0.5, 10.0, 1000.0)
 MAX_ITERS_PER_LEVEL = (10, 20, 50, 50, 50, 50)
 LAMBDA_EXTRAPOLATION_LIMIT = 1e-3
 CUTOFF_DOUBLINGS = 6   # the repeat runs 1 -> 64 under repeat < 50
-# the cut form's LM trips by level (0 = finest): the mono scene's steady
-# frames use 1.02, 1.02, 1.33 and 1.64 on average and at most 2, 2, 3 and 3
-# on an NVIDIA H100 (chip_smoke.py prints both)
-CUT_LM_TRIPS = (2, 2, 3, 3)
 
 
 def _own(bounded: bool, d: dict) -> dict:
     """A loop's state: the bounded forms write their updates in place, so
     they start from copies of their own."""
-    return {k: v.clone() for k, v in d.items()} if bounded else d
+    return control.clone(d) if bounded else d
 
 
 def _set(d: dict, bounded: bool, **new) -> None:
@@ -66,6 +59,30 @@ def _set(d: dict, bounded: bool, **new) -> None:
             d[k].copy_(v)
     else:
         d.update(new)
+
+
+def _loop(bounded: bool, go_fn, body, cap: int) -> int:
+    """`body()` while `go_fn()` holds on any lane, at most `cap` times: a
+    `control.while_loop` in the bounded form (returns 0), read on the host
+    each trip in the eager one (returns the trips made)."""
+    if bounded:
+        control.while_loop(lambda: go_fn().any(), body, cap)
+        return 0
+    k = 0
+    while k < cap and bool(go_fn().any()):
+        body()
+        k += 1
+    return k
+
+
+def _branch(bounded: bool, pred, fn, out: dict) -> None:
+    """`out.update(fn())` where the lane mask `pred` holds on any lane (fn
+    selects by the lanes itself): a `control.cond` into `out`'s tensors
+    in the bounded form, read on the host in the eager one."""
+    if bounded:
+        control.cond(pred.any(), fn, None, out=out)
+    elif bool(pred.any()):
+        out.update(fn())
 
 
 class LevelTemplate(NamedTuple):
@@ -213,17 +230,12 @@ def _sel(m, a, b):
 def track_level(dI_new, tmpl: LevelTemplate, T0, aff0, ref_aff, exposures,
                 intr, max_iters: int, coarse_cutoff_th: float, huber: float,
                 fix_a: bool = False, fix_b: bool = False,
-                bounded: bool = False, cut_trips: int = 0, overrun=None):
+                bounded: bool = False):
     """LM at one pyramid level for K hypotheses. T0 (K,4,4), aff0 (K,2).
     Returns (T, aff, rms, cutoff_repeat, flow_t, flow_rt, iterations),
-    each (K,...). `bounded`: the bounded form; `cut_trips` > 0 (with
-    `bounded`): the cut form at that many LM trips, ORing into `overrun`
-    (module docstring)."""
+    each (K,...). `bounded`: the bounded form (module docstring)."""
     K = T0.shape[0]
     dev = T0.device
-    cut = bounded and cut_trips > 0
-    trips = min(cut_trips, max_iters) if cut else max_iters
-    doublings = 0 if cut else CUTOFF_DOUBLINGS
 
     def res_pass(T, aff, cutoff, flow=False):
         aff_ab = aff_from_to(exposures[0], exposures[1], ref_aff[:, None],
@@ -238,32 +250,38 @@ def track_level(dI_new, tmpl: LevelTemplate, T0, aff0, ref_aff, exposures,
     r0 = _own(bounded, res_pass(T0, aff0, cut0, flow=True))
     c = _own(bounded, dict(rep=torch.ones(K, dtype=torch.float32, device=dev),
                            sat=sat_of(r0)))
-    for _ in range(doublings):
-        go = (c["sat"] > 0.6) & (c["rep"] < 50.0)
-        if not (bounded or bool(go.any())):
-            break
+
+    def c_go():
+        return (c["sat"] > 0.6) & (c["rep"] < 50.0)
+
+    def c_body():
+        go = c_go()
         rep = torch.where(go, c["rep"] * 2.0, c["rep"])
         r = res_pass(T0, aff0, coarse_cutoff_th * rep)
         _set(c, bounded, rep=rep, sat=torch.where(go, sat_of(r), c["sat"]))
-    if cut:
-        overrun |= ((c["sat"] > 0.6) & (c["rep"] < 50.0)).any()
+
+    _loop(bounded, c_go, c_body, CUTOFF_DOUBLINGS)
     rep = c["rep"]
     cutoff = coarse_cutoff_th * rep
     redo = rep > 1.0
-    # with no doubling the re-pass would change nothing
-    if not cut and (bounded or bool(redo.any())):
+
+    def repass():
         r1 = res_pass(T0, aff0, cutoff, flow=True)
-        _set(r0, bounded, **{k: _sel(redo, r1[k], r0[k]) for k in r0})
+        return {k: _sel(redo, r1[k], r0[k]) for k in r0}
+
+    _branch(bounded, redo, repass, r0)
 
     s = _own(bounded, dict(
         it=torch.zeros(K, dtype=torch.int32, device=dev), T=T0, aff=aff0,
         E=r0["E"], num=r0["num_in"], H=r0["H"], b=r0["b"],
         lam=torch.full((K,), 0.01, dtype=torch.float32, device=dev),
         done=torch.zeros(K, dtype=torch.bool, device=dev)))
-    for _ in range(trips):
-        active = ~s["done"] & (s["it"] < max_iters)
-        if not (bounded or bool(active.any())):
-            break
+
+    def lm_go():
+        return ~s["done"] & (s["it"] < max_iters)
+
+    def lm_body():
+        active = lm_go()
         step, inc_raw = _solve_damped(s["H"], s["b"], s["lam"], fix_a, fix_b)
         T_new = lie.se3_exp(step[:, :6]) @ s["T"]
         aff_new = s["aff"] + step[:, 6:8]
@@ -287,8 +305,8 @@ def track_level(dI_new, tmpl: LevelTemplate, T0, aff0, ref_aff, exposures,
              b=_sel(accept, rn["b"], s["b"]),
              lam=torch.where(active, new_lam, s["lam"]),
              done=done)
-    if cut and trips < max_iters:
-        overrun |= (~s["done"] & (s["it"] < max_iters)).any()
+
+    _loop(bounded, lm_go, lm_body, max_iters)
     rms = torch.sqrt(torch.where(
         s["num"] > 0, s["E"] / torch.clamp(s["num"], min=1),
         torch.full_like(s["E"], float("nan"))))
@@ -300,17 +318,14 @@ def track_newest_coarse(pyramid_new, templates, T_init, aff_init, ref_aff,
                         n_levels: int, coarse_cutoff_th: float = 20.0,
                         huber: float = 9.0, fix_a: bool = False,
                         fix_b: bool = False, min_level: int = 0,
-                        bounded: bool = False, cut: bool = False,
-                        overrun=None, iters=None):
+                        bounded: bool = False, iters=None):
     """Coarse-to-fine track of K hypotheses down to `min_level`.
 
     T_init (K,4,4); aff_init (2,); min_res_for_abort (6,) with NaN = no
     bound. Returns dict of (K,...) T, aff, residuals (6,), flow (2,),
-    good. `bounded`, `cut`: the form (module docstring; `cut` implies
-    `bounded`); the cut form ORs into `overrun`, a bool tensor ().
-    `iters`: None, or a (K, n_levels) int32 tensor that the LM iterations
-    run at each level (the repeat's included) are added to."""
-    bounded = bounded or cut
+    good. `bounded`: the form (module docstring). `iters`: None, or a
+    (K, n_levels) int32 tensor that the LM iterations run at each level
+    (the repeat's included) are added to."""
     K = T_init.shape[0]
     dev = T_init.device
     T = T_init
@@ -324,13 +339,11 @@ def track_newest_coarse(pyramid_new, templates, T_init, aff_init, ref_aff,
     for lvl in range(n_levels - 1, min_level - 1, -1):
         max_it = MAX_ITERS_PER_LEVEL[min(lvl, len(MAX_ITERS_PER_LEVEL) - 1)]
 
-        trips = CUT_LM_TRIPS[min(lvl, len(CUT_LM_TRIPS) - 1)] if cut else 0
-
-        def run(T_, aff_, lvl=lvl, max_it=max_it, trips=trips):
+        def run(T_, aff_, lvl=lvl, max_it=max_it):
             return track_level(pyramid_new[lvl], templates[lvl], T_, aff_,
                                ref_aff, exposures, intrinsics[lvl], max_it,
                                coarse_cutoff_th, huber, fix_a, fix_b,
-                               bounded, trips, overrun)
+                               bounded)
 
         T1, aff1, rms, cut_rep, ft, frt, it1 = run(T, aff)
         lv = dict(T=T1, aff=aff1, rms=rms, ft=ft, frt=frt)
@@ -338,15 +351,22 @@ def track_newest_coarse(pyramid_new, templates, T_init, aff_init, ref_aff,
         have_repeated = have_repeated | do_rep
         if iters is not None:
             iters[:, lvl] += it1
-        # with no doubling do_rep is all False
-        if not cut and (bounded or bool(do_rep.any())):
+            lv["it"] = iters[:, lvl]
+
+        def repeat(T1=T1, aff1=aff1, rms=rms, ft=ft, frt=frt, do_rep=do_rep,
+                   lv=lv, run=run):
             T2, aff2, rms2, _, ft2, frt2, it2 = run(T1, aff1)
-            _set(lv, bounded, T=_sel(do_rep, T2, T1),
-                 aff=_sel(do_rep, aff2, aff1), rms=_sel(do_rep, rms2, rms),
-                 ft=_sel(do_rep, ft2, ft), frt=_sel(do_rep, frt2, frt))
-            if iters is not None:
-                iters[:, lvl] += torch.where(do_rep, it2,
-                                             torch.zeros_like(it2))
+            new = dict(T=_sel(do_rep, T2, T1), aff=_sel(do_rep, aff2, aff1),
+                       rms=_sel(do_rep, rms2, rms), ft=_sel(do_rep, ft2, ft),
+                       frt=_sel(do_rep, frt2, frt))
+            if "it" in lv:
+                new["it"] = lv["it"] + torch.where(do_rep, it2,
+                                                   torch.zeros_like(it2))
+            return new
+
+        _branch(bounded, do_rep, repeat, lv)
+        if iters is not None and not bounded:
+            iters[:, lvl] = lv["it"]
         T1, aff1, rms, ft, frt = (lv[k] for k in ("T", "aff", "rms", "ft",
                                                   "frt"))
 

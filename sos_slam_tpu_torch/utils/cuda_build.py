@@ -6,6 +6,9 @@ build takes seconds. Libraries land in `sos_slam_tpu_torch/_build/` under a
 name that carries a hash of the source and the flags, so an edited source
 is rebuilt and a stale library is never loaded. `build_all()` compiles
 every missing library with one nvcc process per source, all at once.
+`graph_cond` (conditional graph nodes, ops/control.py) also calls the
+driver API and links libcuda: against the toolkit's stub at build time,
+the driver's own library at load time.
 """
 
 from __future__ import annotations
@@ -22,7 +25,9 @@ from typing import Dict, Iterable
 _PKG = Path(__file__).resolve().parents[1]
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("pyramid", "template", "ba_fused", "act_pass")
+SOURCES = ("pyramid", "template", "ba_fused", "act_pass", "graph_cond")
+# the libraries a source links besides the CUDA runtime
+LINK = {"graph_cond": ("-lcuda",)}
 # -fmad=false: no contraction of a*b+c into one rounding, so a kernel
 # rounds like its plain PyTorch twin (separate elementwise ops) and the
 # residual-state thresholds decide alike
@@ -43,9 +48,23 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _link_flags(name: str, nvcc: str | None = None) -> tuple:
+    """`LINK[name]` behind the toolkit's stub directories (libcuda.so is
+    a stub there; the driver's libcuda.so.1 is loaded at run time)."""
+    libs = LINK.get(name, ())
+    if not libs or nvcc is None:
+        return libs
+    root = Path(nvcc).resolve().parents[1]
+    dirs = [d for d in (root / "lib64" / "stubs",
+                        root / "targets" / "x86_64-linux" / "lib" / "stubs")
+            if d.is_dir()]
+    return tuple(f"-L{d}" for d in dirs) + libs
+
+
 def lib_path(name: str) -> Path:
     src = (SRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    flags = " ".join(NVCC_FLAGS + LINK.get(name, ()))
+    digest = hashlib.sha1(src + flags.encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -60,7 +79,9 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, dict]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
+        nvcc = _nvcc()
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu"),
+               *_link_flags(name, nvcc)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)

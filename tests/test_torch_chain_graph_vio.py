@@ -244,50 +244,41 @@ def _scale_inputs(runs):
 
 @pytest.mark.parametrize("branch", ["trapped", "multi_guess"])
 def test_bounded_scale_solve_equals_early_exit(runs, branch):
-    """The scale LM in its full bounded form and in the cut form against
-    the eager form, bit for bit (the cut form where it does not overrun,
-    and it overruns where the eager form ran more trips); then
-    `_scale_solve` with both branches chosen on the device against the
-    eager one branch, on the trapped and the untrapped scale state."""
+    """The scale LM's bounded form against the eager form, bit for bit, in
+    both of `ops/control.py`'s plain twins: the one a card runs outside a
+    capture (every loop to its bound, every repeat; under the host-read
+    guard) and the CPU's (the loops leave, the repeat is skipped, where
+    the conditional nodes would); then `_scale_solve` with the branch
+    chosen by `control.cond(trapped)` against the eager one branch, on
+    the trapped and the untrapped scale state."""
     fs, tmpl, right, (s_cur, trapped, fails) = _scale_inputs(runs)
     pyr_r = tuple(build_pyramid(right, fs.n_levels)[0])
     R01, t01, intr1 = fs._lr
     args = (R01, t01, fs._intr, intr1, fs.n_levels)
-    nl = fs.n_levels
     SO.TRIPS.clear()
     if branch == "trapped":
-        def solve(trips):
+        def solve(bounded):
             return SO.scale_lm(pyr_r, tmpl, s_cur.reshape(1), *args,
-                               trips=trips)
+                               bounded=bounded)
     else:
-        def solve(trips):
-            return SO.multi_guess(pyr_r, tmpl, *args, trips=trips)
-    eager = solve(None)
-    made = dict(SO.TRIPS)
+        def solve(bounded):
+            return SO.multi_guess(pyr_r, tmpl, *args, bounded=bounded)
+    eager = solve(False)
+    assert SO.TRIPS, "the eager form counts its trips"
     with no_host_reads():
-        full = solve(SO.full_trips(nl))
-        cut = solve(SO.cut_trips(nl))
-    for x, y in zip(eager[:2], full[:2]):
+        full = solve(True)
+    node_like = solve(True)
+    for x, y, z in zip(eager, full, node_like):
         _same_bits(x, y)
-    assert not bool(full[2].any())
-    # the cut form: bit for bit unless it overran, and it overran exactly
-    # where the eager form made more trips than the cut allows
-    more = any(dbl > 0 or rdbl or rlm
-               or lm > SO.CUT_LM_TRIPS[min(nl - 1 - lvl,
-                                           len(SO.CUT_LM_TRIPS) - 1)]
-               for (_, lvl, dbl, lm, rdbl, rlm) in made)
-    assert bool(cut[2].any()) == more, (made, cut[2])
-    if not more:
-        for x, y in zip(eager[:2], cut[:2]):
-            _same_bits(x, y)
+        _same_bits(x, z)
 
     for trapped_v in (True, False):
         kf = CG.keyframe_inputs(fs, right, (
             s_cur, torch.full((), trapped_v), fails))
         got_e = fs._scale_solve(tmpl, kf, False)
         with no_host_reads():
-            got_b = fs._scale_solve(tmpl, kf, True, SO.full_trips(nl))
-        for x, y in zip(got_e[:4], got_b[:4]):
+            got_b = fs._scale_solve(tmpl, kf, True)
+        for x, y in zip(got_e, got_b):
             _same_bits(x, y)
 
 
@@ -309,14 +300,14 @@ def test_scale_solve_matches_jax(runs):
     intr = tuple(fs._intr)
     sj, ej = JSO.optimize_scale(pj, tj, jnp.float32(float(s_cur)), j(R01),
                                 j(t01), intr, tuple(intr1), nl)
-    st, et, _ = SO.scale_lm(pyr_r, tmpl, s_cur.reshape(1), R01, t01, intr,
-                            intr1, nl, trips=SO.full_trips(nl))
+    st, et = SO.scale_lm(pyr_r, tmpl, s_cur.reshape(1), R01, t01, intr,
+                         intr1, nl, bounded=True)
     close(sj, st[0], GN_TOL)
     close(ej, et[0], GN_TOL)
     bj, bej = JSO.optimize_scale_multi_guess(pj, tj, j(R01), j(t01), intr,
                                              tuple(intr1), nl)
-    bt, bet, _ = SO.multi_guess(pyr_r, tmpl, R01, t01, intr, intr1, nl,
-                                trips=SO.full_trips(nl))
+    bt, bet = SO.multi_guess(pyr_r, tmpl, R01, t01, intr, intr1, nl,
+                             bounded=True)
     close(bj, bt, GN_TOL)
     close(bej, bet, GN_TOL)
 

@@ -873,18 +873,28 @@ def _assert_same_run(a, b):
 
 
 def test_frame_graph_replays_bit_for_bit_on_the_card():
-    """The graph form against the eager form (cuda_graphs=False) on the
-    card: every keyframe, pose, window tensor and immature-pool tensor
-    the same bits, over frames that copy a keyframe's window and
-    templates into the graphs' buffers and a frame whose primary misses
-    (the retry run, the frame refused)."""
+    """The graph form (one graph a frame, the retry and the tracker's loops
+    as conditional nodes) against the eager form (cuda_graphs=False) on
+    the card: every keyframe, pose, window tensor and immature-pool
+    tensor the same bits, over frames that copy a keyframe's window and
+    templates into the graph's buffers and a rolled frame whose primary
+    misses (the retry run inside the graph, the frame refused); the eager
+    step never runs in the graph form."""
     dev = _dev()
     imgs = _mono_images(dev, roll_frame=14)
     eager = _mono_run(dev, imgs, cuda_graphs=False)
-    graph = _mono_run(dev, imgs, cuda_graphs=True)
-    assert eager.frame_graph is None
+    stepped = []
+
+    def feed(fs, i):
+        if "_frame_step" not in fs.__dict__:
+            step = fs._frame_step
+            fs._frame_step = lambda *a: stepped.append(i) or step(*a)
+        fs.add_active_frame(imgs[i], timestamp=0.05 * i, frame_id=i)
+
+    graph = _mono_run(dev, imgs, cuda_graphs=True, feed=feed)
+    assert eager.frame_graph is None and not stepped
     g = graph.frame_graph
-    assert g.graphs is not None and g.retries >= 1
+    assert g.graph is not None and g.retries >= 1
     assert g.copy_ins["templates"] >= 8 and g.copy_ins["ba"] >= 2
     # the private pool's own segments hold the graphs' buffers
     assert 0 < g.pool_bytes <= torch.cuda.memory_reserved(dev)
@@ -900,7 +910,7 @@ def _syncs_per_frame(fs, imgs):
     try:
         for i in range(len(imgs)):
             g = fs.frame_graph
-            if g is not None and g.graphs is None:
+            if g is not None and g.graph is None:
                 where[i] = "before the capture"
             with warnings.catch_warnings(record=True) as got:
                 warnings.simplefilter("always")
@@ -916,9 +926,10 @@ def _syncs_per_frame(fs, imgs):
 
 
 def test_frame_graph_syncs_on_the_card():
-    """A steady frame that dispatches no keyframe chain makes at most two
-    synchronising calls in the graph form (prim_ok with the tracker's
-    overrun, and need_kf); the eager form's count is printed beside it.
+    """A steady frame that dispatches no keyframe chain makes at most one
+    synchronising call in the graph form (need_kf, read with the
+    conditional nodes' run counts); the eager form's count is printed
+    beside it.
     The mono scene at half the test twist, so that most frames are no
     keyframe."""
     from sos_slam_tpu_torch.models.full_system import FullSystem
@@ -949,7 +960,7 @@ def test_frame_graph_syncs_on_the_card():
           f"{steady}: graph form {graph}, eager form {eager}; where, frame "
           f"{steady[-1]}: graph form {where[True][steady[-1]]}, eager form "
           f"{where[False][steady[-1]]}")
-    assert max(graph) <= 2, graph
+    assert max(graph) <= 1, graph
 
 
 def test_frame_graph_capture_error_raises_on_the_card():
@@ -1049,7 +1060,7 @@ def test_frame_graph_capture_beside_the_loop_worker_on_the_card(tmp_path):
     print(f"loop records queued or in work at the captures: {busy}")
     assert min(busy) >= 1
     a, b = runs[0].fs, runs[1].fs
-    assert b.frame_graph.graphs is not None
+    assert b.frame_graph.graph is not None
     _assert_same_run(a, b)
     assert len(runs[0].loop.frames) == len(runs[1].loop.frames) >= 3
 
@@ -1082,43 +1093,65 @@ def test_chain_graph_replays_bit_for_bit_on_the_card():
     exact(eager.host_out, graph.host_out)
 
 
+def _warm_ups(fs):
+    """Count the K1-K4 launches of `fs`'s graphs' capture warm-ups (the
+    bodies' plain twins run once; the capture after them launches
+    nothing) into the returned list."""
+    from sos_slam_tpu_torch.ops import control
+    n = [0, 0, 0, 0]
+    for g in (fs.frame_graph, fs.chain_graph):
+        capture = g.capture
+
+        def counted(*a, capture=capture, **kw):
+            before = [fn.launches for _, fn in control.counters()]
+            out = capture(*a, **kw)
+            for j, ((_, fn), b) in enumerate(zip(control.counters(),
+                                                 before)):
+                n[j] += fn.launches - b
+            return out
+        g.capture = counted
+    return n
+
+
+def _launches(run):
+    """K1-K4 launches of `run()`, the counters credited with every
+    conditional node's runs."""
+    from sos_slam_tpu_torch.ops import control
+    control.account()
+    before = [fn.launches for _, fn in control.counters()]
+    out = run()
+    control.account()
+    return out, [fn.launches - b for (_, fn), b
+                 in zip(control.counters(), before)]
+
+
 def test_chain_graph_launch_counters_on_the_card():
-    """A replay adds the kernels captured in the chain's graph to their
-    launch counters: K1 (the selection's gradient pyramid), K2 (the
-    template), K3 (the bounded BA's steps, the final linearization and
-    the point marginalization) and K4 (the activation passes); a step
-    that captures its rung first counts the warm-up's launches too (they
-    run), not the capture's (nothing runs)."""
-    from sos_slam_tpu_torch.models import chain_graph as CG
+    """K1-K4 launches of the graph form equal the eager form's plus the
+    graphs' capture warm-ups' (a warm-up runs the bodies' plain twins:
+    every loop to its bound); a replay adds the launches captured outside
+    its conditional nodes, and the nodes' runs, counted on the device,
+    credit those in their bodies (the BA's GN steps, the frame step's
+    loops)."""
     dev = _dev()
-    imgs = _mono_images(dev)
-    deltas = []
+    imgs = _mono_images(dev, roll_frame=14)
+    _, eager = _launches(lambda: _mono_run(dev, imgs, cuda_graphs=False))
+    warm = []
 
     def feed(fs, i):
-        g = fs.chain_graph
-        if "step" not in g.__dict__:
-            step = g.step
-
-            def counted(*a, **kw):
-                before = [fn.launches for _, fn in CG.COUNTERS]
-                runs = 1 if a[-1] in g.graphs else 2
-                out = step(*a, **kw)
-                deltas.append((a[-1], runs, [fn.launches - b for b, (_, fn)
-                                             in zip(before, CG.COUNTERS)]))
-                return out
-            g.step = counted
+        if not warm:
+            warm.append(_warm_ups(fs))
         fs.add_active_frame(imgs[i], timestamp=0.05 * i, frame_id=i)
 
-    fs = _mono_run(dev, imgs, cuda_graphs=True, feed=feed)
+    fs, graph = _launches(lambda: _mono_run(dev, imgs, cuda_graphs=True,
+                                            feed=feed))
+    assert sum(fs.chain_graph.replays.values()) >= 5
+    assert graph == [e + w for e, w in zip(eager, warm[0])], (
+        graph, eager, warm[0])
     s = fs.settings
-    want = dict(K1=1, K2=1, K3=s.max_opt_iterations + 2,
-                K4=1 + s.gn_its_on_point_activation)
-    g = fs.chain_graph
-    assert len(deltas) >= 5
-    assert any(runs == 1 for _, runs, _ in deltas)
-    for pot, runs, got in deltas:
-        assert g.per_replay[pot] == want, g.per_replay
-        assert got == [runs * want[c] for c, _ in CG.COUNTERS], got
+    for pot, per in fs.chain_graph.per_replay.items():
+        # the BA's steps run inside its WHILE node
+        assert per["K3"] == 2 and per["K2"] == 1, per
+        assert per["K4"] == 1 + s.gn_its_on_point_activation, per
 
 
 def test_chain_graph_capture_error_raises_on_the_card():
@@ -1155,10 +1188,10 @@ def test_chain_graph_capture_error_raises_on_the_card():
 
 def test_chain_graph_syncs_on_the_card():
     """A frame whose dispatch replays the keyframe chain's graphs (no
-    retry, no overrun, no dispatch again) makes at most two synchronising
-    calls in the graph form: prim_ok with the tracker's overrun, and
-    need_kf. The eager form's count of the same frames is printed beside
-    it, and each call is named by file and line."""
+    retry, no dispatch again) makes at most two synchronising calls in
+    the graph form (need_kf, and what completing a frame reads). The
+    eager form's count of the same frames is printed beside it, and each
+    call is named by file and line."""
     dev = _dev()
     imgs = _mono_images(dev)
     counts, where, clean = {}, {}, {}
@@ -1178,11 +1211,11 @@ def test_chain_graph_syncs_on_the_card():
             real_add = fs.add_active_frame
 
             def add(*a, **kw):
-                before = (sum(g.replays.values()), fg.retries, fg.overruns,
+                before = (sum(g.replays.values()), fg.retries,
                           len(fs.telemetry.timers["redispatch"]),
                           len(g.capture_ms))
                 real_add(*a, **kw)
-                after = (sum(g.replays.values()), fg.retries, fg.overruns,
+                after = (sum(g.replays.values()), fg.retries,
                          len(fs.telemetry.timers["redispatch"]),
                          len(g.capture_ms))
                 marks.append(after[0] == before[0] + 1
@@ -1238,13 +1271,24 @@ def _vio_run(dev, cuda_graphs, feed=None, n=44):
 
 def test_vio_chain_graph_replays_bit_for_bit_on_the_card():
     """The VIO keyframe chain's graphs (the visual-inertial BA bounded,
-    the stereo scale solve's branches chosen on the device) against the
+    the stereo scale solve's branch taken on the device) against the
     eager chain (cuda_graphs=False) on the card: every keyframe, both
     trajectories, and every tensor of the window, the immature pool and
-    the IMU state the same bits."""
+    the IMU state the same bits; K1-K4 launches the eager form's plus the
+    capture warm-ups'."""
     dev = _dev()
-    eager = _vio_run(dev, cuda_graphs=False)
-    graph = _vio_run(dev, cuda_graphs=True)
+    eager, n_eager = _launches(lambda: _vio_run(dev, cuda_graphs=False))
+    warm = []
+
+    def feed(fs, add, i):
+        if not warm:
+            warm.append(_warm_ups(fs))
+        add(i)
+
+    graph, n_graph = _launches(lambda: _vio_run(dev, cuda_graphs=True,
+                                                feed=feed))
+    assert n_graph == [e + w for e, w in zip(n_eager, warm[0])], (
+        n_graph, n_eager, warm[0])
     g = graph.chain_graph
     assert eager.chain_graph is None and graph.imu_initialized
     assert sum(g.replays.values()) >= 2, g.replays
@@ -1258,30 +1302,33 @@ def test_vio_chain_graph_replays_bit_for_bit_on_the_card():
     assert eager.kf_n_its == graph.kf_n_its
 
 
-def test_vio_chain_graph_launch_counters_on_the_card():
-    """Over the flagship frames after the VIO chain's capture, under
-    torch.profiler, each kernel's launch counter moves by the kernels of
-    its name the profiler sees: a replay adds the launches captured in
-    it (K1: the right image's pyramid and the selection's; K2: the
-    template; K3: the bounded BA's steps, the final linearization and the
-    point marginalization; K4: the activation passes). The window opens
-    with 1000 throwaway launches, since the profiler may drop the first
-    device events of a window."""
+def _vio_launch_windows():
+    """The flagship frames from the VIO chain's capture on, each under
+    torch.profiler, in this process: [(frame, chain replays, {kernel:
+    seen}, {kernel: counted}, {kernel: inside conditional nodes},
+    {kernel: inside, as the profiler shows them}), ...] and the chain's
+    launches a replay by rung. Each window opens with 1000 throwaway
+    launches, since the profiler may drop the first device events of a
+    window."""
     from torch.profiler import ProfilerActivity, profile
     from sos_slam_tpu_torch.models import chain_graph as CG
+    from sos_slam_tpu_torch.ops import control
     dev = _dev()
     names = dict(K1="pyramid_kernel", K2="template_kernel",
                  K3="ba_block_kernel", K4="act_pass_kernel")
-    seen = {}
+    seen = []
 
     def feed(fs, add, i):
         g = fs.chain_graph
         if i < 32 or not g.graphs:
             add(i)
             return
-        before = {c: fn.launches for c, fn in CG.COUNTERS}
-        replays = sum(g.replays.values())
         torch.cuda.synchronize()
+        control.account()
+        before = {c: fn.launches for c, fn in CG.COUNTERS}
+        inside = dict(control.CREDITED)
+        shown = dict(control.PROFILED)
+        replays = sum(g.replays.values())
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(1000):
                 torch.cuda._sleep(0)
@@ -1291,21 +1338,60 @@ def test_vio_chain_graph_launch_counters_on_the_card():
             torch.cuda.synchronize()
         ev = prof.key_averages()
         assert any("spin_kernel" in e.key for e in ev)
-        got = {c: sum(e.count for e in ev if names[c] in e.key)
-               for c in names}
-        seen[i] = (sum(g.replays.values()) - replays, got,
-                   {c: fn.launches - before[c] for c, fn in CG.COUNTERS})
+        seen.append((
+            i, sum(g.replays.values()) - replays,
+            {c: sum(e.count for e in ev if names[c] in e.key)
+             for c in names},
+            {c: fn.launches - before[c] for c, fn in CG.COUNTERS},
+            {c: control.CREDITED[c] - inside.get(c, 0) for c in names},
+            {c: control.PROFILED[c] - shown.get(c, 0) for c in names}))
 
     fs = _vio_run(dev, cuda_graphs=True, feed=feed)
-    s = fs.settings
-    g = fs.chain_graph
-    want = dict(K1=2, K2=1, K3=s.max_opt_iterations + 2,
-                K4=1 + s.gn_its_on_point_activation)
-    for pot, per in g.per_replay.items():
+    return seen, {pot: dict(per)
+                  for pot, per in fs.chain_graph.per_replay.items()}
+
+
+def test_vio_chain_graph_launch_counters_on_the_card():
+    """Over the flagship frames after the VIO chain's capture, under
+    torch.profiler: a replay adds the launches captured outside its
+    conditional nodes (K1: the selection's pyramid; K2: the template; K3:
+    the final linearization and the point marginalization; K4: the
+    activation passes), exactly, and the nodes' runs credit those in
+    their bodies (the BA's GN steps in its WHILE node, the right image's
+    pyramid under the scale solve's IF node). The profiler sees each
+    kernel exactly as often as the counters say, those inside the nodes
+    as it reports them (control.PROFILED: an IF body's each run, a WHILE
+    body's once each time the node is entered). It runs in a process of
+    its own: the profiler loses and adds records of kernels inside
+    conditional nodes in a process that has made many of them (the card
+    tests before it), which a fresh process does not show."""
+    import json
+    import pathlib
+    import subprocess
+    import sys
+    _dev()
+    here = pathlib.Path(__file__).resolve().parent
+    code = ("import json, sys; sys.path[:0] = [%r, %r]; "
+            "import test_torch_cuda as T; w, per = T._vio_launch_windows(); "
+            "print('WINDOWS ' + json.dumps([w, {str(k): v for k, v in "
+            "per.items()}]))" % (str(here), str(here.parent)))
+    run = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=900, cwd=str(here.parent))
+    line = [x for x in run.stdout.splitlines() if x.startswith("WINDOWS ")]
+    assert run.returncode == 0 and line, run.stderr[-4000:]
+    seen, per_replay = json.loads(line[-1][len("WINDOWS "):])
+    from sos_slam_tpu_torch.utils.config import default_settings
+    s = default_settings()
+    want = dict(K1=1, K2=1, K3=2, K4=1 + s.gn_its_on_point_activation)
+    for pot, per in per_replay.items():
         assert per == want, (pot, per)
-    assert any(n for n, _, _ in seen.values()), seen
-    for i, (_, got, counted) in seen.items():
-        assert got == counted, (i, got, counted)
+    assert any(n for _, n, _, _, _, _ in seen), seen
+    for i, _, got, counted, inside, shown in seen:
+        rule = {c: counted[c] - inside[c] + shown[c] for c in counted}
+        print(f"frame {i}: the profiler saw {got}, counted {counted}, "
+              f"inside conditional nodes {inside}, shown by the rule "
+              f"{shown}")
+        assert got == rule, (i, got, counted, inside, shown)
 
 
 def test_vio_chain_graph_capture_error_raises_on_the_card():
@@ -1340,9 +1426,8 @@ def test_vio_chain_graph_capture_error_raises_on_the_card():
 
 def test_vio_chain_syncs_on_the_card():
     """A flagship frame whose dispatch replays the VIO chain's graphs (no
-    retry, no overrun, no capture, no dispatch again) makes at most two
-    synchronising calls in the graph form: prim_ok with the tracker's
-    overrun, and need_kf. The eager form's count of the same frames is
+    retry, no capture, no dispatch again) makes at most two synchronising
+    calls in the graph form. The eager form's count of the same frames is
     printed beside it, each call named by file and line."""
     import warnings
     dev = _dev()
@@ -1352,7 +1437,7 @@ def test_vio_chain_syncs_on_the_card():
 
         def feed(fs, add, i, c=c, w_=w_, graphs=cuda_graphs):
             g, fg = fs.chain_graph, fs.frame_graph
-            mark = (sum(g.replays.values()), fg.retries, fg.overruns,
+            mark = (sum(g.replays.values()), fg.retries,
                     len(g.capture_ms),
                     len(fs.telemetry.timers["redispatch"])) if graphs \
                 else None
@@ -1368,7 +1453,7 @@ def test_vio_chain_syncs_on_the_card():
             w_[i] = [f"{x.filename.split('/')[-1]}:{x.lineno}"
                      for x in syncs]
             if graphs:
-                now = (sum(g.replays.values()), fg.retries, fg.overruns,
+                now = (sum(g.replays.values()), fg.retries,
                        len(g.capture_ms),
                        len(fs.telemetry.timers["redispatch"]))
                 if now[0] == mark[0] + 1 and now[1:] == mark[1:]:
@@ -1383,3 +1468,181 @@ def test_vio_chain_syncs_on_the_card():
           f"{eager}; where, frame {clean[-1]}: graph form "
           f"{where[True][clean[-1]]}, eager form {where[False][clean[-1]]}")
     assert max(graph) <= 2, (graph, [where[True][i] for i in clean])
+
+
+# ---------------------------------------------------------------------------
+# the device control flow as conditional graph nodes (ops/control.py)
+# ---------------------------------------------------------------------------
+def _probe():
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "scripts" \
+        / "torch_graph_probe.py"
+    spec = importlib.util.spec_from_file_location("torch_graph_probe", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_control_cases_on_the_card():
+    """Every case of scripts/torch_graph_probe.py's conditional nodes (an
+    IF taken and skipped, an IF with an else, nested IFs, a WHILE of no
+    trip, of three and to its cap, the counters' credit and the setter
+    launches) replays bit for bit its eager form and its plain twin; a
+    skipped IF node and a WHILE trip cost some microseconds of device
+    time."""
+    dev = _dev()
+    probe = _probe()
+    cases = probe.control_cases(dev)
+    assert len(cases) == 7
+    assert all(ok for _, ok, _ in cases), cases
+    us = probe.node_costs(dev, n=100, trips=200)
+    print(f"device us: {us}")
+    assert all(0 < v < 1000 for v in us.values()), us
+
+
+def _chain_calls(dev, vio):
+    """The keyframe chains' arguments of an eager run (cuda_graphs=False)
+    of the mono scene, or with `vio` of the flagship scene, and its
+    FullSystem."""
+    calls = []
+
+    def wrap(fs):
+        if "_run_chain" not in fs.__dict__:
+            run = fs._run_chain
+
+            def recorded(*a, **kw):
+                calls.append(a)
+                return run(*a, **kw)
+            fs._run_chain = recorded
+
+    if vio:
+        def feed(fs, add, i):
+            wrap(fs)
+            add(i)
+        fs = _vio_run(dev, cuda_graphs=False, feed=feed)
+    else:
+        imgs = _mono_images(dev)
+
+        def feed(fs, i):
+            wrap(fs)
+            fs.add_active_frame(imgs[i], timestamp=0.05 * i, frame_id=i)
+        fs = _mono_run(dev, imgs, cuda_graphs=False, feed=feed)
+    del fs._run_chain
+    budget = fs.settings.max_opt_iterations
+    return fs, [a for a in calls if a[10] == budget]
+
+
+def _chain_both(fs, a, kf):
+    """One chain on the arguments `a` of `_run_chain` with the inputs `kf`:
+    replayed as a fresh ChainGraph's graph, and eagerly. Returns both
+    outputs."""
+    from sos_slam_tpu_torch.models import chain_graph as CG
+    from sos_slam_tpu_torch.utils import rng
+    st, imm, pyr, T, aff, exp, stats, host_out, n_kf, sid, max_its, pot = \
+        a[:12]
+    key = rng.fold_in(st["key"], sid)
+    g = CG.ChainGraph(fs)
+    got = g.step(st, imm, pyr, T, aff, exp, stats, host_out, n_kf, key, pot,
+                 kf=kf)
+    body = CG.kf_chain_vio_body if fs.settings.enable_imu \
+        else CG.kf_chain_body
+    keys = torch.as_tensor(CG.selection_keys(key), device=fs.device)
+    ref = body(fs, st, imm, pyr, T, aff, exp, stats, host_out, n_kf, keys,
+               pot, max_its, False, kf)
+    assert sum(g.replays.values()) == 1 and not g.eager
+    return got, ref
+
+
+def _assert_same_chain(got, ref, vio=False):
+    for k in ("ba", "imm", "dI") + (("imu",) if vio else ()):
+        x, y = got["state"][k], ref["state"][k]
+        for a_, b_ in (zip(x, y) if isinstance(x, tuple) else ((x, y),)):
+            assert _same_bits(a_, b_), k
+    for k in ("marg_ks", "host_out", "n_have", "slot", "T_cw_all_t"):
+        assert _same_bits(got[k], ref[k]), k
+    for a_, b_ in zip(got["scale_out"], ref["scale_out"]):
+        assert _same_bits(a_, b_)
+    assert int(got["ba_stats"]["n_its"]) == int(ref["ba_stats"]["n_its"])
+
+
+@pytest.fixture(scope="module")
+def mono_chain_calls():
+    return _chain_calls(_dev(), vio=False)
+
+
+@pytest.mark.parametrize("n_flagged", [0, 1, 4])
+def test_chain_flagged_slots_on_the_card(mono_chain_calls, n_flagged):
+    """The vision chain's graph with 0, 1 and 4 flagged frame slots (the
+    flags forced: each slot's fold a conditional node that a padded slot
+    skips) bit for bit the eager chain on the same inputs."""
+    from sos_slam_tpu_torch.models import chain_graph as CG
+    fs, calls = mono_chain_calls
+    a = max(calls, key=lambda c: int(c[0]["ba"].frame_valid.sum()))
+    n = int(a[0]["ba"].frame_valid.sum())
+    assert n >= 5, n
+    ks = [n - 2, n - 3, n - 4, 1][:n_flagged]
+    F = a[0]["ba"].F
+    flags = torch.zeros(F, dtype=torch.bool, device=fs.device)
+    flags[ks] = True
+    marg_ks = torch.tensor(ks + [-1] * (CG.MAX_MARG_FRAMES - n_flagged),
+                           device=fs.device)
+    real = CG.flag_frames
+    CG.flag_frames = lambda *args, **kw: (flags, marg_ks)
+    try:
+        got, ref = _chain_both(fs, a, a[12])
+    finally:
+        CG.flag_frames = real
+    _assert_same_chain(got, ref)
+    assert int((got["marg_ks"] >= 0).sum()) == n_flagged
+
+
+def test_vio_chain_untrapped_on_the_card():
+    """A flagship VIO chain handed an untrapped scale state: its graph
+    solves the scale from the multi-guess start (the other branch of the
+    scale solve's conditional node) bit for bit the eager chain, and the
+    same chain trapped too."""
+    dev = _dev()
+    fs, calls = _chain_calls(dev, vio=True)
+    a = calls[-1]
+    kf = a[12]
+    s_, t_, f_ = kf["scale_state"]
+    assert bool(t_)
+    for trapped in (False, True):
+        k = dict(kf, scale_state=(s_, torch.full_like(t_, trapped), f_))
+        got, ref = _chain_both(fs, a, k)
+        _assert_same_chain(got, ref, vio=True)
+
+
+@pytest.mark.parametrize("n", [8, 29, 68, 237])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_solve_inside_a_conditional_body_on_the_card(n, dtype):
+    """numerics.solve of one system captures inside an IF node's body
+    (torch.linalg.solve_ex's cuSOLVER route allocates stream-ordered
+    memory there at 29 <= n <= 128, which a body may not hold), replays
+    to its uncaptured bits and agrees with torch.linalg.solve; a singular
+    system gives NaN."""
+    from sos_slam_tpu_torch.ops import control
+    from sos_slam_tpu_torch.ops import numerics as NUM
+    dev = _dev()
+    g_ = torch.Generator(device="cpu").manual_seed(n)
+    A = torch.randn(n, n, generator=g_, dtype=dtype)
+    A = (A @ A.T + n * torch.eye(n, dtype=dtype)).to(dev)
+    b = torch.randn(n, generator=g_, dtype=dtype).to(dev)
+    ref = NUM.solve(A, b)
+    tol = 1e-4 if dtype == torch.float32 else 1e-10
+    close(ref, torch.linalg.solve(A, b), tol=tol)
+    out = torch.zeros(n, dtype=dtype, device=dev)
+    go = torch.ones((), dtype=torch.bool, device=dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        NUM.solve(A, b)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with control.capture(graph, torch.cuda.graph_pool_handle(), side):
+        control.cond(go, lambda: NUM.solve(A, b), None, out=out)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert _same_bits(out, ref)
+    assert torch.isnan(NUM.solve(torch.zeros_like(A), b)).all()

@@ -1,13 +1,15 @@
 """The device-decision frame step (models/frame_graph.py) and the tracker's
-bounded and cut forms (ops/tracker.py) on the CPU, against the eager
-forms they replace and against the JAX package's `_frame_step_jit` /
+bounded form (ops/tracker.py) on the CPU, against the eager forms they
+replace and against the JAX package's `_frame_step_jit` /
 `_need_kf_jit`.
 
 The mono scene of tests/test_torch_pipeline.py (256x192) runs through
 the eager dispatch once, recording each fused frame step's inputs; the
-same frames then go through the bounded tracker and the FrameGraph's
-bodies, which on a card are captured as CUDA graphs and here run as they
-are. The eager and the bounded forms must give the same bits; the JAX
+same frames then go through the bounded tracker and the FrameGraph's one
+body (the primary track, the retry under `control.cond`, the rest),
+which on a card is captured as one CUDA graph with conditional nodes and
+here runs as it is, `ops/control.py`'s loops and branches in their plain
+twins. The eager and the bounded forms must give the same bits; the JAX
 package is held at the tolerances of tests/test_torch_tracker.py and
 tests/test_torch_trace.py (T 1e-4, residuals, flow and affine 1e-3,
 trace depths 1e-3, quality 1e-2, the rest 2e-4 relative; bools, ints and
@@ -104,7 +106,7 @@ def _cases(steps):
 
 
 # ---------------------------------------------------------------------------
-# (a) the bounded and cut tracker against the eager one
+# (a) the bounded tracker against the eager one
 # ---------------------------------------------------------------------------
 def _tracks(fs, rec, img, T_inits, **kw):
     st, s = rec["args"][0], fs.settings
@@ -119,8 +121,11 @@ def _tracks(fs, rec, img, T_inits, **kw):
 
 @pytest.mark.parametrize("K", [1, 5])
 def test_bounded_tracker_equals_eager(runs, K):
-    """The bounded tracker is the eager one bit for bit; the cut form is
-    too unless it flags an overrun, and it flags every doubling."""
+    """The bounded tracker is the eager one bit for bit, in both of
+    `ops/control.py`'s plain twins: the CPU's (the loops leave, the
+    branches are skipped, as the conditional nodes do) and, under the
+    host-read guard, the one a card runs outside a capture (every loop to
+    its bound, every branch)."""
     eager_fs, _, steps = runs
     reps = []
     level = TK.track_level
@@ -143,16 +148,13 @@ def test_bounded_tracker_equals_eager(runs, K):
             b = _tracks(eager_fs, rec, img, T_inits, bounded=True)
             for k in a:
                 exact(a[k], b[k])
-            # the cut form, graph (A)'s: no doubling, LM trips by level
-            over = torch.zeros((), dtype=torch.bool)
-            c = _tracks(eager_fs, rec, img, T_inits, cut=True, overrun=over)
-            if doubled:
-                assert bool(over), name  # a doubling is an overrun
-            if not bool(over):
+            if name in ("steady0", "rejected"):
+                with no_host_reads():
+                    c = _tracks(eager_fs, rec, img, T_inits, bounded=True)
                 for k in a:
                     exact(a[k], c[k])
             if name.startswith("steady") and K == 1:
-                assert not doubled and not bool(over), name
+                assert not doubled, name
             if name == "rejected":
                 # the cutoff doubles, the re-pass and the level repeat run
                 assert doubled, name
@@ -160,35 +162,23 @@ def test_bounded_tracker_equals_eager(runs, K):
         TK.track_level = level
 
 
-def test_cut_tracker_flags_a_short_loop(runs, monkeypatch):
-    """With one LM trip a level the cut form must flag the frames whose
-    levels need more, and give the eager bits where it does not."""
-    eager_fs, _, steps = runs
-    monkeypatch.setattr(TK, "CUT_LM_TRIPS", (1,))
-    flagged = 0
-    for name, img, T_p, _, rec in _cases(steps):
-        a = _tracks(eager_fs, rec, img, T_p[None])
-        over = torch.zeros((), dtype=torch.bool)
-        c = _tracks(eager_fs, rec, img, T_p[None], cut=True, overrun=over)
-        flagged += bool(over)
-        if not bool(over):
-            for k in a:
-                exact(a[k], c[k])
-    assert flagged >= 1
-
-
 # ---------------------------------------------------------------------------
 # (b) the device-decision step against the eager step and the JAX package
 # ---------------------------------------------------------------------------
-def _graph_step(fs, rec, img, T_p, T_h):
-    (st, _, _, _, T_cw_ref, aff0, ref_aff, ref_exp, exposure,
+def _inputs(fs, rec) -> dict:
+    """The chained inputs of a recorded step, as `step` takes them."""
+    (_, _, _, _, T_cw_ref, aff0, ref_aff, ref_exp, _,
      achieve_th) = rec["args"]
-    inp = dict(T_cw_ref=T_cw_ref, aff=aff0, ref_aff=ref_aff, ref_exp=ref_exp,
-               th=achieve_th, first_rmse=rec["first_rmse"],
-               rms0=achieve_th / fs.settings.re_track_threshold,
-               T_cw_prev=T_cw_ref, n_kf=rec["n_kf"])
+    return dict(T_cw_ref=T_cw_ref, aff=aff0, ref_aff=ref_aff,
+                ref_exp=ref_exp, th=achieve_th, first_rmse=rec["first_rmse"],
+                rms0=achieve_th / fs.settings.re_track_threshold,
+                T_cw_prev=T_cw_ref, n_kf=rec["n_kf"])
+
+
+def _graph_step(fs, rec, img, T_p, T_h):
     g = FG.FrameGraph(fs)
-    return g, g.step(st, img, T_p, T_h, inp, float(exposure))
+    return g, g.step(rec["args"][0], img, T_p, T_h, _inputs(fs, rec),
+                     float(rec["args"][8]))
 
 
 def _eager_step(fs, rec, img, T_p, T_h):
@@ -311,11 +301,21 @@ def _intrinsics(n_levels):
 # (c) no host read inside the bodies that the graphs capture
 # ---------------------------------------------------------------------------
 def test_bodies_read_nothing_back(stepped):
-    _, img, T_p, T_h, rec, g, _, _ = stepped[0]
-    with no_host_reads():
-        g._primary()
-        g._finish()
-    assert g.a["flags"].shape == (2,)
+    """The one body, its retry branch and loops in the twins a card runs
+    outside a capture, reads nothing on the host, and gives the step's
+    bits, on a steady frame and on the frame whose primary misses."""
+    for name, img, T_p, T_h, rec, g, got, _ in stepped:
+        if name not in ("steady0", "retry"):
+            continue
+        g._load(rec["args"][0], img, T_p, T_h, _inputs(g.fs, rec),
+                float(rec["args"][8]), rec["n_kf"])
+        with no_host_reads():
+            g._frame()
+        assert bool(g.a["miss"]) == (name == "retry"), name
+        for k in got["out"]:
+            exact(g.sel[k], got["out"][k])
+        exact(g.b["T_cw_new"], got["T_cw_new"])
+        assert bool(g.b["need_kf"]) == got["need_kf"], name
 
 
 # ---------------------------------------------------------------------------
@@ -328,7 +328,7 @@ def test_device_path_equals_eager_path(runs):
     for a, b in zip((*eager.ba, *eager.imm), (*graph.ba, *graph.imm)):
         exact(a, b)
     g = graph.frame_graph
-    assert g.replays["A"] == g.replays["B"] >= 10
+    assert g.replays >= 10
     # the window and templates are copied in after a keyframe only
-    assert 2 <= g.copy_ins["ba"] < g.replays["A"]
+    assert 2 <= g.copy_ins["ba"] < g.replays
     assert g.copy_ins["templates"] == graph.n_levels * g.copy_ins["ba"]

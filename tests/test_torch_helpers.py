@@ -88,7 +88,10 @@ def no_host_reads():
     a 0-dim int or a bool tensor (a 0-dim index is read, a bool mask's
     size too), a Python number assigned into a tensor, torch.tensor /
     as_tensor, and the ops whose output size depends on the data
-    (nonzero, unique, unique_consecutive, masked_select)."""
+    (nonzero, unique, unique_consecutive, masked_select). Inside it,
+    ops/control.py's `cond` and `while_loop` run the plain twins a card
+    runs outside a capture (every branch, every trip to the cap), as on
+    the CPU they would read their conditions."""
     def refuse(name):
         def read(*a, **kw):
             raise AssertionError(f"host read inside a captured body: {name}")
@@ -119,6 +122,9 @@ def no_host_reads():
                                  "body: a Python number assigned")
         return setitem(x, idx, value)
 
+    from sos_slam_tpu_torch.ops import control
+    on_host = control._on_host
+    control._on_host = lambda t: False
     for n in names:
         setattr(torch.Tensor, n, refuse(n))
     torch.Tensor.__getitem__ = indexed
@@ -129,6 +135,7 @@ def no_host_reads():
     try:
         yield
     finally:
+        control._on_host = on_host
         for n, f in saved.items():
             setattr(torch.Tensor, n, f)
         for n, f in made.items():

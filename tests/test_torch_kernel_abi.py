@@ -14,6 +14,7 @@ import torch
 from sos_slam_tpu_torch.models import window as WIN
 from sos_slam_tpu_torch.ops import ba as B
 from sos_slam_tpu_torch.ops import ba_p as BP
+from sos_slam_tpu_torch.ops import control
 from sos_slam_tpu_torch.ops import image as IMG
 from sos_slam_tpu_torch.utils import convert, cuda_build, synthetic
 
@@ -24,6 +25,7 @@ ARGTYPES = {
     "launch_ba_fused": BP._BA_ARGS,
     "ba_fused_part_floats": BP._BA_PART_ARGS,
     "launch_act_pass": BP._ACT_ARGS,
+    **control.ARGTYPES,
 }
 # the tables a launcher takes by value and their ctypes mirrors
 STRUCTS = {"PyramidOut": IMG.PyramidOut, "TemplateTable": WIN.TemplateTable}
