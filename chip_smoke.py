@@ -28,8 +28,9 @@ In order, failing (exit code != 0, no result line) at the first fault:
      (0.03, 0.012, 0.02, 0.002, 0.004, 0.001), plane_z 2.0) through the
      port's FullSystem on the card, at its default (the pipelined fused
      path, 3 frames in flight, drained with finish_pending at the end,
-     the frame step as CUDA graphs: models/frame_graph.py; every phase
-     runs that default unless it says otherwise),
+     each frame one replay of the fused frame graph of its selector rung:
+     models/fused_graph.py; every phase runs that default unless it says
+     otherwise),
      FullSystem.prewarm() before frame 26 as bench.py calls it (outside
      the frame timers; its launches, taken off the counters, and its wall
      ms are printed), with every launch counter set to 0
@@ -40,9 +41,11 @@ In order, failing (exit code != 0, no result line) at the first fault:
      their conditional nodes a replay, and those in the nodes' bodies
      times the runs the nodes counted on the device) and K2 once per
      template built; the conditional nodes run (branches taken, loop
-     trips: `launches` of graph_cond in the kernels line); the
-     selector rung after each keyframe printed, and gated on staying in
-     the prewarmed set from frame 26 on;
+     trips: `launches` of graph_cond in the kernels line); no keyframe
+     chain run eagerly but the classic one (its bootstrap budgets and
+     exports replay: `budget` and `export` 0, gated); the selector rung
+     after each keyframe printed, and gated on staying in the prewarmed
+     set from frame 26 on;
   5. the breakdown: 4 more frames through the same FullSystem under
      torch.profiler (the card's busy share and its top device ops);
   5a. the [prewarm] phase on that FullSystem: every tensor of the window,
@@ -68,11 +71,11 @@ In order, failing (exit code != 0, no result line) at the first fault:
      VIO, 640x480, 44 frames at 10 Hz on a bounded sinusoidal trajectory,
      200 Hz IMU, right camera at a 0.11 m baseline,
      default_settings(weight_imu_dso=6, scale_opt_thres=12, min_g_imu=10))
-     through the port's FullSystem in the graph form (the frame step and
-     the VIO keyframe chain as CUDA graphs), every launch counter from 0:
+     through the port's FullSystem in the graph form (the fused VIO frame
+     as CUDA graphs), every launch counter from 0:
      gated on initialized, not lost, the IMU initialized, the stereo scale
-     trapped, the fused VIO chain run and replayed as a graph (eager only
-     for a classic, budget, export or rung keyframe), the VIO prior finite
+     trapped, the fused VIO chain run inside the graphs (eager only for a
+     classic keyframe), the VIO prior finite
      after the run, the stereo scale after every keyframe from frame 35 on
      within 1% of the first one's, the scaled trajectory's metric ATE (no
      alignment) <= 0.15 * path + 0.03, K1-K4 each launched, K1 once per
@@ -80,12 +83,14 @@ In order, failing (exit code != 0, no result line) at the first fault:
      step 4) and K2 once per template; it prints the keyframe count,
      ATE, scale, steady fps over frames 30-43 (as bench.py measures it),
      the median of the frames that dispatch a keyframe chain (the frames
-     that captured a chain graph named apart), the chain graphs' replays,
-     capture ms, pool bytes and launches (the capture warm-ups' apart),
-     and a VIO chain replay's device ms whole, with the GN steps and the
-     frame marginalizations it ran, and by stage (each stage captured
-     alone: the scale solve's branch and each branch alone against the
-     eager solve's wall ms, and the eager solve's LM trips by level);
+     that captured a rung's graph named apart), the graphs' replays,
+     the keyframe chains in them, capture ms, pool bytes and launches
+     (the capture warm-ups' apart), and on the last fused keyframe's
+     inputs the VIO chain captured alone (a ChainGraph): a replay's
+     device ms whole, with the GN steps and the frame marginalizations it
+     ran, and by stage (each stage captured alone: the scale solve's
+     branch and each branch alone against the eager solve's wall ms, and
+     the eager solve's LM trips by level);
      then the eager form (cuda_graphs=False), gated at K1-K4 launches
      FLAG_EAGER_LAUNCHES and the graph form's at those plus its capture
      warm-ups', bit for bit the graph run and a finite
@@ -105,7 +110,9 @@ In order, failing (exit code != 0, no result line) at the first fault:
      the keyframe chain's stages timed, for the cost of the working VIO
      BA; and 2 more frames under torch.profiler;
   6a. the [pipeline] phase: the mono scene at depth 0 (synchronous) and
-     depth 3 in turns (the order alternating), twice each, every
+     depth 3 in turns (the order alternating; prewarm() at frame 26 as
+     in step 4, so that no rung's graph is captured in the fps window),
+     three times each, every
      run bit for bit the pipelined slice of step 4, with its steady fps,
      its host stage timers, the frames dispatched again after a rung
      change and the card's busy share under the profiler; the flagship
@@ -114,29 +121,36 @@ In order, failing (exit code != 0, no result line) at the first fault:
      and 3, each drained, bit for bit on the trajectories, the window and
      the VIO prior; the most frames seen in flight (at least 2);
   6a'. the [graph] phase: the mono scene in the eager form
-     (cuda_graphs=False) and the graph form (one graph a frame, the
-     retry and the tracker's loops as conditional nodes) in turns (the
-     order alternating), three times each, every run bit for bit the mono
-     slice of step 4, with its steady fps, its median frame with and
-     without a keyframe chain, the card's busy share, device ms and device
-     ops a frame under the profiler, K1-K4 launches (the graph form's
-     gated at the eager form's plus its capture warm-ups'), and for the
-     graph form the capture ms, the graph pool's bytes, the replays, the
-     retries (inside the graph; no frame stepped eagerly, gated) and the
-     LM iterations (mean and most) of the primary track by level; one
-     more run of each form counting the synchronising calls of each frame
-     (torch.cuda.set_sync_debug_mode): at most 1 in a steady frame that
-     dispatches no keyframe chain and at most 2 in one that replays the
-     keyframe chain in the graph form (gated), the eager form's beside
-     them; the frame graph's replay on one steady frame's inputs (device
-     ms) and the eager primary track (wall ms); the flagship in both
-     forms (fps over frames 30-35, the first keyframe from frame 31 on
-     handed an untrapped scale state, its chain replayed in the graph
-     form, gated; then frames 36-43 counting the synchronising calls: at
-     most 2 in a frame that replays the VIO chain's graphs, gated, the
-     eager form's beside it), bit for bit on the trajectories, the
-     window, the immature pool, the IMU state, the scale and the gyro
-     bias;
+     (cuda_graphs=False) and the graph form (one fused frame graph a
+     rung: the step, the decision and the keyframe chain, the retry, the
+     tracker's loops, the chain under need_kf and the BA's loop as
+     conditional nodes) in turns (the order alternating; prewarm() at
+     frame 26 as in step 4, its launches and its captures' warm-ups taken
+     off), three times each, every run bit for bit the mono slice of
+     step 4, with its
+     steady fps, its median frame with and without a keyframe chain, the
+     card's busy share, device ms and device ops a frame under the
+     profiler, K1-K4 launches (the graph form's gated at the eager form's
+     plus its capture warm-ups'), and for the graph form the capture ms,
+     the graph pool's bytes, the replays, the keyframe chains in them,
+     the eager chains by reason (only `classic`, gated), the retries
+     (inside the graph; no frame stepped eagerly, gated) and the LM
+     iterations (mean and most) of the primary track by level; one more
+     run of each form counting the synchronising calls of each frame's
+     dispatch apart from the completions in the same call
+     (torch.cuda.set_sync_debug_mode): 0 in the dispatch of every frame
+     of the graph form, keyframe or not (gated; a frame dispatched again
+     or capturing a graph left out), the eager form's beside them; on
+     one steady frame's inputs the fused graph's replay, the frame step's
+     own graph, the record's clones and a copy-in (device ms) and the
+     eager primary track (wall ms); the flagship in both forms (fps over
+     frames 30-35, frame 31's dispatch handed an untrapped scale state,
+     which the next keyframe's chain solves from the multi-guess start,
+     replayed in the graph form, gated; then frames 36-43 counting the
+     synchronising calls: 0 in the dispatch of a VIO frame, keyframe or
+     not, gated, the eager form's beside it), bit for bit on the
+     trajectories, the window, the immature pool, the IMU state, the
+     scale and the gyro bias;
   6a''. the [control] phase: scripts/torch_graph_probe.py's cases of the
      conditional nodes (IF, IF/else, nested IF, WHILE of no trip, three
      trips and to its cap, the counters' credit) bit for bit their eager
@@ -148,7 +162,9 @@ In order, failing (exit code != 0, no result line) at the first fault:
      errors propagate), every launch counter from 0: gated on the
      flagship phase's keyframes (loop closure changes no odometry
      result, and `none` rectification hands the frames on unchanged),
-     one handler record per marginalized keyframe,
+     no keyframe chain run eagerly but the classic ones (the export
+     keyframes replay: `export` 0, gated), one handler record per
+     marginalized keyframe,
      an odometry edge with a finite dso_error between each consecutive
      pair, at least one scan, poses.txt rows whose metric ATE passes the
      flagship gate, and K1-K4 launched (`launches_node`), and the loop
@@ -271,8 +287,10 @@ GRAPH_PAIRS = 3   # the [graph] phase: eager and graph form in turns
 MONO_EAGER_LAUNCHES = [73, 22, 133, 88]
 # the flagship's K1-K4 launches in the eager form (cuda_graphs=False)
 FLAG_EAGER_LAUNCHES = [65, 10, 64, 40]
-# the reasons a flagship keyframe chain may run eagerly in the graph form
-FLAG_EAGER_REASONS = {"classic", "budget", "export", "rung"}
+# the reasons a keyframe chain may run eagerly in the graph form: the
+# classic keyframes (the bootstrap's, those after a refused frame); the
+# bootstrap budgets and the export keyframes replay
+FUSED_EAGER_REASONS = {"classic"}
 JAX_FLAGSHIP = "JAX package on the same scene: 11 keyframes in 44 frames " \
                "(BENCH_r05.json, a TPU v5e run; history, not asserted)"
 # the loop phase: the flagship scene through SlamNode at this LiDAR range,
@@ -357,6 +375,9 @@ class StageTimer:
         setattr(owner, name, self)
 
     def __call__(self, *args, **kw):
+        if self.torch.cuda.is_current_stream_capturing():
+            # a call captured into a graph: a synchronize would break it
+            return self.orig(*args, **kw)
         self.torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = self.orig(*args, **kw)
@@ -700,10 +721,10 @@ def kernel_counters():
 
 
 def chain_replays(fs) -> int:
-    """The replays of the keyframe chain's graphs (models/chain_graph.py)
-    so far."""
-    g = fs.chain_graph
-    return 0 if g is None else sum(g.replays[k] for k in g.graphs)
+    """The keyframes whose chain ran inside a replay of the fused frame
+    graph (models/fused_graph.py) so far, counted at their completion."""
+    g = fs.fused_graph
+    return 0 if g is None else sum(g.chains.values())
 
 
 def busy_window(torch, fs, feed, first, n, exact=False):
@@ -724,11 +745,13 @@ def busy_window(torch, fs, feed, first, n, exact=False):
     (control.PROFILED). Without graphs (the eager form), and with them
     where `exact` (the first window of the graph form in this process),
     the profiler must see exactly that many kernels of each name, or this
-    raises. Later windows of the graph form raise only where a counted
-    kernel is not seen at all: a process that has made many conditional
-    nodes gets records of their bodies' kernels lost, and some added
-    (`[control]`'s profiler view logs it), which the same frames in a
-    fresh process do not show."""
+    raises. Later windows of the graph form raise only where the profiler
+    sees fewer kernels of a name than were counted outside conditional
+    nodes: a process that has made many conditional nodes gets records of
+    their bodies' kernels lost, and some added (`[control]`'s profiler
+    view logs it), which the same frames in a fresh process do not show;
+    since the keyframe chain runs inside the need_kf IF node, a window's
+    K2-K4 may all lie in bodies."""
     from sos_slam_tpu_torch.ops import control
     counters = kernel_counters()
     # the runs made before the window are credited before it
@@ -749,7 +772,7 @@ def busy_window(torch, fs, feed, first, n, exact=False):
     dev_ms = sum(e.self_device_time_total for e in ev) / 1e3 / n
     replays = frame_replays(fs) - replays
     chains = chain_replays(fs) - chains
-    graphs = fs.frame_graph is not None or fs.chain_graph is not None
+    graphs = fs.fused_graph is not None
     seen, held = {}, {}
     for (name, fn, kernel), b in zip(counters, before):
         seen[name] = sum(e.count for e in ev if kernel in e.key)
@@ -759,15 +782,15 @@ def busy_window(torch, fs, feed, first, n, exact=False):
             - shown.get(name, 0)
         held[name] = (seen[name], counted, inside, rule)
         if (seen[name] != rule) if (exact or not graphs) else (
-                counted and not seen[name]):
+                seen[name] < counted - inside):
             raise AssertionError(
                 f"frames {first}-{first + n - 1}: the profiler saw "
                 f"{seen[name]} {name} launches ({kernel}), the launch "
                 f"counter counted {counted}, {inside} of them inside "
                 f"conditional nodes, of which the profiler shows "
                 f"{rule - counted + inside} by control.PROFILED's rule "
-                f"({replays} replays of the frame graph, {chains} of the "
-                f"keyframe chain's graphs)")
+                f"({replays} replays of the fused frame graph, {chains} "
+                f"keyframe chains in them)")
     return wall, dev_ms, sum(e.count for e in ev) / n, ev, (
         seen.pop("K1"), replays, seen, chains, held)
 
@@ -784,8 +807,8 @@ def profile_frames(torch, fs, feed, first, n, tag="profile", exact=False):
         f"keyframes), profiler on: wall {wall:.1f} ms/frame, device "
         f"{dev_ms:.2f} ms/frame, card busy {100 * dev_ms / wall:.1f}%, "
         f"{ops:.0f} device ops/frame; K1 kernels the profiler saw {k1[0]} "
-        f"(replays of the frame graph {k1[1]}), K2-K4 {k1[2]} (replays of the "
-        f"keyframe chain's graphs {k1[3]}); (seen, counted, counted inside "
+        f"(replays of the fused frame graph {k1[1]}), K2-K4 {k1[2]} ("
+        f"keyframe chains in the replays {k1[3]}); (seen, counted, inside "
         f"conditional nodes, shown by control.PROFILED's rule) by kernel "
         f"{k1[4]}" + ("; held exactly" if exact else ""))
     top = sorted(ev, key=lambda e: -e.self_device_time_total)[:8]
@@ -960,8 +983,8 @@ def capture(torch, calib, settings, imgs, dev, k2_entry="template_levels"):
                 k4=Recorder(BP, "act_pass", 8))
     fs = FullSystem(calib, settings, device=dev)
     # the recorders keep eager calls' inputs: a call captured into the
-    # keyframe chain's graph holds the graph's own buffers
-    fs.chain_graph = None
+    # fused frame graph holds the graph's own buffers
+    fs.fused_graph = None
     n_pre = 0
     while n_pre < N_FRAMES and "rz" not in recs["k3"].last_of:
         fs.add_active_frame(imgs[n_pre], timestamp=n_pre * 0.05,
@@ -1379,10 +1402,12 @@ def captured_ms(torch, fn):
     return replay_ms(torch, g.replay, n=5)
 
 
-def vio_stages(torch, card, fs):
+def vio_stages(torch, card, fs, dispatches):
     """A VIO keyframe chain replay's device ms, whole and by stage, on the
-    inputs of the run's last chain (the chain graph's static buffers),
-    with the GN steps and the frame marginalizations that replay ran
+    inputs of the run's last fused keyframe (its dispatch's arguments in
+    `dispatches`, a `Dispatches`: the fused frame graph's body up to the
+    chain run on them, then the chain alone captured as a ChainGraph of
+    models/chain_graph.py), with the GN steps and the frame marginalizations that replay ran
     (the conditional nodes leave the BA at its break and skip the folds
     of padded slots): each stage captured alone into a graph and replayed
     under a pair of CUDA events: `vio_head` (flags, insertion, IMU
@@ -1402,8 +1427,19 @@ def vio_stages(torch, card, fs):
     from sos_slam_tpu_torch.ops.image import build_pyramid
     from sos_slam_tpu_torch.ops.numerics import live_pinv
     tag = f"[flagship VIO chain stages] ({card})"
-    cg = fs.chain_graph
-    pot = max(cg.graphs, key=lambda k: cg.replays[k])
+    g = fs.fused_graph
+    last = max(i for i in fs.kf_shell_ids if i in dispatches.by_id)
+    (st, inp, prev, _, img, exposure, key, right, shell_idx, block, pot,
+     _) = dispatches.by_id[last]
+    g._load(st, inp, prev)
+    g._stage(img, exposure, key, right, shell_idx, block)
+    c = g._head()
+    g.last = None            # the buffers hold no record's state now
+    cg = CG.ChainGraph(fs)
+    cg.prepare(c["st"], c["imm"], c["pyr"], c["T_cw_new"], c["aff_new"],
+               c["exposure"], c["stats"], c["host_out"], c["n_kf"], key,
+               c["kf"])
+    cg.capture(pot)
     i, s = cg.inp, fs.settings
     kf = dict(right=i["right"], have_right=i["have_right"],
               scale_state=i["scale_state"], staged=i["staged"],
@@ -1443,7 +1479,8 @@ def vio_stages(torch, card, fs):
     got = {k: captured_ms(torch, fn) for k, fn in ms.items()}
     eager = median([wall_ms(torch, lambda: fs._scale_solve(
         tmpl, kf, False)) for _ in range(5)])
-    log(f"{tag} rung {pot}: a replay {whole:.3f} ms of device work, with "
+    log(f"{tag} keyframe {last}, rung {pot}: a replay of the chain "
+        f"alone {whole:.3f} ms of device work, with "
         f"{n_its} GN steps and {folds} of {CG.MAX_MARG_FRAMES} frame "
         f"marginalizations run (the rest skipped by their nodes), the "
         f"scale {'trapped' if trapped else 'untrapped'}; each stage in a "
@@ -1512,6 +1549,7 @@ def flagship(torch, dev, card, kernels):
     zero_launches(wrappers)
     fs = FSM.FullSystem(calib, settings, stereo=stereo, device=dev)
     warm, rep0 = WarmUps(fs), replay_launched(fs)
+    dispatches = Dispatches(fs)
     kf_scale = {}       # the stereo scale after each fused keyframe
     finish_kf = fs._finish_kf
 
@@ -1520,7 +1558,7 @@ def flagship(torch, dev, card, kernels):
         kf_scale[rec["shell"].id] = fs.current_scale
 
     fs._finish_kf = scale_of
-    cg = fs.chain_graph
+    cg = fs.fused_graph
     frame_ms, t_steady, captured_at = [], None, []
     for i in range(FLAG_FRAMES):
         if i == FLAG_WARMUP:
@@ -1558,7 +1596,7 @@ def flagship(torch, dev, card, kernels):
     kf_ms = [frame_ms[i] for i in fs.kf_shell_ids
              if i >= FLAG_WARMUP and i not in captured_at]
     log(f"{tag} {W}x{H} {FLAG_FRAMES} frames, stereo + VIO on {card}, the "
-        f"graph form (frame step and VIO keyframe chain): n_kf "
+        f"graph form (one fused frame graph a rung): n_kf "
         f"{n_kf}, metric ATE of the scaled trajectory (no alignment) "
         f"{ate:.4f} m over {path:.3f} m, stereo scale {fs.current_scale:.4f}"
         f", IMU scale {float(fs.imu.scale) * IM.SCALE_SCALE:.4f}, steady fps "
@@ -1566,25 +1604,26 @@ def flagship(torch, dev, card, kernels):
         f"s), frames dispatching a keyframe chain: median "
         f"{median(kf_ms):.1f} ms ({len(kf_ms)} in the window, none that "
         f"captured), the other frames: median {median(nonkf):.1f} ms, first "
-        f"frame {frame_ms[0]:.0f} ms; frames that captured a chain graph: "
+        f"frame {frame_ms[0]:.0f} ms; frames that captured a rung's graph: "
         + (", ".join(f"{i} ({frame_ms[i]:.1f} ms)" for i in captured_at)
            or "none"))
     log(f"{tag} reference: {JAX_FLAGSHIP}")
-    log(f"{tag} the VIO keyframe chain's graphs: replays "
-        f"{dict(cg.replays)}, eager chains by reason {dict(cg.eager)}, "
+    log(f"{tag} the fused VIO frame's graphs: replays (frames by rung) "
+        f"{dict(cg.replays)}, keyframe chains in them "
+        f"{dict(cg.chains)}, eager chains by reason {dict(cg.eager)} "
+        f"(budget {cg.eager['budget']}, export {cg.eager['export']}), "
         f"capture ms " + ", ".join(f"rung {k}: {v:.1f}"
                                    for k, v in cg.capture_ms.items())
-        + f", the VIO chain graphs' pool {cg.pool_bytes} bytes (its own: "
-        f"apart from this system's frame graphs' {fs.frame_graph.pool_bytes}"
-        f" and the mono slice's pools), launches K1-K4 {counts} of which "
+        + f", the graphs' pool {cg.pool_bytes} bytes, the state copied in "
+        f"{cg.copy_ins} times, launches K1-K4 {counts} of which "
         f"the capture warm-ups' {warm.n}, a replay's outside its "
         f"conditional nodes {dict((k, v) for k, v in cg.per_replay.items())}"
         f"; GN steps a "
         f"keyframe (n_its), keyframes by count "
         f"{dict(sorted(fs.kf_n_its.items()))}")
-    if chain_replays(fs) == 0 or not set(cg.eager) <= FLAG_EAGER_REASONS:
+    if chain_replays(fs) == 0 or not set(cg.eager) <= FUSED_EAGER_REASONS:
         raise AssertionError(
-            f"flagship: the VIO chain replayed {dict(cg.replays)} graphs, "
+            f"flagship: the VIO chain ran in {dict(cg.chains)} replays, "
             f"eager chains by reason {dict(cg.eager)}")
     log(f"{tag} the VIO prior after the run is "
         + ("finite" if bool(torch.isfinite(fs.imu.HM).all()) else "NaN")
@@ -1639,7 +1678,9 @@ def flagship(torch, dev, card, kernels):
     for k, c in zip(kernels, counts):
         k["launches_flagship"] = c
     del recs, pyr_l, pyr_i, tmpl, pyr_f
-    vio_stages(torch, card, fs)
+    dispatches.restore()
+    vio_stages(torch, card, fs, dispatches)
+    del dispatches
     phase_done("flagship run and checks")
 
     # the eager form (cuda_graphs=False): its launches gated, the K3 calls
@@ -1787,6 +1828,9 @@ def pipeline_phase(torch, dev, card, mono, flag):
 
             for i in range(WARMUP):
                 feed(i)
+            # as bench.py and the slice do: the rungs' graphs captured
+            # before the window
+            fs.prewarm()
             torch.cuda.synchronize()
             timers = fs.telemetry.timers
             at = {k: len(timers[k]) for k in names}
@@ -2062,6 +2106,15 @@ def loop_phase(torch, dev, card, kernels, flag):
     for name, c in zip(("K1", "K2", "K3", "K4"), counts):
         if c <= 0:
             raise AssertionError(f"{name} was not launched on the node path")
+    g = fs.fused_graph
+    log(f"{tag} (a) the node's fused frame graphs (an export consumer "
+        f"attached: the dying keyframes' energy columns and points ride "
+        f"the readback): keyframe chains in replays {dict(g.chains)}, "
+        f"eager chains by reason {dict(g.eager)} (budget "
+        f"{g.eager['budget']}, export {g.eager['export']})")
+    if chain_replays(fs) == 0 or not set(g.eager) <= FUSED_EAGER_REASONS:
+        raise AssertionError(f"the node ran keyframe chains eagerly: "
+                             f"{dict(g.eager)}")
     for k, c in zip(kernels, counts):
         k["launches_node"] = c
     phase_done("[loop] (a) node run")
@@ -2429,40 +2482,39 @@ def zero_launches(wrappers):
 
 
 def frame_replays(fs) -> int:
-    """The replays of the frame step's graph (models/frame_graph.py)."""
-    return 0 if fs.frame_graph is None else fs.frame_graph.replays
+    """The replays of the fused frame graph (models/fused_graph.py)."""
+    return 0 if fs.fused_graph is None else fs.fused_graph.frame.replays
 
 
 def replay_launched(fs) -> dict:
     """{K1, K2}: the launches of graph replays without a Python call: the
-    frame graph's and the keyframe chain's replays times the launches
-    captured outside their conditional nodes, plus what `control` credited
+    fused frame graph's replays times the launches captured outside its
+    conditional nodes (the frame's pyramid), plus what `control` credited
     from the nodes' runs (every system's: take differences)."""
     from sos_slam_tpu_torch.ops import control
-    fg, cg = fs.frame_graph, fs.chain_graph
+    g = fs.fused_graph
     out = {}
     for c in ("K1", "K2"):
         n = control.CREDITED[c]
-        if fg is not None:
-            n += fg.replays * fg.per_replay.get(c, 0)
-        if cg is not None:
-            n += sum(k * cg.per_replay[p][c] for p, k in cg.replays.items()
-                     if p in cg.per_replay)
+        if g is not None:
+            n += sum(k * g.per_replay[p][c] for p, k in g.replays.items()
+                     if p in g.per_replay)
         out[c] = n
     return out
 
 
 class WarmUps:
     """The K1-K4 launches of the capture warm-ups of one FullSystem's
-    graphs (its FrameGraph's and ChainGraph's `capture`): a warm-up runs
-    the bodies' plain twins (every loop to its bound, every branch) and
-    its launches count; the capture after it launches nothing."""
+    fused frame graphs (`FusedFrameGraph.capture`): a warm-up runs the
+    body's plain twins (every loop to its bound, every branch, the chain
+    too) and its launches count; the capture after it launches
+    nothing."""
 
     def __init__(self, fs):
         self.n = [0, 0, 0, 0]
-        for g in (fs.frame_graph, fs.chain_graph):
-            if g is not None:
-                g.capture = self._wrap(g.capture)
+        g = fs.fused_graph
+        if g is not None:
+            g.capture = self._wrap(g.capture)
 
     def _wrap(self, capture):
         counters = kernel_counters()
@@ -2503,14 +2555,14 @@ def timed_prewarm(torch, fs, wrappers, callers=()):
         w_.launches -= n
     for r, (n, c) in zip(callers, calls):
         r.n_calls, r.n_captured = n, c
-    g = fs.chain_graph
+    g = fs.fused_graph
     return dict(ms=ms, launches=launched, tracks=track.ms[:2],
                 dispatch=dispatch.ms,
                 replayed={c: n - replayed[c]
                           for c, n in replay_launched(fs).items()},
                 runs=control.CREDITED["runs"] - runs,
                 setters=control.setter_launches(fs.device) - setters,
-                chain_capture_ms=dict(g.capture_ms) if g else {})
+                capture_ms=dict(g.capture_ms) if g else {})
 
 
 def prewarm_state(fs) -> dict:
@@ -2559,37 +2611,123 @@ def prewarm_phase(torch, card, fs, first, wrappers):
 
 def synced_frames(torch, fs, feed, frames):
     """Feed `frames` with torch.cuda.set_sync_debug_mode("warn") and count
-    the synchronising calls of each add_active_frame call; returns {frame:
-    (count, whether the call dispatched frames again after a rung change,
-    the calls by file:line, whether it replayed the keyframe chain's
-    graphs once with no retry of the frame step and no graph
-    captured)}."""
+    the synchronising calls of each add_active_frame call apart: those of
+    the frame's own dispatch (`_dispatch_fused`), those of the completions
+    the call made (`_complete_fused`: the readback's fetch and the host's
+    bookkeeping) and the rest. Returns {frame: dict(dispatch, where (the
+    dispatch's calls by file:line), complete, other, redo (frames
+    dispatched again after a rung change), captured (a graph captured in
+    the call))}; a frame with no fused dispatch (the classic bootstrap)
+    is left out."""
     import warnings
     out = {}
     redo = fs.telemetry.timers["redispatch"]
-    fg, cg = fs.frame_graph, fs.chain_graph
+    g = fs.fused_graph
+    dispatch, complete = fs._dispatch_fused, fs._complete_fused
+    saved = {k: fs.__dict__.get(k) for k in ("_dispatch_fused",
+                                             "_complete_fused")}
+    box, cur = [[]], {}
 
-    def marks():
-        return (chain_replays(fs), fg.retries if fg else 0,
-                len(cg.capture_ms) if cg else 0)
+    def syncs():
+        return [w for w in box[0] if "synchroniz" in str(w.message)]
 
+    def dispatched(img, shell, *a, **kw):
+        n0 = len(syncs())
+        rec = dispatch(img, shell, *a, **kw)
+        new = syncs()[n0:]
+        if shell.id == cur["i"] and "dispatch" not in cur:
+            cur["dispatch"] = new
+        return rec
+
+    def completed(rec):
+        n0 = len(syncs())
+        try:
+            return complete(rec)
+        finally:
+            cur["complete"] = cur.get("complete", 0) + len(syncs()) - n0
+
+    fs._dispatch_fused, fs._complete_fused = dispatched, completed
     torch.cuda.set_sync_debug_mode("warn")
     try:
         for i in frames:
+            cur.clear()
+            cur["i"] = i
             n_redo = len(redo)
-            m0 = marks()
+            n_cap = len(g.capture_ms) if g is not None else 0
             with warnings.catch_warnings(record=True) as got:
                 warnings.simplefilter("always")
+                box[0] = got
                 feed(i)
-            m1 = marks()
-            syncs = [w for w in got if "synchroniz" in str(w.message)]
-            out[i] = (len(syncs), len(redo) > n_redo,
-                      [f"{w.filename.split('/')[-1]}:{w.lineno}"
-                       for w in syncs],
-                      m1[0] == m0[0] + 1 and m1[1:] == m0[1:])
+            if "dispatch" not in cur:
+                continue
+            d = cur["dispatch"]
+            out[i] = dict(
+                dispatch=len(d), complete=cur.get("complete", 0),
+                other=len(syncs()) - len(d) - cur.get("complete", 0),
+                where=[f"{w.filename.split('/')[-1]}:{w.lineno}" for w in d],
+                redo=len(redo) > n_redo,
+                captured=g is not None and len(g.capture_ms) > n_cap)
     finally:
         torch.cuda.set_sync_debug_mode("default")
+        for k, v in saved.items():     # the methods as they were
+            if v is None:
+                delattr(fs, k)
+            else:
+                setattr(fs, k, v)
     return out
+
+
+def sync_gate(tag, what, got_g, got_e, kf_ids):
+    """Log the synchronising calls of the graph form's and the eager
+    form's frames (`synced_frames`), split into frames that made a
+    keyframe and frames that did not, and raise where a graph-form
+    dispatch (not dispatched again, no capture) synchronised at all."""
+    clean = sorted(i for i, v in got_g.items()
+                   if not (v["redo"] or v["captured"]))
+    for name, frames in (("made a keyframe", [i for i in clean
+                                              if i in kf_ids]),
+                         ("made no keyframe", [i for i in clean
+                                               if i not in kf_ids])):
+        log(f"{tag} {what}: synchronising calls of the frames that "
+            f"{name}, frames {frames}: graph form dispatch "
+            + ", ".join(str(got_g[i]["dispatch"]) for i in frames)
+            + ", completions in the same call "
+            + ", ".join(str(got_g[i]["complete"]) for i in frames)
+            + "; eager form dispatch "
+            + ", ".join(str(got_e[i]["dispatch"]) if i in got_e else "-"
+                        for i in frames)
+            + (f"; the eager dispatch's calls, frame {frames[-1]}: "
+               f"{got_e[frames[-1]]['where']}" if frames
+               and frames[-1] in got_e else ""))
+        if not frames:
+            raise AssertionError(f"{what}: no clean frame that {name}")
+    bad = {i: got_g[i]["where"] for i in clean if got_g[i]["dispatch"]}
+    if bad:
+        raise AssertionError(f"{what}: the graph form's dispatch "
+                             f"synchronised: {bad}")
+
+
+class Dispatches:
+    """The arguments of every dispatch of one FullSystem's fused frame
+    graph (`FusedFrameGraph.dispatch`), by frame id (the latest where a
+    frame went again), without the dispatch source: a record kept alive
+    would keep its pinned readback, and each frame would then allocate
+    pinned memory anew (which waits for the card)."""
+
+    def __init__(self, fs):
+        self.by_id = {}
+        g = fs.fused_graph
+        run = g.dispatch
+        shells = fs.shells
+
+        def recorded(*a):
+            self.by_id[shells[a[8]].id] = a[:3] + (None,) + a[4:]
+            return run(*a)
+        g.dispatch = recorded
+        self.g = g
+
+    def restore(self):
+        del self.g.dispatch
 
 
 def replay_ms(torch, fn, n=20):
@@ -2606,33 +2744,61 @@ def replay_ms(torch, fn, n=20):
 
 
 def graph_forms(torch, fs, args):
-    """The frame step on one steady frame's inputs (`args` of
-    FrameGraph.step): the frame graph's replay (the pyramid, the primary
-    track with its loops as WHILE nodes, the retry's IF node skipped, the
-    trace and the decisions), device ms a replay; and the eager
-    early-exit primary track alone, wall ms a call (it reads the host
-    every trip). Returns (replay ms, eager track ms)."""
+    """One steady frame without keyframe (`args`: its
+    FusedFrameGraph.dispatch arguments), device ms: the copy-in of its
+    source record's state and inputs (`_load` and the host inputs'
+    staging), the fused frame graph's replay after it (the chain's IF
+    node takes its else body: the pool copied, the readback's zeros),
+    the record's clones of the state, the pyramid and the next inputs,
+    and the frame step's graph alone (a FrameGraph captured on the same
+    inputs); the eager early-exit primary track alone, wall ms a call
+    (it reads the host every trip). Returns a dict of them."""
+    from sos_slam_tpu_torch.models import frame_graph as FG
+    from sos_slam_tpu_torch.ops import control
     from sos_slam_tpu_torch.ops import tracker as TK
-    g = fs.frame_graph
-    g.step(*args)
-    replay = replay_ms(torch, g.graph.replay)
-    s, i = fs.settings, g.inp
+    g = fs.fused_graph
+    (st, inp, prev, _, img, exposure, key, right, shell_idx, block, pot,
+     _) = args
+
+    def load():
+        g._load(st, inp, prev)
+        g._stage(img, exposure, key, right, shell_idx, block)
+
+    def replay():
+        load()
+        g.graphs[pot].replay()
+
+    got = dict(load=replay_ms(torch, load), both=replay_ms(torch, replay),
+               clones=replay_ms(torch, lambda: control.clone(
+                   (g.outs[pot]["pyr"], g.state, dict(g.frame.inp),
+                    g.chained))))
+    need = bool(g.outs[pot]["need"])
+    g.last = None            # the buffers hold no record's state now
+    fg = FG.FrameGraph(fs)
+    fg.step(st, img, inp["T_primary"], inp["T_hyps"], inp, exposure)
+    got["step"] = replay_ms(torch, fg.graph.replay)
+    s, i = fs.settings, fg.inp
 
     def eager():
         TK.track_newest_coarse(
-            g.a["pyr"], g.templates, i["T_primary"][None], i["aff"],
-            i["ref_aff"], g.a["exposures"],
+            fg.a["pyr"], fg.templates, i["T_primary"][None], i["aff"],
+            i["ref_aff"], fg.a["exposures"],
             torch.full((6,), float("nan"), device=fs.device), fs._intr,
             fs.n_levels, coarse_cutoff_th=s.coarse_cutoff_th,
             huber=s.huber_th)
 
-    return replay, median([wall_ms(torch, eager) for _ in range(5)])
+    got["track"] = median([wall_ms(torch, eager) for _ in range(5)])
+    got["replay"] = got["both"] - got["load"]
+    if need:
+        raise AssertionError("graph_forms: the frame made a keyframe")
+    return got
 
 
 def graph_phase(torch, dev, card, mono, flag):
-    """Phase [graph]: the frame step's CUDA graph (models/frame_graph.py:
-    one graph, the retry and the tracker's loops as conditional nodes)
-    against its eager dispatch (cuda_graphs=False). The mono scene's 48
+    """Phase [graph]: the fused frame's CUDA graphs (models/fused_graph.py:
+    one graph a rung, the retry, the tracker's loops, the keyframe chain
+    under need_kf and the BA's loop as conditional nodes) against the
+    eager dispatch (cuda_graphs=False). The mono scene's 48
     frames in both forms, in turns, GRAPH_PAIRS times each (the order
     alternating), every run bit for bit the mono slice (keyframes,
     trajectory, the whole window); each prints its steady fps (frames
@@ -2640,21 +2806,21 @@ def graph_phase(torch, dev, card, mono, flag):
     keyframe chain, the card's busy share, device ms and device ops a
     frame under the profiler over the rest (with K1's launches there, seen
     by the profiler against the counter: `busy_window`), and for the graph
-    form the capture ms, the graph pool's bytes, the replays, the retries
-    (run inside the graph: the eager step is never called, gated) and the
-    LM iterations of the primary track a frame by level; and the keyframe
-    chain's graphs (models/chain_graph.py): K1-K4 launches of each run
-    (the eager form's gated at MONO_EAGER_LAUNCHES, the graph form's at
-    the eager form's plus its capture warm-ups), replays, eager chains by
-    reason, capture ms, pool bytes, GN steps a keyframe, the selection
-    keys' host ms; the K2-K4 kernels the profiler sees held to the
-    counters. Then one more run of each form counting the synchronising
-    calls of every frame (a steady frame that dispatches no keyframe
-    chain: at most 1 in the graph form, gated; a frame that replays the
-    keyframe chain's graphs: at most 2, gated; each call named), the frame
-    graph's replay and the eager primary track on one steady frame
-    (`graph_forms`), and the flagship's frames in both forms, bit for
-    bit, one keyframe forced untrapped (`graph_flagship`)."""
+    form the capture ms, the graph pool's bytes, the replays, the keyframe
+    chains in them, the eager chains by reason (only `classic`, gated),
+    the retries (run inside the graph: the eager step is never called,
+    gated) and the LM iterations of the primary track a frame by level;
+    K1-K4 launches of each run (the eager form's gated at
+    MONO_EAGER_LAUNCHES, the graph form's at the eager form's plus its
+    capture warm-ups), GN steps a keyframe, the selection keys' host ms;
+    the K2-K4 kernels the profiler sees held to the counters. Then one
+    more run of each form counting the synchronising calls of every
+    frame's dispatch apart from its completions (`synced_frames`: 0 in
+    every graph-form dispatch, keyframe or not, gated; each call named),
+    the fused graph's replay, its parts and the eager primary track on
+    one steady frame (`graph_forms`), and the flagship's frames in both
+    forms, bit for bit, one frame handed an untrapped scale
+    (`graph_flagship`)."""
     from sos_slam_tpu_torch.models import full_system as FSM
     from sos_slam_tpu_torch.ops import control
     from sos_slam_tpu_torch.utils.config import default_settings
@@ -2674,6 +2840,7 @@ def graph_phase(torch, dev, card, mono, flag):
         return fs, feed
 
     launched = {False: [], True: []}
+    again = {}          # frames dispatched again after a rung change
     counters = kernel_counters()
     for p in range(GRAPH_PAIRS):
         for graphs in ((False, True), (True, False))[p % 2]:
@@ -2686,6 +2853,12 @@ def graph_phase(torch, dev, card, mono, flag):
             before = [fn.launches for _, fn, _ in counters]
             frame_ms = []
             for i in range(PIPE_PROF_FROM):
+                if i == WARMUP:
+                    # as bench.py and the slice do, outside the frame
+                    # timers, its launches and its warm-ups' taken off
+                    warm0 = list(warm.n)
+                    timed_prewarm(torch, fs, [fn for _, fn, _ in counters])
+                    warm.n = warm0
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 feed(i)
@@ -2709,37 +2882,32 @@ def graph_phase(torch, dev, card, mono, flag):
             eager_steps.restore()
             del fs._frame_step          # the instance's method again
             extra = ""
-            g = fs.frame_graph
-            if g is not None:
+            cg = fs.fused_graph
+            if cg is not None:
+                g = cg.frame
                 it = (g.lm_iters[0].cpu().numpy() / max(g.replays, 1))
                 most = g.lm_iters_max[0].tolist()
-                extra = (f"; K1 kernels the profiler saw {k1[0]} in "
-                         f"{k1[1]} replays of the frame graph; "
-                         f"capture {g.capture_ms:.1f} ms, graph pool "
-                         f"{g.pool_bytes} bytes, replays {g.replays}, "
-                         f"retries (inside the graph) {g.retries}, eager "
-                         f"frame steps {eager_steps.n_calls}, the state "
-                         f"copied in {g.copy_ins}, the capture warm-ups' "
-                         f"launches K1-K4 {warm.n}, LM iterations of the "
+                extra = (f"; the fused frame graphs: K1 kernels the "
+                         f"profiler saw {k1[0]} in {k1[1]} replays; capture "
+                         "ms " + ", ".join(f"rung {k}: {v:.1f}" for k, v
+                                           in cg.capture_ms.items())
+                         + f", graph pool {cg.pool_bytes} bytes, replays "
+                         f"{dict(cg.replays)}, keyframe chains in them "
+                         f"{dict(cg.chains)}, eager chains by reason "
+                         f"{dict(cg.eager)} (budget {cg.eager['budget']}, "
+                         f"export {cg.eager['export']}), retries (inside "
+                         f"the graph) {g.retries}, eager frame steps "
+                         f"{eager_steps.n_calls}, the state copied in "
+                         f"{cg.copy_ins}, the capture warm-ups' launches "
+                         f"K1-K4 {warm.n}, K2-K4 kernels the profiler saw "
+                         f"{k1[2]} ((seen, counted, inside conditional "
+                         f"nodes, shown by control.PROFILED's rule) "
+                         f"{k1[4]}), the selection keys' host ms median "
+                         f"{median(cg.draw_ms):.3f}; LM iterations of the "
                          "primary track a frame by level (0 = finest), "
                          "mean / most: " + ", ".join(
                              f"{lv}: {v:.2f} / {m}" for lv, (v, m)
                              in enumerate(zip(it, most))))
-            cg = fs.chain_graph
-            if cg is not None:
-                extra += (
-                    f"; the keyframe chain's graphs: replays "
-                    f"{dict(cg.replays)}, eager chains by reason "
-                    f"{dict(cg.eager)}, capture ms "
-                    + ", ".join(f"rung {k}: {v:.1f}"
-                                for k, v in cg.capture_ms.items())
-                    + f", pool {cg.pool_bytes} bytes (apart from the "
-                    f"frame graphs'), K2-K4 kernels the profiler saw "
-                    f"{k1[2]} in {k1[3]} replays ((seen, counted, inside "
-                    f"conditional nodes, shown by control.PROFILED's rule) "
-                    f"{k1[4]}), the "
-                    f"selection keys' host ms median "
-                    f"{median(cg.draw_ms):.3f}")
             log(f"{tag} mono {W}x{H} {name[graphs]} form: steady fps "
                 f"{fps[graphs][-1]:.2f} (frames {WARMUP}-"
                 f"{PIPE_PROF_FROM - 1}), frames dispatching a keyframe "
@@ -2760,19 +2928,28 @@ def graph_phase(torch, dev, card, mono, flag):
                 raise AssertionError(
                     f"the eager form launched K1-K4 {launched[False][-1]} "
                     f"times, not {MONO_EAGER_LAUNCHES}")
-            plus = [e + w_ for e, w_ in zip(MONO_EAGER_LAUNCHES, warm.n)]
+            # a rung change dispatches again every frame in flight in the
+            # graph form, from the first keyframe among them on eagerly:
+            # each frame more is one pyramid more (no chain)
+            again[graphs] = len(fs.telemetry.timers["redispatch"])
+            more = again[True] - again[False] if graphs else 0
+            plus = [e + w_ + (more if c == 0 else 0) for c, (e, w_) in
+                    enumerate(zip(MONO_EAGER_LAUNCHES, warm.n))]
             if graphs and launched[True][-1] != plus:
                 raise AssertionError(
                     f"the graph form launched K1-K4 {launched[True][-1]} "
                     f"times, not the eager form's plus its capture "
-                    f"warm-ups' {plus}")
+                    f"warm-ups' and the {more} frames it dispatched again "
+                    f"more {plus}")
             if graphs and eager_steps.n_calls:
                 raise AssertionError(
                     f"the graph form stepped {eager_steps.n_calls} frames "
                     "eagerly (a retry or a track outside the graph)")
-            if graphs and (cg is None or chain_replays(fs) == 0):
-                raise AssertionError("the graph form replayed no keyframe "
-                                     "chain graph")
+            if graphs and (cg is None or chain_replays(fs) == 0
+                           or not set(cg.eager) <= FUSED_EAGER_REASONS):
+                raise AssertionError(
+                    "the graph form ran no keyframe chain in a replay, or "
+                    f"ran chains eagerly: {dict(cg.eager)}")
             if graphs:
                 n_its = fs.kf_n_its
             del fs, feed
@@ -2785,80 +2962,58 @@ def graph_phase(torch, dev, card, mono, flag):
         + ", ".join(f"{b / a:.3f}" for a, b in zip(fps[False], fps[True])))
     log(f"{tag} GN steps of the keyframe chain's BA (n_its) on the mono "
         f"scene, keyframes by count: {dict(sorted(n_its.items()))} (the "
-        f"graph form's bound: {default_settings().max_opt_iterations}, the "
-        "bootstrap's 20 and 15 eagerly)")
+        f"budget {default_settings().max_opt_iterations}, the bootstrap's "
+        "20 and 15, all in the graphs' WHILE node)")
     phase_done("[graph] mono pairs")
 
-    syncs, kf_syncs, last_args = {}, {}, None
+    syncs, forms = {}, None
     for graphs in (False, True):
         gc.collect()
         fs, feed = mono_fs(graphs)
-        if graphs:
-            step = fs.frame_graph.step
-
-            def recorded(*a):
-                nonlocal last_args
-                last_args = a
-                return step(*a)
-            fs.frame_graph.step = recorded
+        disp = Dispatches(fs) if graphs else None
         for i in range(WARMUP):
             feed(i)
-        got = synced_frames(torch, fs, feed, range(WARMUP, N_FRAMES))
+        syncs[graphs] = synced_frames(torch, fs, feed,
+                                      range(WARMUP, N_FRAMES))
         fs.finish_pending()
-        kf = set(fs.kf_shell_ids)
-        syncs[graphs] = {i: n for i, (n, redo, _, _) in got.items()
-                         if i not in kf and not redo}
-        kf_syncs[graphs] = got
+        kf_ids = set(fs.kf_shell_ids)
         if graphs:
-            chained = [i for i, (_, redo, _, clean) in got.items()
-                       if clean and not redo]
-        if graphs:
-            del fs.frame_graph.step
-            forms = graph_forms(torch, fs, last_args)
+            disp.restore()
+            steady = max(i for i, v in syncs[True].items()
+                         if i not in kf_ids and not v["redo"]
+                         and i in disp.by_id)
+            forms = graph_forms(torch, fs, disp.by_id[steady])
+            del disp
         del fs, feed
-    steady = sorted(syncs[True])
-    log(f"{tag} synchronising calls (torch.cuda.set_sync_debug_mode) of "
-        f"each add_active_frame call that dispatches no keyframe chain, "
-        f"frames {steady}: graph form "
-        + ", ".join(str(syncs[True][i]) for i in steady) + "; eager form "
-        + ", ".join(str(syncs[False].get(i, "-")) for i in steady))
-    if not steady or max(syncs[True].values()) > 1:
-        raise AssertionError(f"the graph form syncs more than once in a "
-                             f"steady frame: {syncs[True]}")
-    kg, ke = kf_syncs[True], kf_syncs[False]
-    log(f"{tag} synchronising calls of each add_active_frame call that "
-        f"replays the keyframe chain's graphs (no retry, no capture, no "
-        f"dispatch again), frames {chained}: graph form "
-        + ", ".join(str(kg[i][0]) for i in chained) + "; eager form "
-        + ", ".join(str(ke[i][0]) for i in chained)
-        + (f"; the calls, frame {chained[-1]}: graph form "
-           f"{kg[chained[-1]][2]}, eager form {ke[chained[-1]][2]}"
-           if chained else ""))
-    if not chained or max(kg[i][0] for i in chained) > 2:
-        raise AssertionError(
-            "the graph form syncs more than twice in a frame that replays "
-            "the keyframe chain: " + str({i: kg[i][2] for i in chained}))
-    log(f"{tag} one steady frame's inputs: the frame graph's replay "
-        f"{forms[0]:.3f} ms of device work (the retry skipped, the "
-        f"tracker's loops left on the device), the eager early-exit "
-        f"primary track alone {forms[1]:.3f} ms wall a call")
+    sync_gate(tag, "mono frames dispatched after frame "
+              f"{WARMUP - 1}", syncs[True], syncs[False], kf_ids)
+    log(f"{tag} one steady frame's inputs (frame {steady}), device ms: "
+        f"the fused frame graph's replay {forms['replay']:.4f} (the "
+        f"chain's IF node skipped to its else body), of which the frame "
+        f"step's own graph {forms['step']:.4f}: the skipped chain, "
+        f"chain_tail and the readback's packing "
+        f"{1e3 * (forms['replay'] - forms['step']):.1f} us; the record's "
+        f"clones of the state, the pyramid and the next inputs "
+        f"{1e3 * forms['clones']:.1f} us a frame; a copy-in from another "
+        f"record {1e3 * forms['load']:.1f} us; the eager early-exit "
+        f"primary track alone {forms['track']:.3f} ms wall a call")
     phase_done("[graph] syncs and forms")
     graph_flagship(torch, dev, card, flag)
 
 
 def graph_flagship(torch, dev, card, flag):
     """[graph]'s flagship part: the scene's first PIPE_FLAG_FRAMES frames
-    in the eager and the graph form (frame step and VIO keyframe chain),
-    with each run's fps and its keyframe-chain frames' median over frames
-    FLAG_WARMUP-(PIPE_FLAG_FRAMES - 1) (each frame synchronised); the
-    first keyframe from frame FLAG_UNTRAP on is handed an untrapped scale
-    state in both forms (`untrap_once`), so that its chain solves the
+    in the eager and the graph form (the fused VIO frame's graphs), with
+    each run's fps and its keyframe-chain frames' median over frames
+    FLAG_WARMUP-(PIPE_FLAG_FRAMES - 1) (each frame synchronised); frame
+    FLAG_UNTRAP's dispatch is handed an untrapped scale state in both
+    forms (`untrap_once`), so that the next keyframe's chain solves the
     scale from the multi-guess start (`control.cond(trapped)`'s other
-    branch; gated: the graph form replays it); then the rest of the scene's frames
-    through the same two systems counting the synchronising calls of each
-    frame, gated at 2 in a frame that replays the VIO chain's graphs
-    (graph form, each call named, the eager form's count beside it); both
-    forms bit for bit at the end."""
+    branch; gated: the graph form replays it); then the rest of the
+    scene's frames through the same two systems counting the
+    synchronising calls of each frame's dispatch (`sync_gate`: 0 in the
+    graph form, gated, the eager form's beside it); both forms bit for
+    bit at the end."""
     from sos_slam_tpu_torch.models import full_system as FSM
     tag = f"[graph] ({card})"
     name = {False: "eager", True: "graph"}
@@ -2871,14 +3026,15 @@ def graph_flagship(torch, dev, card, flag):
                             device=dev, cuda_graphs=graphs)
         forced = untrap_once(fs, FLAG_UNTRAP)
         if graphs:
-            # the trapped flag each VIO chain replay read (kept on the
-            # device: a read here would be one more synchronising call)
-            step = fs.chain_graph.step
+            # whether each replay ran the VIO chain on an untrapped scale
+            # (kept on the device: a read here would synchronise)
+            step = fs.fused_graph.dispatch
 
-            def recorded(*a, kf=None, **kw):
-                untrapped.append(~kf["scale_state"][1].clone())
-                return step(*a, kf=kf, **kw)
-            fs.chain_graph.step = recorded
+            def recorded(*a):
+                got = step(*a)
+                untrapped.append(~a[1]["scale_state"][1] & got["need_kf"])
+                return got
+            fs.fused_graph.dispatch = recorded
 
         def feed(i, fs=fs):
             fs.add_active_frame(scene["left"][i], timestamp=i * FLAG_DT,
@@ -2900,22 +3056,24 @@ def graph_flagship(torch, dev, card, flag):
         runs[graphs] = fs
         kf_ms, nonkf = split_by_keyframe(frame_ms, fs.kf_shell_ids,
                                          FLAG_WARMUP)
-        g, cg = fs.frame_graph, fs.chain_graph
+        cg = fs.fused_graph
         log(f"{tag} flagship frames 0-{PIPE_FLAG_FRAMES - 1}, "
             f"{name[graphs]} form: fps over frames {FLAG_WARMUP}-"
             f"{PIPE_FLAG_FRAMES - 1} {f_fps:.2f}, frames dispatching a "
             f"keyframe chain there: median {median(kf_ms):.1f} ms ("
             + ", ".join(f"{v:.1f}" for v in kf_ms) + "), the others: "
             f"median {median(nonkf):.1f} ms"
-            + (f"; capture {g.capture_ms:.1f} ms, graph pool "
-               f"{g.pool_bytes} bytes, replays {g.replays}, retries "
-               f"{g.retries}; the VIO chain's graphs (frames 0-"
-               f"{FLAG_FRAMES - 1}): replays {dict(cg.replays)}, eager "
-               f"chains by reason {dict(cg.eager)}" if g is not None
+            + (f"; the fused frame graphs (frames 0-{FLAG_FRAMES - 1}): "
+               f"capture ms " + ", ".join(f"rung {k}: {v:.1f}" for k, v
+                                          in cg.capture_ms.items())
+               + f", graph pool {cg.pool_bytes} bytes, replays "
+               f"{dict(cg.replays)}, keyframe chains in them "
+               f"{dict(cg.chains)}, retries {cg.frame.retries}, eager "
+               f"chains by reason {dict(cg.eager)}" if cg is not None
                else ""))
     a, b = runs[False], runs[True]
-    del b.chain_graph.step          # the instance's methods again
-    del a._run_chain, b._run_chain
+    del b.fused_graph.dispatch       # the instance's methods again
+    del a._dispatch_fused, b._dispatch_fused
     same = (a.kf_shell_ids == b.kf_shell_ids
             and np.array_equal(a.trajectory(), b.trajectory())
             and np.array_equal(a.trajectory(scaled=True),
@@ -2929,8 +3087,9 @@ def graph_flagship(torch, dev, card, flag):
     log(f"{tag} flagship: keyframe {forced} (the first from frame "
         f"{FLAG_UNTRAP} on) handed an untrapped scale state: "
         f"{n_untrapped} VIO chain replays solved from "
-        f"the multi-guess start (of {len(untrapped)}), eager chains by "
-        f"reason {dict(b.chain_graph.eager)}; keyframes {b.kf_shell_ids}, "
+        f"the multi-guess start (of {len(untrapped)} replays), eager "
+        f"chains by reason {dict(b.fused_graph.eager)}; keyframes "
+        f"{b.kf_shell_ids}, "
         f"scale {b.current_scale:.6f}, graph form bit for bit the eager "
         f"form (both trajectories, every tensor of the window, the immature "
         f"pool and the IMU state, the scale, the gyro bias; frames "
@@ -2940,25 +3099,15 @@ def graph_flagship(torch, dev, card, flag):
                              "its eager form")
     if n_untrapped == 0:
         raise AssertionError("no VIO chain replay solved an untrapped scale")
-    if b.frame_graph.replays == 0 or chain_replays(b) == 0:
+    if b.fused_graph.frame.replays == 0 or chain_replays(b) == 0 \
+            or not set(b.fused_graph.eager) <= FUSED_EAGER_REASONS:
         raise AssertionError("the flagship's graph form replayed no frame "
-                             "or no VIO chain graph")
+                             "or no VIO chain, or ran chains eagerly: "
+                             f"{dict(b.fused_graph.eager)}")
+    kf_ids = set(b.kf_shell_ids)
     del runs, a, b, fs
-    kg, ke = syncs[True], syncs[False]
-    chained = [i for i, (_, redo, _, clean) in kg.items()
-               if clean and not redo]
-    log(f"{tag} flagship: synchronising calls of each add_active_frame "
-        f"call that replays the VIO keyframe chain's graphs (no retry, no "
-        f"capture, no dispatch again), frames {chained}: graph "
-        f"form " + ", ".join(str(kg[i][0]) for i in chained)
-        + "; eager form " + ", ".join(str(ke[i][0]) for i in chained)
-        + (f"; the calls, frame {chained[-1]}: graph form "
-           f"{kg[chained[-1]][2]}, eager form {ke[chained[-1]][2]}"
-           if chained else ""))
-    if not chained or max(kg[i][0] for i in chained) > 2:
-        raise AssertionError(
-            "the graph form syncs more than twice in a flagship frame that "
-            "replays the VIO chain: " + str({i: kg[i][2] for i in chained}))
+    sync_gate(tag, f"flagship VIO frames {PIPE_FLAG_FRAMES}-"
+              f"{FLAG_FRAMES - 1}", syncs[True], syncs[False], kf_ids)
 
 
 def control_phase(torch, dev, card, node_runs, setters):
@@ -3036,22 +3185,27 @@ def control_phase(torch, dev, card, node_runs, setters):
 
 
 def untrap_once(fs, first_id):
-    """Hand the keyframe chain of the first keyframe from frame `first_id`
-    on (and any dispatch of it again) an untrapped scale state: the same
-    intervention in either form. Returns the list that gets that
-    keyframe's id."""
+    """Hand the dispatch of frame `first_id` (and any dispatch of it
+    again) an untrapped scale state, which the frames after it chain on
+    until a keyframe's chain solves the scale from the multi-guess start:
+    the same intervention in either form. Returns the list that gets the
+    frame's id once it is dispatched."""
     import torch
-    run_chain = fs._run_chain
+    dispatch = fs._dispatch_fused
     hit = []
 
-    def untrapped(*a, **kw):
-        a = list(a)
-        if a[9] >= first_id and (not hit or hit[0] == a[9]):
-            hit[:1] = [a[9]]
-            s_, t_, f_ = a[12]["scale_state"]
-            a[12] = dict(a[12], scale_state=(s_, torch.zeros_like(t_), f_))
-        return run_chain(*a, **kw)
-    fs._run_chain = untrapped
+    def untrapped(img, shell, exposure, chain, right=None):
+        if shell.id == first_id:
+            hit[:1] = [shell.id]
+            if chain is None:
+                fs.scale_trapped = False
+            else:
+                s_, t_, f_ = chain["nxt"]["scale_state"]
+                chain = dict(chain, nxt=dict(
+                    chain["nxt"], scale_state=(s_, torch.zeros_like(t_),
+                                               f_)))
+        return dispatch(img, shell, exposure, chain, right)
+    fs._dispatch_fused = untrapped
     return hit
 
 
@@ -3285,18 +3439,23 @@ def run(torch):
     warm = sorted(fs._prewarmed_pots)
     log(f"[slice] prewarm() at frame {WARMUP} (outside the frame timers): "
         f"{pw['ms']:.1f} ms wall, launches K1-K4 {pw['launches']} (not in "
-        f"the slice's counts), rungs {warm}; the keyframe chain's graphs "
+        f"the slice's counts), rungs {warm}; the fused frame graphs "
         f"captured by then, ms each (warm-up and capture): "
         + ", ".join(f"rung {k}: {v:.1f}" for k, v in
-                    pw["chain_capture_ms"].items()))
-    cg = fs.chain_graph
-    log(f"[slice] the keyframe chain's graphs (models/chain_graph.py): "
-        f"replays {dict(cg.replays)}, eager chains by reason "
-        f"{dict(cg.eager)}, private pool {cg.pool_bytes} bytes, GN steps a "
-        f"keyframe (n_its), keyframes by count "
-        f"{dict(sorted(fs.kf_n_its.items()))}, the selection keys' host ms a "
-        f"keyframe: median {median(cg.draw_ms):.3f}, most "
+                    pw["capture_ms"].items()))
+    cg = fs.fused_graph
+    log(f"[slice] the fused frame graphs (models/fused_graph.py): replays "
+        f"(frames by rung) {dict(cg.replays)}, keyframe chains in them "
+        f"{dict(cg.chains)}, eager chains by reason {dict(cg.eager)} "
+        f"(budget {cg.eager['budget']}, export {cg.eager['export']}), "
+        f"private pool {cg.pool_bytes} bytes, the state copied in "
+        f"{cg.copy_ins} times, GN steps a keyframe (n_its), keyframes by "
+        f"count {dict(sorted(fs.kf_n_its.items()))}, the selection keys' "
+        f"host ms a frame: median {median(cg.draw_ms):.3f}, most "
         f"{max(cg.draw_ms):.3f}")
+    if not set(cg.eager) <= FUSED_EAGER_REASONS:
+        raise AssertionError(f"the slice ran keyframe chains eagerly: "
+                             f"{dict(cg.eager)}")
     log("[slice] selector rung after each keyframe's completion (frame "
         "reached, rung): " + ", ".join(f"{i}:{p}" for i, p, _ in rungs))
     left = [(i, p) for i, p, after in rungs if after and p not in warm]

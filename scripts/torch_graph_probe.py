@@ -9,8 +9,9 @@ inv_ex) capture and replay to the eager bits at the tracker's shapes, the
 conditional nodes that ops/control.py opens inside torch's capture
 through the driver API (csrc/graph_cond.cu), each case held bit for bit
 to its eager form and to the plain twin (`control_cases`: an IF taken and
-skipped, an IF with an else, nested IFs with allocations in the bodies, a
-WHILE of no trip, one that reaches its cap, one whose trips the data set,
+skipped, an IF with an else, nested IFs with allocations in the bodies,
+five bodies deep as the fused frame's deepest path nests them, a WHILE of
+no trip, one that reaches its cap, one whose trips the data set,
 the launch counters credited from the device's run counts and the setter
 launches counted on the device), the card's time of a skipped IF node, of a WHILE trip and of a node of a tiny
 kernel (`node_costs`), what torch.profiler reports of the kernels inside
@@ -225,6 +226,51 @@ def control_cases(dev):
             z = torch.sqrt(y.abs()) + y if bool(p2 & (y.sum() > 0)) else y
             v.copy_(z - 0.5)
     run_case("nested IF", nested_body, nested_eager, feeds)
+
+    # five bodies deep, as the fused frame's deepest path nests them (the
+    # chain's IF under need_kf, the right image's IF, the scale solve's
+    # IF/else, the LM's WHILE, its cutoff WHILE): each level's result
+    # leaves through a tensor made before its node
+    def deep_body():
+        def level_if(y):
+            z = y.clone()
+
+            def inner():
+                w = y * 0.5 + 0.125
+                control.cond(p2, lambda: lm(w), lambda: lm(-w), out=w)
+                return w
+            control.cond(y.sum() > -1e30, inner, None, out=z)
+            return z
+
+        def lm(w):
+            n = torch.zeros((), dtype=torch.int32, device=dev)
+            w = w.clone()
+
+            def trip():
+                m = torch.zeros((), dtype=torch.int32, device=dev)
+
+                def go():
+                    return (m < 2) & (n < 3)
+
+                def cut():
+                    live = go()
+                    w.copy_(torch.where(live, w * 0.75 + 0.0625, w))
+                    m.add_(live.int())
+                control.while_loop(go, cut, 3)
+                n.add_((n < 3).int())
+            control.while_loop(lambda: n < 3, trip, 4)
+            return w
+        control.cond(p1, lambda: level_if(src * 2.0 - 1.0), None, out=v)
+
+    def deep_eager():
+        if bool(p1):
+            w = (src * 2.0 - 1.0) * 0.5 + 0.125
+            w = w if bool(p2) else -w
+            for _ in range(3):
+                for _ in range(2):
+                    w = w * 0.75 + 0.0625
+            v.copy_(w)
+    run_case("5 bodies deep", deep_body, deep_eager, feeds)
 
     # WHILE: x counts on while it is below the limit x[0] sets (no trip,
     # some trips, the cap)

@@ -174,14 +174,32 @@ def _final_linearization(ba: B.BAState, dI, settings: Settings, w: int,
                     HdiF=q["HdiF"])
 
 
+# the bootstrap's GN budgets (`_kf_chain_jit`'s ladder: 20 while the
+# window holds fewer than 3 keyframes, 15 at 3)
+BOOT_ITS = (20, 15)
+
+
+def _loop_bound(max_its, settings: Settings, it, done):
+    """The bounded GN loop's trip cap and its go test: for a host int
+    `max_its`, that many trips while `done` is unset; for a device
+    `max_its` (the budget chained on the device), the largest budget the
+    ladder gives, while `done` is unset and `it < max_its` (the JAX
+    `while_loop`'s bound)."""
+    if not torch.is_tensor(max_its):
+        return max_its, lambda: ~done
+    return max(BOOT_ITS + (settings.max_opt_iterations,)), \
+        lambda: ~done & (it < max_its)
+
+
 def optimize(ba: B.BAState, dI, settings: Settings, w: int, h: int,
              max_its: int = 6, min_its: int = 1, bounded: bool = False):
     """The windowed BA (FullSystem::optimize). Returns (ba, stats dict).
 
     The loop leaves early on the break test, read on the host after each
     step. `bounded=True` reads nothing back: the loop is a
-    `control.while_loop` of at most `max_its` steps while a device `done`
-    is unset (set once the break test holds with `min_its` steps made),
+    `control.while_loop` of at most `max_its` steps (a host int, or a
+    device int under the ladder's largest cap, `_loop_bound`) while a
+    device `done` is unset (set once the break test holds with `min_its` steps made),
     each step updating the state in place and keeping every field as it
     was once `done` is set (`torch.where`), counting the steps made on the
     device (stats' `n_its`, a 0-dim tensor). Both forms give the same
@@ -194,15 +212,16 @@ def optimize(ba: B.BAState, dI, settings: Settings, w: int, h: int,
         ba = control.clone(ba)
         it = torch.zeros((), dtype=torch.int32, device=dev)
         done = torch.zeros((), dtype=torch.bool, device=dev)
+        cap, more = _loop_bound(max_its, settings, it, done)
 
         def step():
             new, cb, _ = gn_step(ba, dI, settings, w, h, ev=ev)
-            live = ~done
+            live = more()
             control.copy_into(ba, _freeze(live, new, ba))
             it.copy_(it + live.to(torch.int32))
             done.copy_(done | (live & cb & (it >= min_its)))
 
-        control.while_loop(lambda: ~done, step, max_its)
+        control.while_loop(more, step, cap)
     else:
         it = 0
         canbreak = False
@@ -453,16 +472,18 @@ def optimize_vio(ba: B.BAState, imu: IM.ImuState, dI, settings: Settings,
         it = torch.zeros((), dtype=torch.int32, device=dev)
         done = torch.zeros((), dtype=torch.bool, device=dev)
 
+        cap, more = _loop_bound(max_its, settings, it, done)
+
         def step():
             nba, nimu, cb, _ = gn_step_vio(ba, imu, dI, settings, w, h,
                                            ev=ev)
-            live = ~done
+            live = more()
             control.copy_into(ba, _freeze(live, nba, ba))
             control.copy_into(imu, _freeze(live, nimu, imu))
             it.copy_(it + live.to(torch.int32))
             done.copy_(done | (live & cb & (it >= min_its)))
 
-        control.while_loop(lambda: ~done, step, max_its)
+        control.while_loop(more, step, cap)
     else:
         it = 0
         canbreak = False

@@ -15,10 +15,12 @@ Here the same step is one body, captured on a card as one graph:
     inputs.
 The tracker runs its bounded form (ops/tracker.py): each loop a
 `control.while_loop`, which leaves on the device where the eager loop
-leaves, and the level repeat a `control.cond`. A steady frame reads the
-host once: `need_kf`, in the same copy as the conditional nodes' run
-counts (`control.read`). Everything is bit for bit the eager step
-(`FullSystem._frame_step` + `_need_kf`).
+leaves, and the level repeat a `control.cond`. Everything is bit for bit
+the eager step (`FullSystem._frame_step` + `_need_kf`). On the fused
+path this body is the head of the fused frame's graph
+(models/fused_graph.py), which keeps `need_kf` on the device; `step`
+here captures the step alone and reads `need_kf` on the host, in the
+same copy as the conditional nodes' run counts (`control.read`).
 
 `FrameGraph` holds the static buffers the body reads (the frame's inputs,
 the window `ba`, the immature pool and the four-level templates, copied in

@@ -25,7 +25,7 @@ import torch
 
 from sos_slam_tpu_torch.ops.image import (interp_bilinear,
                                           interp_bilinear_frames)
-from sos_slam_tpu_torch.ops.numerics import solve
+from sos_slam_tpu_torch.ops.numerics import at, solve
 from sos_slam_tpu_torch.utils import lie
 from sos_slam_tpu_torch.utils.config import CPARS, PATTERN_OFFSETS, Settings
 
@@ -341,6 +341,8 @@ def linearize_energy_col(ba: BAState, pre: Precalc, dI: torch.Tensor, k: int,
 
     `row` is the dI row holding slot k's image (defaults to k; the chain
     defers the image-stack compaction and passes its slot -> row map).
+    `k` and `row` may be 0-dim device ints: they are gathered on the
+    device (`at`), so that a captured chain reads nothing back.
 
     Returns (energy (P,), new_state (P,) int8)."""
     if row is None:
@@ -349,11 +351,11 @@ def linearize_energy_col(ba: BAState, pre: Precalc, dI: torch.Tensor, k: int,
     H, W = dI.shape[1], dI.shape[2]
     pat = pattern(ba.u.device)
     hostP = ba.host.long()
-    R0 = pre.R0[hostP, k]
-    t0 = pre.t0[hostP, k]
-    Rc = pre.R[hostP, k]
-    tc = pre.t[hostP, k]
-    affLL = pre.affLL[hostP, k]
+    R0 = at(pre.R0, k, 1)[hostP]
+    t0 = at(pre.t0, k, 1)[hostP]
+    Rc = at(pre.R, k, 1)[hostP]
+    tc = at(pre.t, k, 1)[hostP]
+    affLL = at(pre.affLL, k, 1)[hostP]
 
     # geometry at FEJ (center pixel, idepth_zero): the OOB gate
     KliP = torch.stack([(ba.u - cx) / fx, (ba.v - cy) / fy,
@@ -377,7 +379,7 @@ def linearize_energy_col(ba: BAState, pre: Precalc, dI: torch.Tensor, k: int,
     Kup = ptp_c[..., 0] / z * fx + cx
     Kvp = ptp_c[..., 1] / z * fy + cy
     pat_ok &= (Kup > 1.1) & (Kvp > 1.1) & (Kup < w - 3) & (Kvp < h - 3)
-    hit = interp_bilinear(dI[row], Kup, Kvp)
+    hit = interp_bilinear(at(dI, row), Kup, Kvp)
     ok = geo_ok[:, None] & pat_ok & torch.isfinite(hit[..., 0])
     oob = ~torch.all(ok, -1)
 
@@ -391,10 +393,10 @@ def linearize_energy_col(ba: BAState, pre: Precalc, dI: torch.Tensor, k: int,
     hw2 = torch.where(hw < 1.0, torch.sqrt(hw), hw) * wgt
     wJI2 = torch.sum(hw2 * hw2 * (gx * gx + gy * gy), -1)
 
-    th = torch.maximum(ba.energy_th[hostP], ba.energy_th[k])
+    th = torch.maximum(ba.energy_th[hostP], at(ba.energy_th, k))
     outlier = (energy_raw > th) | (wJI2 < 2.0)
     energy = torch.where(outlier, th, energy_raw)
-    prev_oob = ba.res_state[:, k] == RES_OOB
+    prev_oob = at(ba.res_state, k, 1) == RES_OOB
     new_state = torch.where(
         oob | prev_oob, RES_OOB,
         torch.where(outlier, RES_OUTLIER, RES_IN)).to(torch.int8)
@@ -409,7 +411,7 @@ def col_energy(ba: BAState, dI: torch.Tensor, k: int, settings: Settings,
     tensors (e_col, n_col)."""
     energy, new_state = linearize_energy_col(ba, make_precalc(ba), dI, k,
                                              settings, w, h, row=row)
-    col = ba.res_exist[:, k] & ba.pt_valid & (new_state == RES_IN)
+    col = at(ba.res_exist, k, 1) & ba.pt_valid & (new_state == RES_IN)
     return (torch.sum(torch.where(col, energy, torch.zeros_like(energy))),
             torch.sum(col))
 

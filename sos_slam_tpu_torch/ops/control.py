@@ -13,8 +13,9 @@ first trip and the node after each. The same kernels count, on the device,
 the branches taken, the trips made and the WHILE nodes entered, in run
 slots that each captured graph holds while it lives (a dropped graph's
 slots are cleared and reused at the next capture or `account`); `read`
-(with the frame's one host read: the live graphs' bodies that launch
-counted kernels) and `account` (all) bring those counts to the host and
+(with a step graph's host read: the live graphs' bodies that launch
+counted kernels), `staged` + `credit_staged` (the same counts through a
+frame's readback) and `account` (all) bring those counts to the host and
 add the kernel launches captured in each body times its runs to the
 kernels' launch counters (K1-K4), which a replay can no longer add by
 itself. `PROFILED` keeps the same launches as torch.profiler reports
@@ -40,6 +41,10 @@ Rules for the bodies, which a capture does not check:
     its own allocations come from the capture's pool, which a later
     capture may hand on;
   * no host-to-device copy inside a body.
+The fused frame's graphs (models/fused_graph.py) read nothing at their
+dispatch: `staged` gathers the counts on the device after the replay, and
+`credit_staged` credits them from the frame's pinned readback when it
+completes.
 The node types a body may hold are checked at its end (`_check_body`:
 a library that allocates stream-ordered memory there raises, naming the
 code).
@@ -136,9 +141,12 @@ class _Device:
         self.entries = torch.zeros(SLOTS, dtype=torch.int64, device=dev)
         self.trips = torch.zeros(SLOTS, dtype=torch.int32, device=dev)
         self.free = list(range(SLOTS - 1, -1, -1))
-        # the counts credited so far, by slot
+        # the counts credited so far, by slot, and each slot's generation
+        # (raised where `recycle` frees it: a staged count of an earlier
+        # generation is not credited)
         self.credited = [0] * SLOTS
         self.entered = [0] * SLOTS
+        self.gen = [0] * SLOTS
         self.live = []          # records of the graphs captured
         self.dead = []          # those whose graph is gone
         self.counted = None     # `_counted`'s bodies and their slots
@@ -183,6 +191,7 @@ class _Device:
                 t.index_fill_(0, idx, 0)
         for s in slots:
             self.credited[s] = self.entered[s] = 0
+            self.gen[s] += 1
         self.free.extend(slots)
         self.counted = None
         _counted(self)
@@ -358,7 +367,8 @@ def capture(graph, pool, stream):
             torch._C._cuda_releasePool(idx, pool)
             _TLS.cap = _Capture(d, pool, rec)
             try:
-                yield
+                with _refusing_reads():
+                    yield
             finally:
                 _TLS.cap = prev
     except BaseException:
@@ -370,6 +380,39 @@ def capture(graph, pool, stream):
     # made now, not at a frame's read
     d.counted = None
     _counted(d)
+
+
+# what reads a card's tensor on the host through Python (`_refusing_reads`)
+_HOST_READS = ("__bool__", "__int__", "__float__", "__index__", "item",
+               "tolist", "cpu", "numpy")
+
+
+@contextlib.contextmanager
+def _refusing_reads():
+    """While this thread captures, refuse its host reads of a card's tensor
+    made through Python, before they reach the card: one inside a
+    conditional body would cut that body's capture short inside a main
+    capture that goes on, whose end then fails or crashes. Refused here,
+    the read raises, the bodies and the capture end whole and the error
+    reaches the caller. Other threads (the loop worker) read as ever."""
+    me = threading.get_ident()
+    saved = {n: getattr(torch.Tensor, n) for n in _HOST_READS}
+
+    def guard(name, fn):
+        def read(self, *a, **kw):
+            if self.is_cuda and threading.get_ident() == me:
+                raise RuntimeError(f"a host read ({name}) of a card's tensor "
+                                   "inside a CUDA graph capture")
+            return fn(self, *a, **kw)
+        return read
+
+    for n, fn in saved.items():
+        setattr(torch.Tensor, n, guard(n, fn))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(torch.Tensor, n, fn)
 
 
 def clone(x):
@@ -507,6 +550,8 @@ def credit(d, bodies, runs, entries) -> None:
     fns = dict(counters())
     for (slot, kind, per), r, e in zip(bodies, runs, entries):
         n, m = r - d.credited[slot], e - d.entered[slot]
+        if n < 0 or m < 0:
+            continue    # a staged count older than one credited since
         d.credited[slot], d.entered[slot] = r, e
         CREDITED["runs"] += n
         shown = n if kind == IF else m
@@ -532,6 +577,40 @@ def read(dev, *flags):
     k, m = len(flags), len(bodies)
     credit(d, bodies, vals[k:k + m], vals[k + m:])
     return vals[:k]
+
+
+def staged(dev):
+    """The frame's counts without a host read: the run and entry counters
+    of the live graphs' bodies that launch counted kernels, gathered into
+    a device int64 tensor in stream order after the replay, with a token
+    of the bodies they are (`credit_staged` credits them from the host
+    copy of that tensor, which rides the frame's pinned readback). None
+    where no body counts (the CPU, no graph yet)."""
+    dev = torch.device(dev)
+    d = _DEVICES.get(_index(dev)) if dev.type == "cuda" else None
+    if d is None:
+        return None
+    bodies, idx = _counted(d)
+    if not bodies:
+        return None
+    vals = torch.cat([d.runs.index_select(0, idx),
+                      d.entries.index_select(0, idx)])
+    return (d, bodies, [d.gen[b[0]] for b in bodies]), vals
+
+
+def credit_staged(token, vals) -> None:
+    """Credit the counts that `staged` gathered (`vals`: their host ints)
+    at the frame's completion. The counters are cumulative: frames
+    complete in the order they were replayed, so each run is credited
+    once at any pipeline depth; a frame never completed (dispatched
+    again) leaves its runs to the next one's counts, and a body whose
+    graph was dropped since (its final counts credited by `recycle`) is
+    passed over."""
+    d, bodies, gens = token
+    m = len(bodies)
+    keep = [i for i, b in enumerate(bodies) if d.gen[b[0]] == gens[i]]
+    credit(d, [bodies[i] for i in keep], [int(vals[i]) for i in keep],
+           [int(vals[m + i]) for i in keep])
 
 
 def account(dev=None) -> None:

@@ -26,6 +26,7 @@ import torch
 
 from sos_slam_tpu_torch.models import chain_graph as CG
 from sos_slam_tpu_torch.models import energy as E
+from sos_slam_tpu_torch.models import fused_graph as FU
 from sos_slam_tpu_torch.models.full_system import FullSystem, StereoCalib
 from sos_slam_tpu_torch.ops import scale_opt as SO
 from sos_slam_tpu_torch.ops.image import build_pyramid
@@ -72,13 +73,15 @@ def _system(calib, T_lr, stereo=True):
 
 def _drive(scene, graph=False, record=None):
     """The scene through the fused path pipelined at depth 3: the eager
-    chain, or the ChainGraph's body (`graph`). `record`: a list that gets
+    chain, or the fused frame graph's body (`graph`, models/
+    fused_graph.py: the VIO chain's body under `control.cond(need_kf)`
+    inside the frame). `record`: a list that gets
     each eager VIO chain's arguments and result."""
     calib, T_lr, left, right, imu = scene
     fs = _system(calib, T_lr)
     fs.pipeline, fs.pipeline_depth = True, 3
     if graph:
-        fs.chain_graph = CG.ChainGraph(fs)
+        fs.fused_graph = FU.FusedFrameGraph(fs)
     if record is not None:
         chain = fs._kf_chain_vio
 
@@ -449,8 +452,9 @@ def test_vio_chain_body_reads_nothing_back(runs, stereo):
 # (f) the scene through the device chain
 # ---------------------------------------------------------------------------
 def test_device_vio_chain_equals_eager_path(runs):
-    """The VIO chain's graph bodies in the fused path pipelined at depth
-    3, bit for bit the eager chain at the same depth."""
+    """The VIO chain's body inside the fused frame's in the fused path
+    pipelined at depth 3, bit for bit the eager chain at the same
+    depth."""
     eager, fs = runs["eager"], runs["graph"]
     assert eager.kf_shell_ids == fs.kf_shell_ids
     exact(eager.trajectory(scaled=True), fs.trajectory(scaled=True))
@@ -462,8 +466,8 @@ def test_device_vio_chain_equals_eager_path(runs):
     assert eager.scale_trapped and fs.scale_trapped
     assert eager.kf_n_its == fs.kf_n_its
     exact(eager._last_bg, fs._last_bg)
-    g = fs.chain_graph
-    # every fused VIO chain goes through the graphs' body: none is
-    # classic, a bootstrap budget, an export or a rung prewarm() left out
+    g = fs.fused_graph
+    # every fused VIO chain goes through the fused body: none is classic
+    # or at a rung prewarm() left out
     assert g.eager == {}, g.eager
-    assert sum(g.replays.values()) == len(runs["calls"]) >= 2
+    assert sum(g.chains.values()) == len(runs["calls"]) >= 2

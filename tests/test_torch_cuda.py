@@ -826,7 +826,8 @@ def test_nccl_ranks_beyond_the_cards_refused():
 
 
 # ---------------------------------------------------------------------------
-# the frame step as CUDA graphs (models/frame_graph.py)
+# the fused frame as CUDA graphs (models/fused_graph.py: the frame step,
+# the keyframe decision and the keyframe chain under one IF node)
 # ---------------------------------------------------------------------------
 _MONO_TWIST = (0.05, 0.02, 0.03, 0.003, 0.006, 0.002)
 
@@ -873,13 +874,13 @@ def _assert_same_run(a, b):
 
 
 def test_frame_graph_replays_bit_for_bit_on_the_card():
-    """The graph form (one graph a frame, the retry and the tracker's loops
-    as conditional nodes) against the eager form (cuda_graphs=False) on
-    the card: every keyframe, pose, window tensor and immature-pool
-    tensor the same bits, over frames that copy a keyframe's window and
-    templates into the graph's buffers and a rolled frame whose primary
-    misses (the retry run inside the graph, the frame refused); the eager
-    step never runs in the graph form."""
+    """The graph form (the fused frame graph: the retry and the tracker's
+    loops as conditional nodes inside it) against the eager form
+    (cuda_graphs=False) on the card: every keyframe, pose, window tensor
+    and immature-pool tensor the same bits, over keyframe frames and a
+    rolled frame whose primary misses (the retry run inside the graph,
+    the frame refused: its successors dispatched again, the state copied
+    in from the host's); the eager step never runs in the graph form."""
     dev = _dev()
     imgs = _mono_images(dev, roll_frame=14)
     eager = _mono_run(dev, imgs, cuda_graphs=False)
@@ -892,44 +893,72 @@ def test_frame_graph_replays_bit_for_bit_on_the_card():
         fs.add_active_frame(imgs[i], timestamp=0.05 * i, frame_id=i)
 
     graph = _mono_run(dev, imgs, cuda_graphs=True, feed=feed)
-    assert eager.frame_graph is None and not stepped
-    g = graph.frame_graph
-    assert g.graph is not None and g.retries >= 1
-    assert g.copy_ins["templates"] >= 8 and g.copy_ins["ba"] >= 2
+    assert eager.fused_graph is None and not stepped
+    g = graph.fused_graph
+    assert g.graphs and g.frame.retries >= 1
+    assert g.copy_ins >= 2
     # the private pool's own segments hold the graphs' buffers
     assert 0 < g.pool_bytes <= torch.cuda.memory_reserved(dev)
     _assert_same_run(eager, graph)
 
 
-def _syncs_per_frame(fs, imgs):
+def _dispatch_syncs(fs, add, frames):
     """The synchronising calls (torch.cuda.set_sync_debug_mode("warn"))
-    of each add_active_frame call, by frame id."""
+    of each fused frame's own dispatch (`_dispatch_fused`; `add(i)` feeds
+    frame i), by frame id, with the calls by file:line; a frame whose
+    call captured a graph or dispatched frames again is marked "capture"
+    or "again" in place of its calls."""
     import warnings
     counts, where = {}, {}
+    dispatch = fs._dispatch_fused
+    g = fs.fused_graph
+    box = [[]]
+
+    def syncs():
+        return [w for w in box[0] if "synchroniz" in str(w.message)]
+
+    def dispatched(img, shell, *a, **kw):
+        n0 = len(syncs())
+        rec = dispatch(img, shell, *a, **kw)
+        if shell.id == box[1] and box[1] not in counts:
+            new = syncs()[n0:]
+            counts[box[1]] = len(new)
+            where[box[1]] = [f"{w.filename.split('/')[-1]}:{w.lineno}"
+                             for w in new]
+        return rec
+
+    fs._dispatch_fused = dispatched
     torch.cuda.set_sync_debug_mode("warn")
     try:
-        for i in range(len(imgs)):
-            g = fs.frame_graph
-            if g is not None and g.graph is None:
-                where[i] = "before the capture"
+        for i in frames:
+            n_cap = len(g.capture_ms) if g is not None else 0
+            n_redo = len(fs.telemetry.timers["redispatch"])
             with warnings.catch_warnings(record=True) as got:
                 warnings.simplefilter("always")
-                fs.add_active_frame(imgs[i], timestamp=0.05 * i, frame_id=i)
-            syncs = [w for w in got if "synchroniz" in str(w.message)]
-            counts[i] = len(syncs)
-            where.setdefault(i, [f"{w.filename.split('/')[-1]}:{w.lineno}"
-                                 for w in syncs])
+                box[:] = [got, i]
+                add(i)
+            if g is not None and len(g.capture_ms) > n_cap:
+                where[i] = "capture"
+            elif len(fs.telemetry.timers["redispatch"]) > n_redo:
+                where[i] = "again"
     finally:
         torch.cuda.set_sync_debug_mode("default")
+        del fs._dispatch_fused
     fs.finish_pending()
     return counts, where
 
 
+def _syncs_per_frame(fs, imgs):
+    """`_dispatch_syncs` of the mono scene's frames `imgs`."""
+    return _dispatch_syncs(fs, lambda i: fs.add_active_frame(
+        imgs[i], timestamp=0.05 * i, frame_id=i), range(len(imgs)))
+
+
 def test_frame_graph_syncs_on_the_card():
-    """A steady frame that dispatches no keyframe chain makes at most one
-    synchronising call in the graph form (need_kf, read with the
-    conditional nodes' run counts); the eager form's count is printed
-    beside it.
+    """The dispatch of a steady frame that makes no keyframe makes no
+    synchronising call in the graph form (the decision and the
+    conditional nodes' run counts ride the frame's readback, fetched at
+    its completion); the eager form's count is printed beside it.
     The mono scene at half the test twist, so that most frames are no
     keyframe."""
     from sos_slam_tpu_torch.models.full_system import FullSystem
@@ -948,19 +977,18 @@ def test_frame_graph_syncs_on_the_card():
         fs = FullSystem(calib, s, device=dev, cuda_graphs=cuda_graphs)
         counts[cuda_graphs], where[cuda_graphs] = _syncs_per_frame(fs, imgs)
         kf = set(fs.kf_shell_ids)
-    # steady: the frames after the one that captured the graphs, whose
-    # dispatch made no keyframe
-    first = max(i for i, w in where[True].items()
-                if w == "before the capture") + 1
-    steady = [i for i in range(first, 24) if i not in kf]
-    assert len(steady) >= 3, kf
+    # steady: fused frames that captured no graph, went no second time and
+    # made no keyframe
+    steady = [i for i in counts[True] if i not in kf
+              and isinstance(where[True][i], list)]
+    assert len(steady) >= 3, (kf, where[True])
     graph = [counts[True][i] for i in steady]
-    eager = [counts[False][i] for i in steady]
-    print(f"synchronising calls a steady frame without keyframe, frames "
-          f"{steady}: graph form {graph}, eager form {eager}; where, frame "
-          f"{steady[-1]}: graph form {where[True][steady[-1]]}, eager form "
-          f"{where[False][steady[-1]]}")
-    assert max(graph) <= 1, graph
+    eager = [counts[False].get(i) for i in steady]
+    print(f"synchronising calls of a steady frame's dispatch without "
+          f"keyframe, frames {steady}: graph form {graph}, eager form "
+          f"{eager}; where, frame {steady[-1]}: eager form "
+          f"{where[False].get(steady[-1])}")
+    assert max(graph) == 0, [where[True][i] for i in steady]
 
 
 def test_frame_graph_capture_error_raises_on_the_card():
@@ -997,12 +1025,12 @@ def test_frame_graph_capture_error_raises_on_the_card():
 def test_frame_graph_capture_beside_the_loop_worker_on_the_card(tmp_path):
     """Graphs captured while the loop handler's worker thread runs on the
     same card: tests/test_loop_integration.py's stereo scene through
-    SlamNode with the asynchronous handler, a fresh FrameGraph (a new
+    SlamNode with the asynchronous handler, a fresh FusedFrameGraph (a new
     capture) made at frames 10, 14 and 18 while the worker spends a second
     allocating, launching and reading on the card; the poses, the window
     and the loop handler's records the eager form's."""
     from sos_slam_tpu_torch.io.node import SlamNode
-    from sos_slam_tpu_torch.models import frame_graph as FG
+    from sos_slam_tpu_torch.models import fused_graph as FU
     from sos_slam_tpu_torch.utils import synthetic
     from sos_slam_tpu_torch.utils.config import default_settings
     dev = _dev()
@@ -1044,14 +1072,14 @@ def test_frame_graph_capture_beside_the_loop_worker_on_the_card(tmp_path):
 
         node.loop._process = worker_job
         if not cuda_graphs:
-            node.fs.frame_graph = node.fs.chain_graph = None
+            node.fs.fused_graph = None
         for i in range(24):
             if cuda_graphs and i in (10, 14, 18):
                 started.clear()
                 node.loop.on_keyframe(BUSY)
                 started.wait(10.0)
                 busy.append(node.loop._queue.unfinished_tasks)
-                node.fs.frame_graph = FG.FrameGraph(node.fs)
+                node.fs.fused_graph = FU.FusedFrameGraph(node.fs)
             node.process(imgs[i], i * 0.05, image_right=right[i])
         node.fs.finish_pending()
         node.loop.join()
@@ -1060,32 +1088,33 @@ def test_frame_graph_capture_beside_the_loop_worker_on_the_card(tmp_path):
     print(f"loop records queued or in work at the captures: {busy}")
     assert min(busy) >= 1
     a, b = runs[0].fs, runs[1].fs
-    assert b.frame_graph.graph is not None
+    assert b.fused_graph.graphs
     _assert_same_run(a, b)
     assert len(runs[0].loop.frames) == len(runs[1].loop.frames) >= 3
 
 
 # ---------------------------------------------------------------------------
-# the vision keyframe chain as CUDA graphs (models/chain_graph.py)
+# the keyframe chain inside the fused frame graph (models/chain_graph.py's
+# bodies under models/fused_graph.py's IF node)
 # ---------------------------------------------------------------------------
 def test_chain_graph_replays_bit_for_bit_on_the_card():
-    """The keyframe chain's graphs against the eager chain
-    (cuda_graphs=False) on the card: every keyframe, pose, window tensor
-    and immature-pool tensor the same bits, over chains that marginalize
-    frames and a frame the step refuses (its keyframe is classic); the
-    bootstrap's budgets and the classic keyframes run eagerly, every
-    other chain replays the graphs."""
+    """The keyframe chain inside the fused frame graph against the eager
+    chain (cuda_graphs=False) on the card: every keyframe, pose, window
+    tensor and immature-pool tensor the same bits, over chains that
+    marginalize frames and a frame the step refuses (its keyframe is
+    classic); only the classic keyframes run eagerly, every other chain
+    (the bootstrap's 20- and 15-step budgets too) runs in a replay."""
     dev = _dev()
     imgs = _mono_images(dev, roll_frame=14)
     eager = _mono_run(dev, imgs, cuda_graphs=False)
     graph = _mono_run(dev, imgs, cuda_graphs=True)
-    assert eager.chain_graph is None
-    g = graph.chain_graph
-    assert g.eager["budget"] == 1
-    assert set(g.eager) == {"classic", "budget"} and g.eager["classic"] >= 2
-    rungs = sum(g.replays.values())
+    assert eager.fused_graph is None
+    g = graph.fused_graph
+    assert set(g.eager) == {"classic"} and g.eager["classic"] >= 2
+    rungs = sum(g.chains.values())
     # the first keyframe is the initializer's, no chain
     assert rungs == len(graph.kf_shell_ids) - 1 - sum(g.eager.values()) >= 5
+    assert {20, 15} <= set(graph.kf_n_its) or max(graph.kf_n_its) > 6
     assert any(sh.marginalized_at >= 0 for sh in graph.shells)
     assert 0 < g.pool_bytes <= torch.cuda.memory_reserved(dev)
     _assert_same_run(eager, graph)
@@ -1099,7 +1128,7 @@ def _warm_ups(fs):
     nothing) into the returned list."""
     from sos_slam_tpu_torch.ops import control
     n = [0, 0, 0, 0]
-    for g in (fs.frame_graph, fs.chain_graph):
+    for g in (fs.fused_graph,):
         capture = g.capture
 
         def counted(*a, capture=capture, **kw):
@@ -1128,10 +1157,11 @@ def _launches(run):
 def test_chain_graph_launch_counters_on_the_card():
     """K1-K4 launches of the graph form equal the eager form's plus the
     graphs' capture warm-ups' (a warm-up runs the bodies' plain twins:
-    every loop to its bound); a replay adds the launches captured outside
-    its conditional nodes, and the nodes' runs, counted on the device,
-    credit those in their bodies (the BA's GN steps, the frame step's
-    loops)."""
+    every loop to its bound, the chain too); a replay adds the launches
+    captured outside its conditional nodes (the frame's pyramid: the
+    chain's all lie in its IF node), and the nodes' runs, counted on the
+    device and credited from each frame's readback, credit those in their
+    bodies (the chain, the BA's GN steps, the frame step's loops)."""
     dev = _dev()
     imgs = _mono_images(dev, roll_frame=14)
     _, eager = _launches(lambda: _mono_run(dev, imgs, cuda_graphs=False))
@@ -1144,19 +1174,17 @@ def test_chain_graph_launch_counters_on_the_card():
 
     fs, graph = _launches(lambda: _mono_run(dev, imgs, cuda_graphs=True,
                                             feed=feed))
-    assert sum(fs.chain_graph.replays.values()) >= 5
+    assert sum(fs.fused_graph.chains.values()) >= 5
     assert graph == [e + w for e, w in zip(eager, warm[0])], (
         graph, eager, warm[0])
-    s = fs.settings
-    for pot, per in fs.chain_graph.per_replay.items():
-        # the BA's steps run inside its WHILE node
-        assert per["K3"] == 2 and per["K2"] == 1, per
-        assert per["K4"] == 1 + s.gn_its_on_point_activation, per
+    for pot, per in fs.fused_graph.per_replay.items():
+        assert per == dict(K1=1, K2=0, K3=0, K4=0), per
 
 
 def test_chain_graph_capture_error_raises_on_the_card():
-    """A host read inside the chain's captured body fails the capture;
-    the error reaches the caller and no eager chain takes its place."""
+    """A host read inside the chain's captured body fails the fused
+    frame's capture; the error reaches the caller and no eager chain
+    takes its place."""
     from sos_slam_tpu_torch.models import chain_graph as CG
     dev = _dev()
     imgs = _mono_images(dev, n=16)
@@ -1169,7 +1197,7 @@ def test_chain_graph_capture_error_raises_on_the_card():
         return out
 
     def feed(fs, i):
-        g = fs.chain_graph
+        g = fs.fused_graph
         eager_before.append(sum(g.eager.values()))
         fs.add_active_frame(imgs[i], timestamp=0.05 * i, frame_id=i)
 
@@ -1179,63 +1207,75 @@ def test_chain_graph_capture_error_raises_on_the_card():
             _mono_run(dev, imgs, cuda_graphs=True, feed=feed)
     finally:
         CG.flag_frames = real
-    # the eager chains before it are the bootstrap's two; none after
-    assert eager_before[-1] == 2, eager_before
+    # the eager chain before it is the classic keyframe's; none after
+    assert eager_before[-1] == 1, eager_before
     x = torch.ones(4, device=dev) + 1.0       # the card still works
     torch.cuda.synchronize()
     assert float(x.sum()) == 8.0
 
 
 def test_chain_graph_syncs_on_the_card():
-    """A frame whose dispatch replays the keyframe chain's graphs (no
-    retry, no dispatch again) makes at most two synchronising calls in
-    the graph form (need_kf, and what completing a frame reads). The
-    eager form's count of the same frames is printed beside it, and each
-    call is named by file and line."""
+    """The dispatch of a frame that makes a keyframe (its chain run in the
+    fused graph's IF node; no capture, no dispatch again) makes no
+    synchronising call in the graph form: the host learns the decision
+    at the frame's completion. The eager form's count of the same frames
+    is printed beside it, each call named by file and line."""
+    from sos_slam_tpu_torch.models.full_system import FullSystem
+    from sos_slam_tpu_torch.utils import synthetic
+    from sos_slam_tpu_torch.utils.config import default_settings
     dev = _dev()
     imgs = _mono_images(dev)
-    counts, where, clean = {}, {}, {}
+    s = default_settings(max_window_frames=8, max_points=512,
+                         max_immature=1024, max_track_pts=4096,
+                         desired_point_density=400.0,
+                         desired_immature_density=400.0)
+    counts, where = {}, {}
     for cuda_graphs in (False, True):
-        from sos_slam_tpu_torch.models.full_system import FullSystem
-        from sos_slam_tpu_torch.utils import synthetic
-        from sos_slam_tpu_torch.utils.config import default_settings
-        s = default_settings(max_window_frames=8, max_points=512,
-                             max_immature=1024, max_track_pts=4096,
-                             desired_point_density=400.0,
-                             desired_immature_density=400.0)
         fs = FullSystem(synthetic.default_calib(256, 192), s, device=dev,
                         cuda_graphs=cuda_graphs)
-        if cuda_graphs:
-            g, fg = fs.chain_graph, fs.frame_graph
-            marks = []
-            real_add = fs.add_active_frame
-
-            def add(*a, **kw):
-                before = (sum(g.replays.values()), fg.retries,
-                          len(fs.telemetry.timers["redispatch"]),
-                          len(g.capture_ms))
-                real_add(*a, **kw)
-                after = (sum(g.replays.values()), fg.retries,
-                         len(fs.telemetry.timers["redispatch"]),
-                         len(g.capture_ms))
-                marks.append(after[0] == before[0] + 1
-                             and after[1:] == before[1:])
-            fs.add_active_frame = add
         counts[cuda_graphs], where[cuda_graphs] = _syncs_per_frame(fs, imgs)
-        if cuda_graphs:
-            clean = [i for i, ok in enumerate(marks) if ok]
-    assert len(clean) >= 3, clean
+        kf = set(fs.kf_shell_ids)
+    clean = [i for i in counts[True] if i in kf
+             and isinstance(where[True][i], list)]
+    assert len(clean) >= 3, (kf, where[True])
     graph = [counts[True][i] for i in clean]
-    eager = [counts[False][i] for i in clean]
-    print(f"synchronising calls of a frame that replays the keyframe "
-          f"chain's graphs, frames {clean}: graph form {graph}, eager form "
-          f"{eager}; where, frame {clean[-1]}: graph form "
-          f"{where[True][clean[-1]]}, eager form {where[False][clean[-1]]}")
-    assert max(graph) <= 2, (graph, [where[True][i] for i in clean])
+    eager = [counts[False].get(i) for i in clean]
+    print(f"synchronising calls of the dispatch of a frame that makes a "
+          f"keyframe, frames {clean}: graph form {graph}, eager form "
+          f"{eager}; where, frame {clean[-1]}: eager form "
+          f"{where[False].get(clean[-1])}")
+    assert max(graph) == 0, [where[True][i] for i in clean]
+
+
+@pytest.mark.parametrize("pot", [1, 2, 3, 4])
+def test_fused_graph_rung_bit_for_bit_on_the_card(pot):
+    """The fused frame graph of each selector rung (the rung set by hand
+    at the first fused frame, its chains selecting at it until the
+    density adaptation moves it) bit for bit the eager form on the card,
+    and no dispatch of a graph-form frame synchronises."""
+    dev = _dev()
+    imgs = _mono_images(dev)
+    runs, syncs = {}, {}
+    for cuda_graphs in (False, True):
+        def feed(fs, i):
+            if fs._fused_active() and "rung" not in fs.__dict__:
+                fs.rung = fs._sel_pot = pot
+            fs.add_active_frame(imgs[i], timestamp=0.05 * i, frame_id=i)
+
+        fs = _mono_run(dev, imgs[:2], cuda_graphs=cuda_graphs)
+        syncs[cuda_graphs] = _dispatch_syncs(
+            fs, lambda i, fs=fs: feed(fs, i), range(2, len(imgs)))
+        runs[cuda_graphs] = fs
+    a, b = runs[False], runs[True]
+    _assert_same_run(a, b)
+    assert pot in b.fused_graph.graphs and b.fused_graph.chains[pot] >= 1
+    counts, where = syncs[True]
+    clean = [i for i in counts if isinstance(where[i], list)]
+    assert clean and max(counts[i] for i in clean) == 0, where
 
 
 # ---------------------------------------------------------------------------
-# the VIO keyframe chain as CUDA graphs (models/chain_graph.py)
+# the VIO keyframe chain inside the fused VIO frame graph
 # ---------------------------------------------------------------------------
 def _vio_run(dev, cuda_graphs, feed=None, n=44):
     """The flagship scene (stereo + spline VIO, utils/synthetic's sine
@@ -1270,9 +1310,11 @@ def _vio_run(dev, cuda_graphs, feed=None, n=44):
 
 
 def test_vio_chain_graph_replays_bit_for_bit_on_the_card():
-    """The VIO keyframe chain's graphs (the visual-inertial BA bounded,
-    the stereo scale solve's branch taken on the device) against the
-    eager chain (cuda_graphs=False) on the card: every keyframe, both
+    """The fused VIO frame's graphs (the staged IMU block masked on the
+    device, the VIO chain under the need_kf IF node, the visual-inertial
+    BA bounded, the stereo scale solve's branch taken on the device)
+    against the eager form (cuda_graphs=False) on the card: every
+    keyframe, both
     trajectories, and every tensor of the window, the immature pool and
     the IMU state the same bits; K1-K4 launches the eager form's plus the
     capture warm-ups'."""
@@ -1289,10 +1331,10 @@ def test_vio_chain_graph_replays_bit_for_bit_on_the_card():
                                                 feed=feed))
     assert n_graph == [e + w for e, w in zip(n_eager, warm[0])], (
         n_graph, n_eager, warm[0])
-    g = graph.chain_graph
-    assert eager.chain_graph is None and graph.imu_initialized
-    assert sum(g.replays.values()) >= 2, g.replays
-    assert set(g.eager) <= {"classic", "budget", "export", "rung"}, g.eager
+    g = graph.fused_graph
+    assert eager.fused_graph is None and graph.imu_initialized
+    assert sum(g.chains.values()) >= 2, g.chains
+    assert set(g.eager) <= {"classic"}, g.eager
     assert 0 < g.pool_bytes <= torch.cuda.memory_reserved(dev)
     _assert_same_run(eager, graph)
     exact(eager.trajectory(scaled=True), graph.trajectory(scaled=True))
@@ -1303,13 +1345,13 @@ def test_vio_chain_graph_replays_bit_for_bit_on_the_card():
 
 
 def _vio_launch_windows():
-    """The flagship frames from the VIO chain's capture on, each under
-    torch.profiler, in this process: [(frame, chain replays, {kernel:
-    seen}, {kernel: counted}, {kernel: inside conditional nodes},
-    {kernel: inside, as the profiler shows them}), ...] and the chain's
-    launches a replay by rung. Each window opens with 1000 throwaway
-    launches, since the profiler may drop the first device events of a
-    window."""
+    """The flagship frames from the fused VIO frame's capture on, each
+    under torch.profiler, in this process: [(frame, keyframe chains run
+    in the window's replay, {kernel: seen}, {kernel: counted}, {kernel:
+    inside conditional nodes}, {kernel: inside, as the profiler shows
+    them}), ...] and the graph's launches a replay outside its nodes by
+    rung. Each window opens with 1000 throwaway launches, since the
+    profiler may drop the first device events of a window."""
     from torch.profiler import ProfilerActivity, profile
     from sos_slam_tpu_torch.models import chain_graph as CG
     from sos_slam_tpu_torch.ops import control
@@ -1319,16 +1361,19 @@ def _vio_launch_windows():
     seen = []
 
     def feed(fs, add, i):
-        g = fs.chain_graph
+        g = fs.fused_graph
         if i < 32 or not g.graphs:
             add(i)
             return
+        # the frames in flight complete before the window: the window's
+        # keyframe chain is the frame's own
+        fs.finish_pending()
         torch.cuda.synchronize()
         control.account()
         before = {c: fn.launches for c, fn in CG.COUNTERS}
         inside = dict(control.CREDITED)
         shown = dict(control.PROFILED)
-        replays = sum(g.replays.values())
+        replays = sum(g.chains.values())
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(1000):
                 torch.cuda._sleep(0)
@@ -1339,7 +1384,7 @@ def _vio_launch_windows():
         ev = prof.key_averages()
         assert any("spin_kernel" in e.key for e in ev)
         seen.append((
-            i, sum(g.replays.values()) - replays,
+            i, sum(g.chains.values()) - replays,
             {c: sum(e.count for e in ev if names[c] in e.key)
              for c in names},
             {c: fn.launches - before[c] for c, fn in CG.COUNTERS},
@@ -1348,17 +1393,19 @@ def _vio_launch_windows():
 
     fs = _vio_run(dev, cuda_graphs=True, feed=feed)
     return seen, {pot: dict(per)
-                  for pot, per in fs.chain_graph.per_replay.items()}
+                  for pot, per in fs.fused_graph.per_replay.items()}
 
 
 def test_vio_chain_graph_launch_counters_on_the_card():
-    """Over the flagship frames after the VIO chain's capture, under
+    """Over the flagship frames after the fused VIO frame's capture, under
     torch.profiler: a replay adds the launches captured outside its
-    conditional nodes (K1: the selection's pyramid; K2: the template; K3:
-    the final linearization and the point marginalization; K4: the
-    activation passes), exactly, and the nodes' runs credit those in
-    their bodies (the BA's GN steps in its WHILE node, the right image's
-    pyramid under the scale solve's IF node). The profiler sees each
+    conditional nodes (K1: the frame's pyramid), exactly, and the nodes'
+    runs, credited from each frame's readback, credit those in their
+    bodies (the whole VIO chain under the need_kf IF node: the
+    selection's pyramid, the template, the activation passes, the final
+    linearization and the point marginalization, the BA's GN steps in its
+    WHILE node, the right image's pyramid under the scale solve's IF
+    node). The profiler sees each
     kernel exactly as often as the counters say, those inside the nodes
     as it reports them (control.PROFILED: an IF body's each run, a WHILE
     body's once each time the node is entered). It runs in a process of
@@ -1380,9 +1427,7 @@ def test_vio_chain_graph_launch_counters_on_the_card():
     line = [x for x in run.stdout.splitlines() if x.startswith("WINDOWS ")]
     assert run.returncode == 0 and line, run.stderr[-4000:]
     seen, per_replay = json.loads(line[-1][len("WINDOWS "):])
-    from sos_slam_tpu_torch.utils.config import default_settings
-    s = default_settings()
-    want = dict(K1=1, K2=1, K3=2, K4=1 + s.gn_its_on_point_activation)
+    want = dict(K1=1, K2=0, K3=0, K4=0)
     for pot, per in per_replay.items():
         assert per == want, (pot, per)
     assert any(n for _, n, _, _, _, _ in seen), seen
@@ -1409,7 +1454,7 @@ def test_vio_chain_graph_capture_error_raises_on_the_card():
         return out
 
     def feed(fs, add, i):
-        eager.append(sum(fs.chain_graph.eager.values()))
+        eager.append(sum(fs.fused_graph.eager.values()))
         add(i)
 
     CG.vio_tail = reads_host
@@ -1425,49 +1470,34 @@ def test_vio_chain_graph_capture_error_raises_on_the_card():
 
 
 def test_vio_chain_syncs_on_the_card():
-    """A flagship frame whose dispatch replays the VIO chain's graphs (no
-    retry, no capture, no dispatch again) makes at most two synchronising
-    calls in the graph form. The eager form's count of the same frames is
-    printed beside it, each call named by file and line."""
-    import warnings
+    """The dispatch of a flagship frame that makes a VIO keyframe (no
+    capture, no dispatch again) makes no synchronising call in the graph
+    form. The eager form's count of the same frames is printed beside it,
+    each call named by file and line."""
     dev = _dev()
-    counts, where, clean = {}, {}, []
+    counts, where, kf = {}, {}, None
     for cuda_graphs in (False, True):
-        c, w_ = {}, {}
+        box = {}
 
-        def feed(fs, add, i, c=c, w_=w_, graphs=cuda_graphs):
-            g, fg = fs.chain_graph, fs.frame_graph
-            mark = (sum(g.replays.values()), fg.retries,
-                    len(g.capture_ms),
-                    len(fs.telemetry.timers["redispatch"])) if graphs \
-                else None
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                with warnings.catch_warnings(record=True) as got:
-                    warnings.simplefilter("always")
-                    add(i)
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-            syncs = [x for x in got if "synchroniz" in str(x.message)]
-            c[i] = len(syncs)
-            w_[i] = [f"{x.filename.split('/')[-1]}:{x.lineno}"
-                     for x in syncs]
-            if graphs:
-                now = (sum(g.replays.values()), fg.retries,
-                       len(g.capture_ms),
-                       len(fs.telemetry.timers["redispatch"]))
-                if now[0] == mark[0] + 1 and now[1:] == mark[1:]:
-                    clean.append(i)
-        _vio_run(dev, cuda_graphs=cuda_graphs, feed=feed)
-        counts[cuda_graphs], where[cuda_graphs] = c, w_
-    assert len(clean) >= 2, clean
+        def feed(fs, add, i, box=box):
+            # frames 30-43 go in one call, their dispatches counted
+            if i < 30:
+                add(i)
+            elif i == 30:
+                box["got"] = _dispatch_syncs(fs, add, range(30, 44))
+        fs = _vio_run(dev, cuda_graphs=cuda_graphs, feed=feed)
+        counts[cuda_graphs], where[cuda_graphs] = box["got"]
+        kf = set(fs.kf_shell_ids)
+    clean = [i for i in counts[True] if i in kf
+             and isinstance(where[True][i], list)]
+    assert len(clean) >= 2, (kf, where[True])
     graph = [counts[True][i] for i in clean]
-    eager = [counts[False][i] for i in clean]
-    print(f"synchronising calls of a flagship frame that replays the VIO "
-          f"chain's graphs, frames {clean}: graph form {graph}, eager form "
-          f"{eager}; where, frame {clean[-1]}: graph form "
-          f"{where[True][clean[-1]]}, eager form {where[False][clean[-1]]}")
-    assert max(graph) <= 2, (graph, [where[True][i] for i in clean])
+    eager = [counts[False].get(i) for i in clean]
+    print(f"synchronising calls of the dispatch of a flagship frame that "
+          f"makes a VIO keyframe, frames {clean}: graph form {graph}, eager "
+          f"form {eager}; where, frame {clean[-1]}: eager form "
+          f"{where[False].get(clean[-1])}")
+    assert max(graph) == 0, [where[True][i] for i in clean]
 
 
 # ---------------------------------------------------------------------------
@@ -1486,7 +1516,8 @@ def _probe():
 
 def test_control_cases_on_the_card():
     """Every case of scripts/torch_graph_probe.py's conditional nodes (an
-    IF taken and skipped, an IF with an else, nested IFs, a WHILE of no
+    IF taken and skipped, an IF with an else, nested IFs, five bodies
+    deep as the fused frame's deepest path, a WHILE of no
     trip, of three and to its cap, the counters' credit and the setter
     launches) replays bit for bit its eager form and its plain twin; a
     skipped IF node and a WHILE trip cost some microseconds of device
@@ -1494,7 +1525,7 @@ def test_control_cases_on_the_card():
     dev = _dev()
     probe = _probe()
     cases = probe.control_cases(dev)
-    assert len(cases) == 7
+    assert len(cases) == 8
     assert all(ok for _, ok, _ in cases), cases
     us = probe.node_costs(dev, n=100, trips=200)
     print(f"device us: {us}")
@@ -1550,7 +1581,7 @@ def _chain_both(fs, a, kf):
     keys = torch.as_tensor(CG.selection_keys(key), device=fs.device)
     ref = body(fs, st, imm, pyr, T, aff, exp, stats, host_out, n_kf, keys,
                pot, max_its, False, kf)
-    assert sum(g.replays.values()) == 1 and not g.eager
+    assert sum(g.replays.values()) == 1
     return got, ref
 
 

@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from sos_slam_tpu_torch.models import frame_graph as FG
+from sos_slam_tpu_torch.models import fused_graph as FU
 from sos_slam_tpu_torch.models.full_system import FullSystem
 from sos_slam_tpu_torch.ops import tracker as TK
 from sos_slam_tpu_torch.ops.image import build_pyramid
@@ -46,12 +47,13 @@ def _scene():
 
 def _drive(graph: bool, record=None):
     """The mono scene through the pipelined fused path (depth 3): the eager
-    step, or with `graph` the FrameGraph's bodies. `record`: a list that
-    gets each eager step's inputs."""
+    step, or with `graph` the FrameGraph's body inside the fused frame's
+    (models/fused_graph.py). `record`: a list that gets each eager step's
+    inputs."""
     calib, imgs = _scene()
     fs = FullSystem(calib, default_settings(**SETTINGS_KW), device="cpu")
     if graph:
-        fs.frame_graph = FG.FrameGraph(fs)
+        fs.fused_graph = FU.FusedFrameGraph(fs)
     if record is not None:
         step, need = fs._frame_step, fs._need_kf
 
@@ -327,8 +329,8 @@ def test_device_path_equals_eager_path(runs):
     exact(eager.trajectory(), graph.trajectory())
     for a, b in zip((*eager.ba, *eager.imm), (*graph.ba, *graph.imm)):
         exact(a, b)
-    g = graph.frame_graph
-    assert g.replays >= 10
-    # the window and templates are copied in after a keyframe only
-    assert 2 <= g.copy_ins["ba"] < g.replays
-    assert g.copy_ins["templates"] == graph.n_levels * g.copy_ins["ba"]
+    g = graph.fused_graph
+    assert g.frame.replays >= 10
+    # the state is updated in place: copied in at the first fused frame
+    # only (no frame went again)
+    assert g.copy_ins == 1
