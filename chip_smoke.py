@@ -135,7 +135,7 @@ In order, failing (exit code != 0, no result line) at the first fault:
      the graph pool's bytes, the replays, the keyframe chains in them,
      the eager chains by reason (only `classic`, gated), the retries
      (inside the graph; no frame stepped eagerly, gated) and the LM
-     iterations (mean and most) of the primary track by level; one more
+     trips (mean and most) of the primary track a frame; one more
      run of each form counting the synchronising calls of each frame's
      dispatch apart from the completions in the same call
      (torch.cuda.set_sync_debug_mode): 0 in the dispatch of every frame
@@ -1757,6 +1757,7 @@ def flagship(torch, dev, card, kernels):
         k3j = Recorder(BP, "fused_iteration", 1, kind=k3_caller)
         fj = FSM.FullSystem(calib, settings, stereo=stereo, device=dev,
                             jax_form=form == "jax", cuda_graphs=False)
+        chain = StageTimer(torch, fj, "_kf_chain_vio")
         stages = [StageTimer(torch, *o) for o in (
             (E, "optimize_vio"), (WIN, "build_track_template"),
             (E, "marginalize_points_vio"), (E, "marginalize_frame_vio"),
@@ -1765,12 +1766,12 @@ def flagship(torch, dev, card, kernels):
         for i in range(FLAG_FRAMES):
             feed(fj, i)
         fj.finish_pending()
-        for st_ in stages:
+        for st_ in stages + [chain]:
             st_.restore()
         k3j.restore()
         ate_j, _ = synthetic.metric_ate(fj.trajectory(scaled=True),
                                         scene["poses"])
-        kc = fj.telemetry.timers["kf_chain"]
+        kc = chain.ms
         chains[form] = (sum(kc), len(kc))
         log(f"{tag} [{form} fold, stages timed, eager form] keyframes "
             f"{fj.kf_shell_ids}, scaled ATE {ate_j:.4f} m, scale "
@@ -1814,7 +1815,7 @@ def pipeline_phase(torch, dev, card, mono, flag):
     redo = []           # each depth-3 run's rung re-dispatches: (n, ms)
     window = {0: [], 3: []}     # ms of the fps window
     stages = {0: [], 3: []}     # host stage timers summed over the window
-    names = ("frame", "step", "kf_chain", "complete", "redispatch")
+    names = ("frame", "complete", "redispatch", "dev.frame", "dev.chain")
     for p in range(PIPE_PAIRS):
         # the order alternates (0, 3), (3, 0), ...: neither depth always
         # runs second
@@ -1860,8 +1861,8 @@ def pipeline_phase(torch, dev, card, mono, flag):
                 f"{PIPE_PROF_FROM - 1}), frames {PIPE_PROF_FROM}-"
                 f"{N_FRAMES - 1} under the profiler: wall {wall:.1f} "
                 f"ms/frame, device {dev_ms:.2f} ms/frame, card busy "
-                f"{100 * busy[depth][-1]:.1f}%; host stage timers over "
-                f"the fps window: " + ", ".join(
+                f"{100 * busy[depth][-1]:.1f}%; telemetry series over "
+                f"the fps window (dev.*: device stamps): " + ", ".join(
                     f"{k} n={n} {ms:.1f} ms"
                     for k, (n, ms) in stages[depth][-1].items())
                 + "; frames dispatched again "
@@ -2809,7 +2810,7 @@ def graph_phase(torch, dev, card, mono, flag):
     form the capture ms, the graph pool's bytes, the replays, the keyframe
     chains in them, the eager chains by reason (only `classic`, gated),
     the retries (run inside the graph: the eager step is never called,
-    gated) and the LM iterations of the primary track a frame by level;
+    gated) and the LM trips of the primary track a frame;
     K1-K4 launches of each run (the eager form's gated at
     MONO_EAGER_LAUNCHES, the graph form's at the eager form's plus its
     capture warm-ups), GN steps a keyframe, the selection keys' host ms;
@@ -2885,8 +2886,7 @@ def graph_phase(torch, dev, card, mono, flag):
             cg = fs.fused_graph
             if cg is not None:
                 g = cg.frame
-                it = (g.lm_iters[0].cpu().numpy() / max(g.replays, 1))
-                most = g.lm_iters_max[0].tolist()
+                trips = fs.telemetry.timers["track.lm_trips"]
                 extra = (f"; the fused frame graphs: K1 kernels the "
                          f"profiler saw {k1[0]} in {k1[1]} replays; capture "
                          "ms " + ", ".join(f"rung {k}: {v:.1f}" for k, v
@@ -2903,11 +2903,11 @@ def graph_phase(torch, dev, card, mono, flag):
                          f"{k1[2]} ((seen, counted, inside conditional "
                          f"nodes, shown by control.PROFILED's rule) "
                          f"{k1[4]}), the selection keys' host ms median "
-                         f"{median(cg.draw_ms):.3f}; LM iterations of the "
-                         "primary track a frame by level (0 = finest), "
-                         "mean / most: " + ", ".join(
-                             f"{lv}: {v:.2f} / {m}" for lv, (v, m)
-                             in enumerate(zip(it, most))))
+                         f"{median(cg.draw_ms):.3f}; LM trips of the "
+                         "primary track a frame, all levels, mean / most "
+                         "(telemetry track.lm_trips): "
+                         f"{sum(trips) / max(len(trips), 1):.2f} / "
+                         f"{max(trips, default=0):.0f}")
             log(f"{tag} mono {W}x{H} {name[graphs]} form: steady fps "
                 f"{fps[graphs][-1]:.2f} (frames {WARMUP}-"
                 f"{PIPE_PROF_FROM - 1}), frames dispatching a keyframe "

@@ -16,6 +16,9 @@
 // IF node and one WHILE trip). The design keeps a node
 // to one setter launch: the IF setter counts the branch it takes, the
 // WHILE setter counts the trip and tests the trip cap in the same thread.
+// Beside them, a one-thread stamp kernel writes %globaltimer into one slot:
+// the fused frame's device stamps (models/fused_graph.py), inside its
+// graph and its bodies.
 //
 // The host half uses the driver API (linked -lcuda), so that it meets the
 // capture that PyTorch began in the one driver context, whatever runtime
@@ -83,6 +86,15 @@ __global__ void set_while_kernel(cudaGraphConditionalHandle h, const bool* go,
   cudaGraphSetConditional(h, more ? 1u : 0u);
 }
 
+// The device's clock (%globaltimer, ns) into *slot: one thread, 8 bytes.
+// A kernel node, so a conditional body may hold it; it counts in no
+// launch counter (not gc_launch_count either).
+__global__ void stamp_kernel(long long* slot) {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  *slot = (long long)t;
+}
+
 static cudaGraphConditionalHandle handle_of(const void* h) {
   return *(const unsigned long long*)h;
 }
@@ -123,6 +135,11 @@ extern "C" int gc_set_while(void* handle, const void* go, void* trips,
   set_while_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(
       handle_of(handle), (const bool*)go, (int*)trips, cap, step,
       (long long*)runs);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int gc_stamp(void* slot, void* stream) {
+  stamp_kernel<<<1, 1, 0, (cudaStream_t)stream>>>((long long*)slot);
   return (int)cudaGetLastError();
 }
 

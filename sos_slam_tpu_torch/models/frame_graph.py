@@ -149,11 +149,6 @@ class FrameGraph:
                         residuals=torch.zeros(1, 6, device=dev),
                         flow=torch.zeros(1, 2, device=dev),
                         good=torch.zeros(1, dtype=torch.bool, device=dev))
-        # the LM iterations the primary track ran at each level, summed
-        # over the replays and their most in one
-        self.lm_iters = torch.zeros(1, fs.n_levels, dtype=torch.int32,
-                                    device=dev)
-        self.lm_iters_max = torch.zeros_like(self.lm_iters)
         self._held = {}      # static input -> the object it holds
         self.graph = None
         self.per_replay = {}  # counter -> launches a replay outside nodes
@@ -176,22 +171,21 @@ class FrameGraph:
 
     def _primary(self):
         """The pyramid + the primary track + `miss` (not prim_ok), the
-        track into `sel`."""
+        track into `sel`, and `iters`, the LM trips it made by level."""
         fs, i = self.fs, self.inp
         pyr, _ = IMG.build_pyramid(self.img, fs.n_levels)
         exposures = torch.stack([i["ref_exp"], i["exposure"]])
-        iters = torch.zeros_like(self.lm_iters)
+        iters = torch.zeros(1, fs.n_levels, dtype=torch.int32,
+                            device=self.device)
         out = TK.track_newest_coarse(
             pyr, self.templates, i["T_primary"][None], i["aff"],
             i["ref_aff"], exposures,
             torch.full((6,), float("nan"), device=self.device), fs._intr,
             fs.n_levels, coarse_cutoff_th=fs.settings.coarse_cutoff_th,
             huber=fs.settings.huber_th, bounded=True, iters=iters)
-        self.lm_iters += iters
-        torch.maximum(self.lm_iters_max, iters, out=self.lm_iters_max)
         control.copy_into((self.sel[k] for k in _SEL_KEYS),
                    (out[k] for k in _SEL_KEYS))
-        self.a = dict(pyr=pyr, exposures=exposures, out=out,
+        self.a = dict(pyr=pyr, exposures=exposures, out=out, iters=iters,
                       miss=~primary_ok(out, i["th"]))
 
     def _retry(self):
@@ -271,8 +265,6 @@ class FrameGraph:
         for n, fn in control.counters():
             self.per_replay[n] = fn.launches - before[n]
             fn.launches = before[n]
-        self.lm_iters.zero_()
-        self.lm_iters_max.zero_()
         self.graph = g
         torch.cuda.synchronize(dev)
         # the private pool's own segments

@@ -67,6 +67,7 @@ are skipped, so the odometry runs op for op as it does without them.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import os
 from typing import List, Optional
@@ -91,6 +92,7 @@ from sos_slam_tpu_torch.ops import tracker as TK
 from sos_slam_tpu_torch.ops.image import build_pyramid, interp_bilinear
 from sos_slam_tpu_torch.ops.numerics import at, inv
 from sos_slam_tpu_torch.utils import cuda_build, lie, rng
+from sos_slam_tpu_torch.utils import telemetry as TM
 from sos_slam_tpu_torch.utils.camera import CalibPyramid
 from sos_slam_tpu_torch.utils.config import Settings
 from sos_slam_tpu_torch.utils.telemetry import Telemetry
@@ -164,6 +166,12 @@ def trace_new(ba: B.BAState, imm: TR.ImmatureState, dI0_new, T_cw_new,
     affs = TK.aff_from_to(ba.exposure, exposure_new, aff_cur.T,
                           aff_new[:, None].expand(2, ba.F)).T
     return TR.trace_points(imm, dI0_new, KRKi, Kt, affs, w, h, settings)
+
+
+def _words(shape, dtype) -> int:
+    """The float32 words a readback value takes: an int64 bit view
+    (`fused_graph.BITS`: the stamps) two each."""
+    return int(np.prod(shape)) * (2 if dtype == FU.BITS else 1)
 
 
 def _clamp0(i):
@@ -321,10 +329,13 @@ class FullSystem:
         self.marg_callbacks = []     # loop-closure hooks: fn(kf_record)
         self.output_wrappers = []    # Output3DWrapper publishers
         self.stats = dict(n_kf=0, n_frames=0)
-        # keyframes by the GN steps of their BA
-        self.kf_n_its = collections.Counter()
         self._prior_rows = {}
         self.telemetry = Telemetry(device=dev)
+        # the fused graph's dispatches whose device stamps the telemetry
+        # has not had yet, in stream order (`_take_stamps`), and whether
+        # one was made since the last clock calibration
+        self._sent = collections.deque()
+        self._stamping = False
         # the fused path's frame (step, decision, keyframe chain) as CUDA
         # graphs, one a selector rung (None: eager)
         graphs = cuda_graphs and dev.type == "cuda"
@@ -371,12 +382,35 @@ class FullSystem:
             self._initializer_step(pyr, absgrads, shell, exposure)
             return
         if self._fused_active():
-            with self.telemetry.timed("frame"):
+            with self.telemetry.timed("frame", frame_id):
                 self._add_frame_fused(img, shell, exposure)
             return
         self.finish_pending()
-        with self.telemetry.timed("track"):
+        with self.telemetry.timed("track", frame_id):
             self._track_classic(img, shell, exposure)
+
+    @property
+    def kf_n_its(self) -> collections.Counter:
+        """Keyframes by the GN steps of their BA: a view of the
+        telemetry's `ba.gn_its` series."""
+        return collections.Counter(
+            int(n) for n in self.telemetry.timers.get("ba.gn_its", ()))
+
+    @contextlib.contextmanager
+    def intake(self, frame_id: int):
+        """The block as frame `frame_id`'s intake (SlamNode.process: the
+        frame's conversion, upload and remap): the host span `node.intake`
+        and, on the fused graph's path, the device stamps `intake.begin`
+        and `intake.end` around it, which the frame's first dispatch
+        carries to the telemetry (models/fused_graph.py)."""
+        g = self.fused_graph
+        with self.telemetry.timed("node.intake", frame_id):
+            if g is not None:
+                control.stamp(g.stamps, TM.INTAKE_BEGIN)
+            yield
+            if g is not None:
+                control.stamp(g.stamps, TM.INTAKE_END)
+                g.intake_for = frame_id
 
     def _image(self, image) -> torch.Tensor:
         return torch.as_tensor(np.array(image, np.float32)
@@ -424,7 +458,7 @@ class FullSystem:
         while len(q) > depth:
             pot_before = self._sel_pot
             rec = q.popleft()
-            with self.telemetry.timed("complete"):
+            with self.telemetry.timed("complete", rec["shell"].id):
                 redo = self._complete_fused(rec)
             self._last_chain = None if redo else rec
             if self.is_lost or self.init_failed:
@@ -437,7 +471,7 @@ class FullSystem:
                     again = self._dispatch_fused(
                         r["image"], r["shell"], r["exposure"],
                         self._last_chain, r["stereo_right"])
-                    with self.telemetry.timed("complete"):
+                    with self.telemetry.timed("complete", r["shell"].id):
                         redo2 = self._complete_fused(again)
                     self._last_chain = None if redo2 else again
                     if self.is_lost or self.init_failed:
@@ -457,7 +491,7 @@ class FullSystem:
                 q.extend(stale[:first])
                 src = stale[first - 1] if first else self._last_chain
                 for r in stale[first:]:
-                    with self.telemetry.timed("redispatch"):
+                    with self.telemetry.timed("redispatch", r["shell"].id):
                         src = self._dispatch_fused(r["image"], r["shell"],
                                                    r["exposure"], src,
                                                    r["stereo_right"])
@@ -469,8 +503,58 @@ class FullSystem:
         credit the kernels' launch counters with the conditional graph
         nodes' runs so far (`ops/control.py`)."""
         self._drain_pending(0)
+        if self._stamping:
+            self._end_stamps()
         if self.device.type == "cuda":
             control.account(self.device)
+
+    # ------------------------------------------------------------------
+    # the fused frame's device stamps (utils/telemetry.py)
+    # ------------------------------------------------------------------
+    def _calibrate(self) -> None:
+        """Map the card's clock onto the host's (`Telemetry.calibrate`):
+        three stamps into the fused graph's clock slot, each between two
+        host reads, the card waited for."""
+        g = self.fused_graph
+        self.telemetry.calibrate([control.clock_pair(g.stamps, g.clock_slot)
+                                  for _ in range(3)])
+
+    def _take_stamps(self, upto=None) -> None:
+        """Hand the telemetry the device stamps of the graph dispatches,
+        in stream order, up to `upto` (a record completing, its readback
+        fetched): those before it were dispatched again or cleared,
+        dropped unfetched, and count once their event has passed (so that
+        their device time is not taken for idle). None: all of them (the
+        card waited for)."""
+        q = self._sent
+        if q and self.telemetry.clock is None:
+            self._calibrate()
+        while q:
+            r = q[0]
+            done = r["readback"][2]
+            if upto is not None and r is not upto and done is not None \
+                    and not done.query():
+                return
+            q.popleft()
+            self.telemetry.stamped(r["shell"].id,
+                                   self._stamps_of(r["readback"]),
+                                   r["intake"], r is upto, r["opens"])
+            if r is upto:
+                return
+
+    def _end_stamps(self) -> None:
+        """With no frame in flight: the dispatches dropped last, the last
+        dispatch's `post.end` (read once the card is idle), then a new
+        calibration, which closes the telemetry's device timeline."""
+        g = self.fused_graph
+        if self._sent:
+            if g.on_card:
+                torch.cuda.synchronize(self.device)
+            self._take_stamps()
+        if self.telemetry.clock is not None:
+            self.telemetry.ended(int(g.stamps[TM.POST_END]))
+        self._calibrate()
+        self._stamping = False
 
     def prewarm(self, pots=(1, 2, 3, 4)) -> None:
         """Run the rare variants of the per-frame work once, so that their
@@ -486,8 +570,9 @@ class FullSystem:
         adaptation then stays among them, as the JAX package's does.
 
         Pure dispatches on the current state: no state, key, rung or
-        telemetry changes. Requires an initialized system with a built
-        tracker template; completes the frames in flight first."""
+        telemetry changes but the clock's calibration (`_calibrate`).
+        Requires an initialized system with a built tracker template;
+        completes the frames in flight first."""
         self.finish_pending()
         if not self.initialized or self.templates is None:
             return
@@ -537,6 +622,10 @@ class FullSystem:
         if cuda:
             torch.cuda.synchronize(self.device)
             control.account(self.device)
+        if self.fused_graph is not None:
+            self._sent.clear()          # its dispatches are no frames
+            self._calibrate()
+            self._stamping = False
 
     def trajectory(self, scaled: bool = False) -> np.ndarray:
         """poses.txt contract: one row `id x y z` per keyframe
@@ -596,22 +685,39 @@ class FullSystem:
     @staticmethod
     def _fetch(staged) -> dict:
         """Wait for a staged readback and unpack it into numpy arrays of
-        the staged shapes (bool where the value was bool); credit the run
-        counts it carries (`control.credit_staged`)."""
+        the staged shapes (bool where the value was bool, int64 where it
+        rode as a bit view: `fused_graph.BITS`); credit the run counts it
+        carries (`control.credit_staged`)."""
         spec, host, done, token = staged
         if done is not None:
             done.synchronize()
         flat = host.numpy()
         if token is not None:
-            n = sum(int(np.prod(sh)) for _, sh, _ in spec)
+            n = sum(_words(sh, dt) for _, sh, dt in spec)
             control.credit_staged(token, flat[n:].view(np.int64))
         out, at = {}, 0
         for k, shape, dtype in spec:
-            n = int(np.prod(shape))
-            a = flat[at:at + n].reshape(shape)
-            out[k] = a.astype(bool) if dtype == torch.bool else a.copy()
+            n = _words(shape, dtype)
+            a = flat[at:at + n].copy()
+            if dtype == FU.BITS:
+                a = a.view(np.int64)
+            a = a.reshape(shape)
+            out[k] = a.astype(bool) if dtype == torch.bool else a
             at += n
         return out
+
+    @staticmethod
+    def _stamps_of(staged):
+        """The device stamps a fused frame's staged readback carries (its
+        host copy, which the caller knows to be complete)."""
+        spec, host, _, _ = staged
+        at = 0
+        for k, shape, dtype in spec:
+            n = _words(shape, dtype)
+            if k == "stamps":
+                return host.numpy()[at:at + n].copy().view(np.int64)
+            at += n
+        raise KeyError("the readback carries no stamps")
 
     # ------------------------------------------------------------------
     # initialization
@@ -973,15 +1079,13 @@ class FullSystem:
                 staged["gyro"], staged["ts"], staged["valid"],
                 staged["thresh"], bg)
 
-        with self.telemetry.timed("step"):
-            pyr, out, imm_new, accept, T_cw_new, stats_dev = \
-                self._frame_step(st, img, T_primary, T_hyps,
-                                 inp["T_cw_ref"], inp["aff"],
-                                 inp["ref_aff"], inp["ref_exp"], exp_t,
-                                 inp["th"])
-            need_kf = self._need_kf(out, accept, exp_t, inp["ref_exp"],
-                                    inp["first_rmse"], inp["n_kf"])
-            accept_t = torch.tensor(accept, device=dev)
+        pyr, out, imm_new, accept, T_cw_new, stats_dev = \
+            self._frame_step(st, img, T_primary, T_hyps, inp["T_cw_ref"],
+                             inp["aff"], inp["ref_aff"], inp["ref_exp"],
+                             exp_t, inp["th"])
+        need_kf = self._need_kf(out, accept, exp_t, inp["ref_exp"],
+                                inp["first_rmse"], inp["n_kf"])
+        accept_t = torch.tensor(accept, device=dev)
         aff_new = out["aff"][0]
         n_kf = inp["n_kf"]
         rec = dict(shell=shell, exposure=exposure, image=img,
@@ -995,10 +1099,8 @@ class FullSystem:
             args = (st, imm_new, pyr, T_cw_new, aff_new, exp_t, stats_dev,
                     inp["host_out"], n_kf, shell.id, self._max_its(n_kf + 1),
                     inp["scale_state"], self._sel_pot, right)
-            with self.telemetry.timed("kf_chain"):
-                chain_out = self._kf_chain_vio(*args, staged,
-                                               staged["t_kf"]) \
-                    if vio else self._kf_chain(*args)
+            chain_out = self._kf_chain_vio(*args, staged, staged["t_kf"]) \
+                if vio else self._kf_chain(*args)
             rec.update(chain_out)
             back.update(self._kf_readback(chain_out))
             bg = chain_out.get("bg")
@@ -1065,18 +1167,27 @@ class FullSystem:
                 chain["need_kf"]
         block = self._stage_imu_block(shell, self._t_prev_frame(
             shell, chain)) if self.settings.enable_imu else None
-        with self.telemetry.timed("step"):
-            got = g.dispatch(st, inp, prev_was_kf, chain, img, exposure,
-                             rng.fold_in(st["key"], shell.id), right,
-                             shell.shell_idx, block, self._sel_pot,
-                             self._exporting())
+        held = g.graphs.get(self._sel_pot)
+        got = g.dispatch(st, inp, prev_was_kf, chain, img, exposure,
+                         rng.fold_in(st["key"], shell.id), right,
+                         shell.shell_idx, block, self._sel_pot,
+                         self._exporting())
+        # the frame's first dispatch carries its intake's stamps
+        intake = g.intake_for == shell.id
+        if intake:
+            g.intake_for = None
         rec = dict(shell=shell, exposure=exposure, image=img,
                    stereo_right=right, pyr=got["pyr"],
                    need_kf=got["need_kf"], pot=self._sel_pot,
-                   state=dict(st, **got["state"]), nxt=got["nxt"])
+                   state=dict(st, **got["state"]), nxt=got["nxt"],
+                   intake=intake,
+                   opens=g.graphs.get(self._sel_pot) is not held)  # captured
         rec["readback"] = self._stage_flat(got["spec"], got["flat"],
                                            control.staged(self.device))
+        control.stamp(g.stamps, TM.POST_END)
         g.last = rec
+        self._sent.append(rec)
+        self._stamping = True
         return rec
 
     @staticmethod
@@ -1113,6 +1224,9 @@ class FullSystem:
             # with the readback
             need_kf = bool(got["need_kf"])
             self.fused_graph.frame.retries += int(got["miss"])
+            self.telemetry.observe("track.retry", got["miss"])
+            self.telemetry.observe("track.lm_trips", got["lm_trips"])
+            self._take_stamps(rec)
             if need_kf:
                 self.fused_graph.chains[rec["pot"]] += 1
                 if "marg" in got:
@@ -1187,22 +1301,21 @@ class FullSystem:
         achieve_th = self.last_coarse_rmse[0] * s.re_track_threshold
         best, achieved = pick(out)
         if not accept and (best is None or achieved >= achieve_th):
-            with self.telemetry.timed("fallback"):
-                _, perturbed = self._motion_hypotheses(
-                    lag=len(self.shells) - 1 - shell.shell_idx)
-                aff0 = np.asarray(self.shells[shell.shell_idx - 1].aff,
-                                  np.float32) \
-                    if shell.shell_idx >= 1 else np.zeros(2, np.float32)
-                coarse = run_batch(perturbed, aff0,
-                                   min_level=self.n_levels - 1)
-                res_c = coarse["residuals"][:, self.n_levels - 1]
-                res_c = np.where(np.isfinite(res_c), res_c, np.inf)
-                top2 = np.argsort(res_c)[:2]
-                out3 = run_batch(_pad_hyps([perturbed[i] for i in top2], 5),
-                                 aff0)
-                b3, a3 = pick(out3)
-                if b3 is not None and a3 < achieved:
-                    out, best, achieved = out3, b3, a3
+            _, perturbed = self._motion_hypotheses(
+                lag=len(self.shells) - 1 - shell.shell_idx)
+            aff0 = np.asarray(self.shells[shell.shell_idx - 1].aff,
+                              np.float32) \
+                if shell.shell_idx >= 1 else np.zeros(2, np.float32)
+            coarse = run_batch(perturbed, aff0,
+                               min_level=self.n_levels - 1)
+            res_c = coarse["residuals"][:, self.n_levels - 1]
+            res_c = np.where(np.isfinite(res_c), res_c, np.inf)
+            top2 = np.argsort(res_c)[:2]
+            out3 = run_batch(_pad_hyps([perturbed[i] for i in top2], 5),
+                             aff0)
+            b3, a3 = pick(out3)
+            if b3 is not None and a3 < achieved:
+                out, best, achieved = out3, b3, a3
         if best is None:
             shell.pose_valid = False
             shell.cam_to_world = self.shells[shell.shell_idx - 1] \
@@ -1334,7 +1447,7 @@ class FullSystem:
         shell = rec["shell"]
         slot = int(got["slot"])
         marg_ks = [int(k) for k in got["marg_ks"] if k >= 0]
-        self.kf_n_its[int(got["n_its"])] += 1
+        self.telemetry.observe("ba.gn_its", got["n_its"])
         self.frame_pyramids[slot] = rec["pyr"]
         self.frame_shell_idx.append(shell.shell_idx)
         self.kf_shell_ids.append(shell.id)

@@ -26,6 +26,18 @@ A replay reads nothing on the host: the host learns `need_kf` and the run
 counts from the readback when the frame completes (`FullSystem.
 _complete_fused`).
 
+Device stamps (`control.stamp`, %globaltimer) time the frame on the card,
+into the static `stamps` (utils/telemetry.py's STAMPS slots): the graph
+stamps `frame.begin` as its first node, zeroes its other slots, then
+stamps `track.end` after the pyramid, the primary track, the retry (and
+with IMU the gyro hypothesis), `step.end` after the trace, the stats and
+`need_kf`, `chain.end` as the chain branch's last node (0 where the chain
+is skipped) and `frame.end` after `chain_tail`; the readback carries the
+slots as a bit view. `FullSystem.intake` stamps `intake.begin` /
+`intake.end` around a frame's intake before its dispatch, and the
+dispatch stamps `post.end` after the record's clones and the readback's
+copy, which the next replay's readback carries.
+
 `FusedFrameGraph` holds the static buffers the body reads and updates in
 place (the frame's inputs and the chained ones, the state, the readback
 values) and, on a card, one graph per selector rung (`pot` is static in
@@ -57,6 +69,7 @@ from sos_slam_tpu_torch.models import frame_graph as FG
 from sos_slam_tpu_torch.models import imu as IM
 from sos_slam_tpu_torch.ops import control
 from sos_slam_tpu_torch.ops.numerics import at
+from sos_slam_tpu_torch.utils import telemetry as TM
 
 # the state a frame updates, in a record's order
 STATE_KEYS = ("ba", "imu", "imm", "dI", "min_act", "HdiF", "templates",
@@ -65,6 +78,9 @@ STATE_KEYS = ("ba", "imu", "imm", "dI", "min_act", "HdiF", "templates",
 # the state)
 _RES_KEYS = ("ba_stats", "T_cw_all_t", "affs_t", "slot", "marg_ks", "n_have",
              "host_out", "scale_out", "ecols", "marg", "marg_pts")
+# the readback's type of an int64 value that rides as a bit view (two
+# float32 words)
+BITS = "int64 bits"
 # the chained inputs beyond the frame step's, and their types
 _CHAINED = dict(n_kf=torch.int64, prev_was_kf=torch.bool,
                 n_frames=torch.int64, last_kf=torch.int64)
@@ -129,6 +145,12 @@ class FusedFrameGraph:
         # host ms of the recent frames' staged keys
         self.draw_ms = collections.deque(maxlen=64)
         self.last = None         # the record whose state the buffers hold
+        # the device stamps (module docstring), and a slot for the clock's
+        # calibration
+        self.stamps = torch.zeros(len(TM.STAMPS) + 1, dtype=torch.int64,
+                                  device=self.device)
+        self.clock_slot = len(TM.STAMPS)
+        self.intake_for = None   # the frame whose intake `stamps` holds
 
     # ------------------------------------------------------------------
     # the buffers
@@ -250,7 +272,11 @@ class FusedFrameGraph:
             control.copy_into((fr.inp["T_primary"], fr.inp["T_hyps"]), hyp)
             kf.update(staged=(acc, gyro, ts, valid), timestamp=t_kf)
         fr.no_kf.copy_(ch["n_kf"] == 0)
-        fr._frame()
+        fr._primary()
+        fr._retry()
+        control.stamp(self.stamps, TM.TRACK_END)
+        fr._finish()
+        control.stamp(self.stamps, TM.STEP_END)
         a, b = fr.a, fr.b
         return dict(st=st, imm=b["imm"], pyr=a["pyr"], T_cw_new=b["T_cw_new"],
                     aff_new=fr.sel["aff"][0], exposure=fr.inp["exposure"],
@@ -263,6 +289,8 @@ class FusedFrameGraph:
         fs, fr, st, ch, pf = (self.fs, self.frame, self.state, self.chained,
                               self.per_frame)
         s = fs.settings
+        control.stamp(self.stamps, TM.FRAME_BEGIN)
+        self.stamps[TM.TRACK_END:TM.POST_END].zero_()
         c = self._head()
         a, b, sel = fr.a, fr.b, fr.sel
         need = b["need_kf"]
@@ -283,7 +311,8 @@ class FusedFrameGraph:
             return fit(CG.skip_outputs(fs, st, b["imm"], ch["host_out"],
                                        ch["scale_state"]))
 
-        control.cond(need, chain, skip, out=dsts)
+        control.cond(need, chain, skip, out=dsts,
+                     then=lambda: control.stamp(self.stamps, TM.CHAIN_END))
         inp = dict(fr.inp, **ch)
         nxt = CG.chain_tail(need, self.res, inp, b["T_cw_new"], sel["aff"][0],
                             sel["residuals"][0, 0], b["accept"],
@@ -293,7 +322,8 @@ class FusedFrameGraph:
         dst = control._leaves([inp[k] for k in keys])
         control.copy_into(dst, _unaliased(
             dst, control._leaves([nxt[k] for k in keys])))
-        vals = dict(need_kf=need, miss=a["miss"], accept=b["accept"],
+        vals = dict(need_kf=need, miss=a["miss"],
+                    lm_trips=a["iters"].sum(), accept=b["accept"],
                     T_cw_new=b["T_cw_new"],
                     **{"out." + k: sel[k] for k in FG._SEL_KEYS})
         vals.update(fs._kf_readback(self.res))
@@ -304,10 +334,15 @@ class FusedFrameGraph:
                         **{f"marg_pts.{i}": x
                            for i, x in enumerate(self.res["marg_pts"])})
         self.spec = [(k, tuple(v.shape), v.dtype) for k, v in vals.items()]
+        control.stamp(self.stamps, TM.FRAME_END)
+        # the stamps as a bit view: a float32 holds no nanosecond clock
+        n = len(TM.STAMPS)
+        self.spec.append(("stamps", (n,), BITS))
         self.outs[pot] = dict(
             pyr=a["pyr"], need=need,
             flat=torch.cat([v.reshape(-1).to(torch.float32)
-                            for v in vals.values()]))
+                            for v in vals.values()]
+                           + [self.stamps[:n].view(torch.float32)]))
 
     # ------------------------------------------------------------------
     # the graphs
@@ -363,9 +398,9 @@ class FusedFrameGraph:
         for c, fn in CG.COUNTERS:
             fn.launches = before[c]
         self.graphs[pot] = g
-        fr.lm_iters.zero_()
-        fr.lm_iters_max.zero_()
         torch.cuda.synchronize(dev)
+        if self.fs._prewarmed_pots is None:
+            self.fs._calibrate()    # prewarm() calibrates after its own
         self.pool_bytes = sum(
             seg["total_size"] for seg in torch.cuda.memory_snapshot()
             if tuple(seg["segment_pool_id"]) == tuple(self.pool))

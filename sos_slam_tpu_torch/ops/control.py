@@ -44,7 +44,11 @@ Rules for the bodies, which a capture does not check:
 The fused frame's graphs (models/fused_graph.py) read nothing at their
 dispatch: `staged` gathers the counts on the device after the replay, and
 `credit_staged` credits them from the frame's pinned readback when it
-completes.
+completes. `stamp` writes the device's clock into a slot in stream order
+(a kernel node inside a capture, in a body too), and `clock_pair` times
+one stamp between two host reads of `time.perf_counter_ns()`: how the
+fused frame's device stamps are put on the host's clock
+(utils/telemetry.py).
 The node types a body may hold are checked at its end (`_check_body`:
 a library that allocates stream-ordered memory there raises, naming the
 code).
@@ -60,6 +64,7 @@ import collections
 import contextlib
 import ctypes
 import threading
+import time
 import weakref
 
 import torch
@@ -79,6 +84,7 @@ ARGTYPES = dict(
     gc_node_types=[_V, _V],
     gc_launches=[_V],
     gc_driver_version=[_V],
+    gc_stamp=[_V, _V],
 )
 # the node types a conditional node's body may hold (CUgraphNodeType):
 # kernel, memcpy, memset, child graph, empty, conditional
@@ -460,12 +466,15 @@ def _bool(pred):
     return pred.reshape(()).contiguous()
 
 
-def cond(pred, true_fn, false_fn=None, out=None) -> None:
+def cond(pred, true_fn, false_fn=None, out=None, then=None) -> None:
     """`lax.cond(pred, true_fn, false_fn)` into `out`: a tensor, or a
     tuple, list, NamedTuple or dict of them, allocated before. Each branch
     returns a value of `out`'s structure, written into `out` where the
     device bool `pred` holds (true_fn) or not (false_fn; None: `out`
-    keeps its value)."""
+    keeps its value). `then()`, where given, runs at the end of the true
+    branch, after its value is written (a `stamp`: the branch's last
+    node); the card's plain twin runs it after the select, whatever
+    `pred`."""
     cap = _capturing()
     pred = _bool(pred)
     outs = _leaves(out)
@@ -473,11 +482,15 @@ def cond(pred, true_fn, false_fn=None, out=None) -> None:
         fn = true_fn if bool(pred) else false_fn
         if fn is not None:
             copy_into(outs, _like(out, fn()))
+        if then is not None and fn is true_fn:
+            then()
         return
     if cap is None:
         a = _like(out, true_fn())
         b = outs if false_fn is None else _like(out, false_fn())
         copy_into(outs, [torch.where(pred, x, y) for x, y in zip(a, b)])
+        if then is not None:
+            then()
         return
     branches = [true_fn] if false_fn is None else [true_fn, false_fn]
     slots = [cap.take() for _ in branches]
@@ -490,6 +503,8 @@ def cond(pred, true_fn, false_fn=None, out=None) -> None:
                                slots):
         with cap.body(graph, slot, IF):
             copy_into(outs, _like(out, fn()))
+            if then is not None and fn is true_fn:
+                then()
 
 
 def while_loop(go_fn, body_fn, cap: int) -> None:
@@ -622,6 +637,33 @@ def account(dev=None) -> None:
             continue
         d.recycle()
         _credit_bodies(d, [b for r in d.live for b in r.bodies])
+
+
+def stamp(buf, i: int) -> None:
+    """Write the device's clock (%globaltimer, ns) into the int64 `buf[i]`
+    in stream order: a one-thread kernel (csrc/graph_cond.cu), a kernel
+    node inside a capture and its bodies, counted in no launch counter.
+    On the CPU, `time.perf_counter_ns()` now."""
+    if buf.is_cuda:
+        _call("gc_stamp", _at(buf, i), _sp(torch.cuda.current_stream(
+            buf.device)))
+    else:
+        buf[i:i + 1].fill_(time.perf_counter_ns())
+
+
+def clock_pair(buf, i: int):
+    """(host ns before, device ns, host ns after): one `stamp` into
+    `buf[i]` between two reads of `time.perf_counter_ns()`, the card idle
+    before and waited for after (it synchronizes twice)."""
+    cuda = buf.is_cuda
+    if cuda:
+        torch.cuda.synchronize(buf.device)
+    t0 = time.perf_counter_ns()
+    stamp(buf, i)
+    if cuda:
+        torch.cuda.synchronize(buf.device)
+    t1 = time.perf_counter_ns()
+    return t0, int(buf[i]), t1
 
 
 def setter_launches(dev) -> int:

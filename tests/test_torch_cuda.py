@@ -1677,3 +1677,154 @@ def test_solve_inside_a_conditional_body_on_the_card(n, dtype):
     torch.cuda.synchronize()
     assert _same_bits(out, ref)
     assert torch.isnan(NUM.solve(torch.zeros_like(A), b)).all()
+
+
+def _timer_step(buf):
+    """The smallest step between back-to-back device stamps into `buf`
+    (launched from one replayed graph, so they follow each other closely),
+    and the share of steps that read 0 (a clock coarser than the
+    launches)."""
+    from sos_slam_tpu_torch.ops import control
+    n = buf.numel()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with control.capture(graph, torch.cuda.graph_pool_handle(), side):
+        for i in range(n):
+            control.stamp(buf, i)
+    graph.replay()
+    torch.cuda.synchronize()
+    d = torch.diff(buf.cpu())
+    assert (d >= 0).all()
+    return int(d[d > 0].min()), float((d == 0).double().mean())
+
+
+def test_stamps_inside_a_conditional_body_on_the_card():
+    """A stamp is a kernel node: captured in the main graph and at the end
+    of an IF body (`cond`'s `then`), the body passes `_check_body` (the
+    capture would raise), a replay writes the device clock in stream
+    order and leaves the slot of a skipped body as the memset left it.
+    Stamps move no K1-K4 launch counter, `control.PROFILED` or the setter
+    kernels' count. The smallest step of %globaltimer is printed."""
+    from sos_slam_tpu_torch.ops import control
+    dev = _dev()
+    buf = torch.zeros(4, dtype=torch.int64, device=dev)
+    go = torch.ones((), dtype=torch.bool, device=dev)
+    out = torch.zeros(8, device=dev)
+    x = torch.arange(8.0, device=dev)
+
+    def body():
+        control.stamp(buf, 0)
+        buf[1:3].zero_()
+        control.cond(go, lambda: x * 2.0, None, out=out,
+                     then=lambda: control.stamp(buf, 1))
+        control.stamp(buf, 2)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        body()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with control.capture(graph, torch.cuda.graph_pool_handle(), side):
+        body()
+    control.account(dev)
+    launches = [fn.launches for _, fn in control.counters()]
+    profiled = dict(control.PROFILED)
+    setters = control.setter_launches(dev)
+    graph.replay()
+    torch.cuda.synchronize()
+    a = buf.cpu().tolist()
+    assert 0 < a[0] <= a[1] <= a[2], a
+    assert _same_bits(out, x * 2.0)
+    go.fill_(False)
+    graph.replay()
+    torch.cuda.synchronize()
+    b = buf.cpu().tolist()
+    assert b[1] == 0 and a[2] <= b[0] <= b[2], b
+    control.account(dev)
+    assert [fn.launches for _, fn in control.counters()] == launches
+    assert dict(control.PROFILED) == profiled
+    assert control.setter_launches(dev) == setters + 2     # one IF a replay
+    step, zeros = _timer_step(torch.zeros(512, dtype=torch.int64,
+                                          device=dev))
+    print(f"%globaltimer on {torch.cuda.get_device_name(dev)}: smallest "
+          f"step {step} ns between back-to-back stamps, {100 * zeros:.1f}% "
+          "of the steps 0")
+
+
+def test_fused_frame_stamps_on_the_card():
+    """The mono scene in the graph form with the node's intake stamps: a
+    steady frame's dispatch and its intake make no synchronising call;
+    each fused frame's device stamps, mapped onto the host's clock, lie
+    ordered between its dispatch (the `frame` span's start; the intake's
+    for the intake) and its completion (the `complete` span's end), within
+    the calibration's uncertainty and the clock's step; the stage series
+    are printed."""
+    import collections
+    from sos_slam_tpu_torch.models.full_system import FullSystem
+    from sos_slam_tpu_torch.utils import synthetic
+    from sos_slam_tpu_torch.utils.config import default_settings
+    dev = _dev()
+    calib = synthetic.default_calib(256, 192)
+    imgs, _, _ = synthetic.make_sequence(
+        calib, 24, tuple(0.5 * x for x in _MONO_TWIST), device=dev)
+    s = default_settings(max_window_frames=8, max_points=512,
+                         max_immature=1024, max_track_pts=4096,
+                         desired_point_density=400.0,
+                         desired_immature_density=400.0)
+    fs = FullSystem(calib, s, device=dev, cuda_graphs=True)
+
+    def add(i):
+        with fs.intake(i):
+            img = imgs[i] * 1.0
+        fs.add_active_frame(img, timestamp=0.05 * i, frame_id=i)
+
+    counts, where = _dispatch_syncs(fs, add, range(len(imgs)))
+    steady = [i for i in counts if i not in set(fs.kf_shell_ids)
+              and isinstance(where[i], list)]
+    assert len(steady) >= 3 and max(counts[i] for i in steady) == 0, where
+    import warnings
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as got:
+            warnings.simplefilter("always")
+            with fs.intake(99):
+                imgs[0] * 1.0
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert not [w for w in got if "synchroniz" in str(w.message)]
+    tel = fs.telemetry
+    clock = tel.report()["clock"]
+    step, _ = _timer_step(torch.zeros(256, dtype=torch.int64, device=dev))
+    slack = clock["uncertainty_ns"] + abs(clock["drift_ns"]) + step
+    host, devs, n = {}, collections.defaultdict(dict), collections.Counter()
+    for name, f, t0, t1 in tel.records:
+        if name.startswith("dev."):
+            devs[f][name] = (t0, t1)
+            n[f, name] += 1
+        elif name in ("frame", "complete", "node.intake"):
+            host.setdefault(f, {})[name] = (t0, t1)
+    checked = 0
+    for f, r in devs.items():
+        if "dev.track" not in r or n[f, "dev.frame"] != 1:
+            continue
+        h = host[f]
+        order = [*r["dev.intake"], r["dev.track"][0], r["dev.track"][1],
+                 r["dev.trace"][1]] + ([r["dev.chain"][1]]
+                                       if "dev.chain" in r else []) \
+            + [r["dev.frame"][1]]
+        assert order == sorted(order), (f, order)
+        assert h["node.intake"][0] - slack <= r["dev.intake"][0], f
+        assert h["frame"][0] - slack <= r["dev.frame"][0], f
+        assert r["dev.frame"][1] <= h["complete"][1] + slack, f
+        checked += 1
+    assert checked >= 10
+    rep = tel.report()
+    print(f"stamps on {torch.cuda.get_device_name(dev)}: {checked} frames "
+          f"checked, slack {slack:.0f} ns (clock {clock}); device ms by "
+          "series: " + ", ".join(
+              f"{k} n={v['n']} mean {v['mean']:.3f}"
+              for k, v in sorted(rep["timers_ms"].items())
+              if k.startswith("dev."))
+          + f"; idle by host span (ms): {rep['idle_by_host']}")

@@ -20,6 +20,8 @@ tests/test_torch_frame_graph.py (its T 1e-4, residuals, flow and affine
 1e-3) and the trace's depths as there (a point may land one search step
 apart)."""
 
+import collections
+
 import numpy as np
 import pytest
 import torch
@@ -30,6 +32,7 @@ from sos_slam_tpu_torch.models import fused_graph as FU
 from sos_slam_tpu_torch.models.full_system import FullSystem
 from sos_slam_tpu_torch.ops import control, selector
 from sos_slam_tpu_torch.utils import synthetic
+from sos_slam_tpu_torch.utils import telemetry as TM
 from sos_slam_tpu_torch.utils.config import default_settings
 from tests.test_torch_helpers import GN_TOL, close, exact, no_host_reads
 
@@ -81,7 +84,9 @@ def _drive(graph, record=None):
             return rec
         g.dispatch, fs._dispatch_graph = recorded, dispatched
     for i in range(N_FRAMES):
-        fs.add_active_frame(imgs[i], timestamp=0.05 * i, frame_id=i)
+        with fs.intake(i):      # as SlamNode.process: stamps around it
+            img = imgs[i]
+        fs.add_active_frame(img, timestamp=0.05 * i, frame_id=i)
     fs.finish_pending()
     del fs._finish_kf
     if record is not None:
@@ -282,9 +287,12 @@ def test_budget_ladder(runs, n_kf, its):
 # (c) no host read inside the body that the graphs capture
 # ---------------------------------------------------------------------------
 def _outputs(g, pot):
+    """The body's outputs: the readback but its device stamps (the clock,
+    its last entry), the state and the chained inputs."""
     o = g.outs[pot]
-    return control.clone((o["flat"], g.state, dict(g.frame.inp),
-                          g.chained))
+    assert g.spec[-1] == ("stamps", (len(TM.STAMPS),), FU.BITS)
+    return control.clone((o["flat"][:-2 * len(TM.STAMPS)], g.state,
+                          dict(g.frame.inp), g.chained))
 
 
 @pytest.mark.parametrize("case", ["keyframe", "full_window", "export"])
@@ -326,7 +334,7 @@ def test_fused_body_reads_nothing_back(runs, monkeypatch, case):
         exact(x, y)
     assert bool(g.outs[pot]["need"]) == (case != "full_window")
     if case == "export":
-        assert [k for k, _, _ in g.spec][-6:] == [
+        assert [k for k, _, _ in g.spec][-7:-1] == [
             "ecols", "marg", "marg_pts.0", "marg_pts.1", "marg_pts.2",
             "marg_pts.3"]
 
@@ -401,3 +409,61 @@ def test_staged_counts_credit_each_run_once(monkeypatch):
     fs._fetch(c)
     assert (k1.launches, k3.launches) == (9, 18)
     assert control.CREDITED["runs"] == 18
+
+
+# ---------------------------------------------------------------------------
+# (f) the device stamps and the series through the readback
+# ---------------------------------------------------------------------------
+def check_stamps(fs) -> dict:
+    """The fused frames' stamps from the telemetry's records, in the
+    order of `telemetry.STAMPS` (chain.end where the chain ran), held
+    ordered, each frame with one intake; the frames' `dev.frame` spans
+    (two where the frame was dispatched again). Returns {frame: the number
+    of its dev.frame spans}."""
+    spans = collections.defaultdict(dict)
+    n = collections.Counter()
+    for name, f, t0, t1 in fs.telemetry.records:
+        n[name, f] += 1
+        spans[f][name] = (t0, t1)      # the last dispatch's spans last
+    frames = {f: n["dev.frame", f] for f in spans if "dev.track" in spans[f]}
+    assert frames
+    for f in frames:
+        r = spans[f]
+        assert n["dev.intake", f] == 1, f
+        order = [*r["dev.intake"], r["dev.track"][0], r["dev.track"][1],
+                 r["dev.trace"][1]]
+        if "dev.chain" in r:
+            assert r["dev.chain"][0] == r["dev.trace"][1]
+            order.append(r["dev.chain"][1])
+        order += [r["dev.frame"][1], r["dev.post"][1]]
+        assert order == sorted(order) and r["dev.frame"][0] == order[2], (
+            f, order)
+    return frames
+
+
+def test_stamps_and_series_of_the_fused_frames(runs):
+    """Every fused frame's device stamps ordered intake.begin <=
+    intake.end <= frame.begin <= track.end <= step.end (<= chain.end) <=
+    frame.end <= post.end; one intake a frame, also for the frames the
+    rung change dispatched again (their first dispatch, dropped unfetched,
+    gives a second frame span: busy time, not idle); one `dev.chain` a
+    fused keyframe and none for a skipped chain; `track.retry` and
+    `track.lm_trips` one a completed frame; `kf_n_its` the `ba.gn_its`
+    series counted."""
+    fs = runs["graph"]
+    g, t = fs.fused_graph, fs.telemetry.timers
+    frames = check_stamps(fs)
+    assert sorted(frames.values()).count(2) == runs["again"][1] == 3
+    chained = [f for name, f, _, _ in fs.telemetry.records
+               if name == "dev.chain"]
+    assert len(chained) == len(t["dev.chain"]) == sum(g.chains.values())
+    assert set(chained) <= set(fs.kf_shell_ids)
+    done = len(t["complete"])
+    assert len(t["track.retry"]) == len(t["track.lm_trips"]) == done
+    assert sum(t["track.retry"]) == g.frame.retries
+    assert min(t["track.lm_trips"]) >= 1
+    assert fs.kf_n_its == collections.Counter(int(x) for x in t["ba.gn_its"])
+    assert len(t["dev.track"]) == len(t["dev.trace"]) == done
+    rep = fs.telemetry.report()
+    assert rep["clock"]["calibrations"] >= 1 and rep["idle_by_host"]
+    assert not fs._sent and sum(t["dev.idle"]) > 0

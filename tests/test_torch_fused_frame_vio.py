@@ -22,7 +22,8 @@ from sos_slam_tpu_torch.models.full_system import FrameShell, FullSystem
 from sos_slam_tpu_torch.utils import synthetic
 from tests.test_torch_chain_graph_vio import (FRAME_DT, N_FRAMES, _scene,
                                               _settings, _system)
-from tests.test_torch_fused_frame import _common_args, _held_to_jax, _j
+from tests.test_torch_fused_frame import (_common_args, _held_to_jax, _j,
+                                          check_stamps)
 from tests.test_torch_helpers import GN_TOL, close, exact
 
 torch.set_num_threads(2)
@@ -49,8 +50,10 @@ def run():
         return rec
     g.dispatch, fs._dispatch_graph = recorded, dispatched
     for i in range(N_FRAMES):
-        fs.add_active_frame(left[i], timestamp=i * FRAME_DT, frame_id=i,
-                            image_right=right[i], imu_samples=imu[i])
+        with fs.intake(i):      # as SlamNode.process: stamps around it
+            img, img_r = left[i], right[i]
+        fs.add_active_frame(img, timestamp=i * FRAME_DT, frame_id=i,
+                            image_right=img_r, imu_samples=imu[i])
         assert not (fs.is_lost or fs.init_failed)
     fs.finish_pending()
     del g.dispatch, fs._dispatch_graph
@@ -135,3 +138,15 @@ def test_imu_block_leaves_out_the_keyframe_in_flight():
                          thresh=thresh, t_kf=t_frame).items():
             exact(v, ref[k])
         assert int(valid.sum()) == (60 if last_kf >= 0 else 121)
+
+
+def test_stamps_of_the_fused_vio_frames(run):
+    """The VIO frames' device stamps ordered as the mono frames' (the gyro
+    hypothesis inside `dev.track`, the VIO chain ending at chain.end),
+    one `dev.chain` a fused keyframe, the series one a completed frame."""
+    fs, _ = run
+    t = fs.telemetry.timers
+    check_stamps(fs)
+    assert len(t["dev.chain"]) == sum(fs.fused_graph.chains.values()) >= 1
+    assert len(t["track.retry"]) == len(t["track.lm_trips"]) \
+        == len(t["complete"]) == len(t["dev.track"])
