@@ -6,7 +6,12 @@
 In order, failing (exit code != 0, no result line) at the first fault:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
   2. build: every CUDA kernel of csrc/ compiled from the checkout (one
-     nvcc per source, all at once); then the process's first-use costs,
+     nvcc per source, all at once); from here to the end every call of
+     the tracker's `track_level` on the card (main thread) is held to
+     K5's launch rule (`K5Rule`: the eager form 2 a trip plus 2 a level,
+     one a cutoff doubling and one for the re-pass after any) and a plain
+     `res_and_hb_plain` pass on a card tensor raises; the process's
+     first-use costs,
      each first call against its second ([prewarm] first use): build_all
      with every library cached, each library's load, the first tensor on
      the card (the CUDA context), numerics.solve and inv (solve_ex,
@@ -60,7 +65,7 @@ In order, failing (exit code != 0, no result line) at the first fault:
      and a MapViewer and a DebugPlotDumper (mode 0, tracking on) attached:
      gated on the keyframe ids of step 4's uninterrupted run, its
      trajectory bit for bit (what tests/test_torch_snapshot.py finds on
-     the CPU) and within 5e-3, K1-K4 launched, one map PNG per render and
+     the CPU) and within 5e-3, K1-K5 launched, one map PNG per render and
      two debug PNGs per window slot and dump, and the last map PNG
      decoded with zlib alone equal to render_array(); it prints the
      snapshot's bytes and the save and load ms. Then the same snapshot
@@ -78,7 +83,7 @@ In order, failing (exit code != 0, no result line) at the first fault:
      classic keyframe), the VIO prior finite
      after the run, the stereo scale after every keyframe from frame 35 on
      within 1% of the first one's, the scaled trajectory's metric ATE (no
-     alignment) <= 0.15 * path + 0.03, K1-K4 each launched, K1 once per
+     alignment) <= 0.15 * path + 0.03, K1-K5 each launched, K1 once per
      pyramid built (left and right; a replay counts its launches as in
      step 4) and K2 once per template; it prints the keyframe count,
      ATE, scale, steady fps over frames 30-43 (as bench.py measures it),
@@ -92,8 +97,9 @@ In order, failing (exit code != 0, no result line) at the first fault:
      branch and each branch alone against the eager solve's wall ms, and
      the eager solve's LM trips by level);
      then the eager form (cuda_graphs=False), gated at K1-K4 launches
-     FLAG_EAGER_LAUNCHES and the graph form's at those plus its capture
-     warm-ups', bit for bit the graph run and a finite
+     FLAG_EAGER_LAUNCHES and K5 at the launches of its tracker levels
+     held to K5's rule, and the graph form's K1-K5 at those plus its
+     capture warm-ups', bit for bit the graph run and a finite
      prior before every VIO frame marginalization, with K3 on a VIO GN
      step and a VIO point marginalization, K4 on an activation pass and K1
      on a right image of that run against their plain twins, and every
@@ -130,8 +136,10 @@ In order, failing (exit code != 0, no result line) at the first fault:
      step 4, with its
      steady fps, its median frame with and without a keyframe chain, the
      card's busy share, device ms and device ops a frame under the
-     profiler, K1-K4 launches (the graph form's gated at the eager form's
-     plus its capture warm-ups'), and for the graph form the capture ms,
+     profiler, K1-K5 launches (the eager form's K5 gated at its tracker
+     levels' held to K5's rule, the graph form's at the eager form's plus
+     its capture warm-ups', K5 plus at least 2 a level for each frame
+     dispatched again), and for the graph form the capture ms,
      the graph pool's bytes, the replays, the keyframe chains in them,
      the eager chains by reason (only `classic`, gated), the retries
      (inside the graph; no frame stepped eagerly, gated) and the LM
@@ -167,7 +175,7 @@ In order, failing (exit code != 0, no result line) at the first fault:
      marginalized keyframe,
      an odometry edge with a finite dso_error between each consecutive
      pair, at least one scan, poses.txt rows whose metric ATE passes the
-     flagship gate, and K1-K4 launched (`launches_node`), and the loop
+     flagship gate, and K1-K5 launched (`launches_node`), and the loop
      handler's scan timer as a share of the run's wall time; (c)
      estimate_direct on the record of (a) with the most points, against
      its own pyramid from 2 cm and 1 deg off, accepted, card = CPU at the
@@ -186,7 +194,8 @@ In order, failing (exit code != 0, no result line) at the first fault:
      the dry run's 5-frame IMU window bit for bit gn_step_vio;
      sharded_trace of the mono scene's immature pool against its next
      frame bit for bit trace_new; every launch counter from 0, K3 once a
-     step and no other kernel; gn_step and the one-rank sharded step in
+     step and no other kernel (K5 neither); gn_step and the one-rank
+     sharded step in
      ms a step (CUDA events) at P = 2048 and 16384, and the collectives'
      wall ms a step; (b) dryrun_multichip(2): two spawned gloo ranks on
      this card (gloo stages the CUDA tensors through host memory), its
@@ -212,19 +221,27 @@ In order, failing (exit code != 0, no result line) at the first fault:
      K3: two), and for the whole wrappers (build_pyramid,
      build_track_template, fused_iteration, act_pass) the device ops a
      call and the host-device copies among them (K3: none allowed);
-     then the launch counts of the four runs and the kernels line (one
-     JSON object, K1-K4 and graph_cond, whose `ms` is a skipped IF node
+     then the [K5] phase (`k5_phase`: the tracker's LM trip at the
+     cell's level 0, K = 1 and 5: every pass's record against the plain
+     pass on the same card inputs, the opening and three trips against
+     the plain step in lockstep and running free, two launches a trip by
+     name, the trip against its bound and the plain trip), the launch
+     counts of the four runs and the kernels line (one JSON object,
+     K1-K4, graph_cond and K5, whose `ms` is a skipped IF node
      and `launches` the bodies its nodes ran on the mono slice;
      `launches` counts the mono slice, `launches_flagship`
      the flagship scene, `launches_node` the SlamNode run,
      `launches_snapshot` the resumed half of step 5b,
-     `launches_multidevice` the calls of step 6c: (a)'s and the ranks');
+     `launches_multidevice` the calls of step 6c: (a)'s and the ranks';
+     K5's entry, last, counts the same runs and the calls held to its
+     rule by form);
   8. last line: {"ok": true, "device": {...}}.
 
 Needs one card; exits with code 2 when CUDA is unavailable or the port is
 not importable beside this script. `python3 chip_smoke.py --flagship`
-runs the build, the flagship phase and [graph]'s flagship part alone
-(no result line).
+runs the build, the flagship phase and [graph]'s flagship part alone,
+`python3 chip_smoke.py --k5` the build and the [K5] phase (no result
+line).
 """
 
 from __future__ import annotations
@@ -283,8 +300,10 @@ GRAPH_PAIRS = 3   # the [graph] phase: eager and graph form in turns
 # K1-K4 launches of the eager form (cuda_graphs=False) over the mono scene's
 # frames: the mono slice's count before the keyframe chain ran as graphs
 # (K3 134 until numerics.solve took LU factors and two triangular solves on
-# a card, whose rounding ends one keyframe's BA a GN step sooner)
-MONO_EAGER_LAUNCHES = [73, 22, 133, 88]
+# a card, whose rounding ended one keyframe's BA a GN step sooner; 134 again
+# since the tracker's passes sum in K5's order, which takes it one step
+# longer)
+MONO_EAGER_LAUNCHES = [73, 22, 134, 88]
 # the flagship's K1-K4 launches in the eager form (cuda_graphs=False)
 FLAG_EAGER_LAUNCHES = [65, 10, 64, 40]
 # the reasons a keyframe chain may run eagerly in the graph form: the
@@ -387,6 +406,84 @@ class StageTimer:
 
     def restore(self):
         setattr(self.owner, self.name, self.orig)
+
+
+class K5Rule:
+    """Holds every call of the tracker's `track_level` on a card, on the
+    main thread, to K5's launch rule, read off `tracker_trip.launches`
+    across the call: the eager form 2 a trip plus 2 a level (its first
+    pass and the loop's opening), one a cutoff doubling and one for the
+    re-pass after any (the card tests' rule); the bounded form outside a
+    capture (a capture's warm-up) every loop to its cap and the re-pass,
+    9 + 2 x max_iters; a call captured into a graph 2 (its bodies'
+    launches leave the counter at each body's end). Refuses a plain
+    `res_and_hb_plain` pass on a card tensor (its `__wrapped__` is the
+    plain twin, for the [K5] phase's comparison). Counts the calls and
+    launches it held by form."""
+
+    def __init__(self, torch):
+        import functools
+        import threading
+        from sos_slam_tpu_torch.ops import control
+        from sos_slam_tpu_torch.ops import tracker as TK
+        self.torch, self.TK, self.control = torch, TK, control
+        self.threading = threading
+        self.level, self.plain = TK.track_level, TK.res_and_hb_plain
+        self.calls = collections.Counter()
+        self.launches = collections.Counter()
+        plain = self.plain
+
+        @functools.wraps(plain)
+        def refused_on_card(dI, *a, **kw):
+            if dI.is_cuda:
+                raise AssertionError("a plain res_and_hb pass on a card "
+                                     "tensor")
+            return plain(dI, *a, **kw)
+
+        TK.track_level = self._level
+        TK.res_and_hb_plain = refused_on_card
+
+    def _level(self, *a, **kw):
+        TK = self.TK
+        if not a[0].is_cuda or self.threading.current_thread() \
+                is not self.threading.main_thread():
+            return self.level(*a, **kw)
+        max_iters = a[7] if len(a) > 7 else kw["max_iters"]
+        bounded = a[12] if len(a) > 12 else kw.get("bounded", False)
+        captured = self.control._capturing() is not None
+        before = TK.tracker_trip.launches
+        out = self.level(*a, **kw)
+        got = TK.tracker_trip.launches - before
+        if captured:
+            form, want = "captured", 2
+        elif bounded:
+            form, want = "bounded", 2 + TK.CUTOFF_DOUBLINGS + 1 \
+                + 2 * max_iters
+        else:
+            # a host read: the eager form reads each trip's condition too
+            form = "eager"
+            doublings = int(self.torch.log2(out[3].max()).round())
+            trips = int(out[6].max())
+            want = 2 + doublings + (1 if doublings else 0) + 2 * trips
+        if got != want:
+            raise AssertionError(
+                f"K5: a {form} track_level (K = {a[2].shape[0]}, "
+                f"{a[1].u.shape[0]} points, max_iters {max_iters}) launched "
+                f"{got} times, not {want}")
+        self.calls[form] += 1
+        self.launches[form] += got
+        return out
+
+    def held(self) -> int:
+        """The K5 launches of the calls held so far that launched (those
+        outside a capture)."""
+        return self.launches["eager"] + self.launches["bounded"]
+
+    def restore(self):
+        self.TK.track_level, self.TK.res_and_hb_plain = self.level, self.plain
+
+
+K5_RULE = None      # run()'s K5Rule, installed for the whole run
 
 
 def gram_form(k, p):
@@ -709,15 +806,23 @@ def time_kernels(torch, kernels, timings):
 
 
 # each kernel's launch counter and the name of the kernel a launch runs
-# (K3 runs two: ba_block_kernel, then block_sum_kernel)
+# (K3 runs two: ba_block_kernel, then block_sum_kernel; K5's launches are
+# track_res_kernel or track_step_kernel, each counted)
 def kernel_counters():
     from sos_slam_tpu_torch.models import window as WIN
     from sos_slam_tpu_torch.ops import ba_p as BP
     from sos_slam_tpu_torch.ops import image as IMG
+    from sos_slam_tpu_torch.ops import tracker as TK
     return (("K1", IMG.pyramid_levels, "pyramid_kernel"),
             ("K2", WIN.template_levels, "template_kernel"),
             ("K3", BP.fused_iteration, "ba_block_kernel"),
-            ("K4", BP.act_pass, "act_pass_kernel"))
+            ("K4", BP.act_pass, "act_pass_kernel"),
+            ("K5", TK.tracker_trip, "track_"))
+
+
+def counted_wrappers():
+    """The K1-K5 launch counters, in order."""
+    return tuple(fn for _, fn, _ in kernel_counters())
 
 
 def chain_replays(fs) -> int:
@@ -734,7 +839,7 @@ def busy_window(torch, fs, feed, first, n, exact=False):
     frame, the window's device events, the launches). The profiler slows
     the host, so the busy share dev / wall is a lower bound. The launches
     are (the K1 kernels the profiler saw, the replays of the frame graph
-    in the window, {kernel: the K2-K4 kernels seen}, the replays of the
+    in the window, {kernel: the K2-K5 kernels seen}, the replays of the
     keyframe chain's graphs, {kernel: (seen, counted, counted inside
     conditional nodes, what the profiler shows by control.PROFILED's
     rule)}). Each kernel's launch counter moves by the launches outside
@@ -751,7 +856,7 @@ def busy_window(torch, fs, feed, first, n, exact=False):
     their bodies' kernels lost, and some added (`[control]`'s profiler
     view logs it), which the same frames in a fresh process do not show;
     since the keyframe chain runs inside the need_kf IF node, a window's
-    K2-K4 may all lie in bodies."""
+    K2-K5 may all lie in bodies."""
     from sos_slam_tpu_torch.ops import control
     counters = kernel_counters()
     # the runs made before the window are credited before it
@@ -807,7 +912,7 @@ def profile_frames(torch, fs, feed, first, n, tag="profile", exact=False):
         f"keyframes), profiler on: wall {wall:.1f} ms/frame, device "
         f"{dev_ms:.2f} ms/frame, card busy {100 * dev_ms / wall:.1f}%, "
         f"{ops:.0f} device ops/frame; K1 kernels the profiler saw {k1[0]} "
-        f"(replays of the fused frame graph {k1[1]}), K2-K4 {k1[2]} ("
+        f"(replays of the fused frame graph {k1[1]}), K2-K5 {k1[2]} ("
         f"keyframe chains in the replays {k1[3]}); (seen, counted, inside "
         f"conditional nodes, shown by control.PROFILED's rule) by kernel "
         f"{k1[4]}" + ("; held exactly" if exact else ""))
@@ -1057,8 +1162,7 @@ def snapshot_checks(torch, dev, card, kernels, imgs, mono, tmp):
 
     tag = f"[snapshot] ({card})"
     calib, half = mono["calib"], N_FRAMES // 2
-    wrappers = (IMG.pyramid_levels, WIN.template_levels, BP.fused_iteration,
-                BP.act_pass)
+    wrappers = counted_wrappers()
 
     def feed(fs, frames, after_kf=None):
         for i in frames:
@@ -1115,7 +1219,7 @@ def snapshot_checks(torch, dev, card, kernels, imgs, mono, tmp):
         f"FullSystem {load_ms:.1f} ms; frames {half}-{N_FRAMES - 1} in "
         f"{resumed_s:.2f} s: keyframes {fs2.kf_shell_ids}, the "
         f"uninterrupted run's {mono['kf_ids']}; trajectory max |diff| "
-        f"{dev_err:.3e}, bitwise {bitwise}; launches K1-K4 of the resumed "
+        f"{dev_err:.3e}, bitwise {bitwise}; launches K1-K5 of the resumed "
         f"half {counts}")
     if fs2.is_lost or fs2.kf_shell_ids != mono["kf_ids"]:
         raise AssertionError(f"resumed keyframes {fs2.kf_shell_ids} differ "
@@ -1126,7 +1230,7 @@ def snapshot_checks(torch, dev, card, kernels, imgs, mono, tmp):
         raise AssertionError("the resumed run is not bit for bit the "
                              "uninterrupted one (it is on the CPU: "
                              "tests/test_torch_snapshot.py)")
-    for name, c in zip(("K1", "K2", "K3", "K4"), counts):
+    for (name, _, _), c in zip(kernel_counters(), counts):
         if c <= 0:
             raise AssertionError(f"{name} was not launched in the resumed "
                                  "half")
@@ -1536,8 +1640,7 @@ def flagship(torch, dev, card, kernels):
         fs.add_active_frame(left[i], timestamp=i * FLAG_DT, frame_id=i,
                             image_right=right[i], imu_samples=imu[i])
 
-    wrappers = (IMG.pyramid_levels, WIN.template_levels, BP.fused_iteration,
-                BP.act_pass)
+    wrappers = counted_wrappers()
     # the graph form (the default): K1 and K2 calls counted (a call made
     # while a chain graph is captured launches nothing, a replay launches
     # without a call); no recorder here reads the card, as a capture
@@ -1615,7 +1718,7 @@ def flagship(torch, dev, card, kernels):
         f"capture ms " + ", ".join(f"rung {k}: {v:.1f}"
                                    for k, v in cg.capture_ms.items())
         + f", the graphs' pool {cg.pool_bytes} bytes, the state copied in "
-        f"{cg.copy_ins} times, launches K1-K4 {counts} of which "
+        f"{cg.copy_ins} times, launches K1-K5 {counts} of which "
         f"the capture warm-ups' {warm.n}, a replay's outside its "
         f"conditional nodes {dict((k, v) for k, v in cg.per_replay.items())}"
         f"; GN steps a "
@@ -1656,7 +1759,7 @@ def flagship(torch, dev, card, kernels):
     if not drift <= 0.01:
         raise AssertionError(f"flagship: the stereo scale moves {drift} "
                              f"from frame {FLAG_SCALE_FROM}'s: {kf_scale}")
-    for name, c in zip(("K1", "K2", "K3", "K4"), counts):
+    for (name, _, _), c in zip(kernel_counters(), counts):
         if c <= 0:
             raise AssertionError(f"{name} was not launched on the flagship "
                                  "path")
@@ -1674,7 +1777,7 @@ def flagship(torch, dev, card, kernels):
         f"{rep['K1']} in graph replays, {pyr_l.n_captured} calls while "
         f"capturing; {n_right} right pyramids called), {n_tmpl} templates "
         f"in {counts[1]} K2 launches; K3 {counts[2]} launches; K4 "
-        f"{counts[3]} launches")
+        f"{counts[3]} launches; K5 {counts[4]} launches")
     for k, c in zip(kernels, counts):
         k["launches_flagship"] = c
     del recs, pyr_l, pyr_i, tmpl, pyr_f
@@ -1692,6 +1795,7 @@ def flagship(torch, dev, card, kernels):
             Recorder(BP, "act_pass", 1),
             Recorder(E, "marginalize_frame_vio", 1, kind=prior_in)]
     zero_launches(wrappers)
+    held0 = K5_RULE.held()
     fp = FSM.FullSystem(calib, settings, stereo=stereo, device=dev,
                         cuda_graphs=False)
     for i in range(FLAG_FRAMES):
@@ -1701,31 +1805,33 @@ def flagship(torch, dev, card, kernels):
     probe.restore()
     ptag = f"{tag} [port fold, eager form]"
     eager_counts = [w_.launches for w_ in wrappers]
+    held = K5_RULE.held() - held0
     for r in recs:
         r.restore()
     k3, k4, mfv = recs
     same = (fp.kf_shell_ids == fs.kf_shell_ids and np.array_equal(
         fp.trajectory(scaled=True), fs.trajectory(scaled=True))
         and torch.equal(fp.imu.HM, fs.imu.HM))
-    log(f"{ptag} launches K1-K4 {eager_counts} (gate: "
-        f"{FLAG_EAGER_LAUNCHES}); K3 by caller " + ", ".join(
+    log(f"{ptag} launches K1-K5 {eager_counts} (gate: K1-K4 "
+        f"{FLAG_EAGER_LAUNCHES}, K5 the {held} launches of the tracker "
+        f"levels held to K5's rule); K3 by caller " + ", ".join(
             f"{k} {v}" for k, v in sorted(k3.n_of.items()))
         + "; VIO frame marginalizations (the padded slots' included) by "
         "the prior they started from: " + (", ".join(
             f"{k} {v}" for k, v in sorted(mfv.n_of.items())) or "none")
         + f"; bit for bit the graph form's run (keyframes, scaled "
         f"trajectory, imu.HM): {same}")
-    if eager_counts != FLAG_EAGER_LAUNCHES:
+    if eager_counts != FLAG_EAGER_LAUNCHES + [held]:
         raise AssertionError(
-            f"flagship: the eager form launched K1-K4 {eager_counts} times, "
-            f"not {FLAG_EAGER_LAUNCHES}")
+            f"flagship: the eager form launched K1-K5 {eager_counts} times, "
+            f"not {FLAG_EAGER_LAUNCHES + [held]}")
     plus = [e + w_ for e, w_ in zip(eager_counts, warm.n)]
-    log(f"{ptag} graph-form launches K1-K4 {counts} against the eager "
+    log(f"{ptag} graph-form launches K1-K5 {counts} against the eager "
         f"form's plus the graph form's capture warm-ups {plus} (gate: "
         "equal)")
     if counts != plus:
         raise AssertionError(
-            f"flagship: the graph form launched K1-K4 {counts} times, not "
+            f"flagship: the graph form launched K1-K5 {counts} times, not "
             f"the eager form's plus its warm-ups' {plus}")
     if mfv.n_of["NaN"] or not same:
         raise AssertionError(
@@ -2046,8 +2152,7 @@ def loop_phase(torch, dev, card, kernels, flag):
     reader = [dict(image=scene["left"][i], t=i * FLAG_DT,
                    image_right=scene["right"][i], imu=scene["imu"][i])
               for i in range(FLAG_FRAMES)]
-    wrappers = (IMG.pyramid_levels, WIN.template_levels, BP.fused_iteration,
-                BP.act_pass)
+    wrappers = counted_wrappers()
     zero_launches(wrappers)
     node = SlamNode(settings, cam, calib1=cam, T_stereo=scene["T_lr"],
                     device=dev, async_loop=False)
@@ -2075,7 +2180,7 @@ def loop_phase(torch, dev, card, kernels, flag):
         f"odometry edges, {n_scans} scans, {loop.n_loop_edges} loop edges; "
         f"poses.txt {rows.shape[0]} rows, metric ATE {ate:.4f} m over "
         f"{path:.3f} m; {node_s:.2f} s for the run "
-        f"({n_run / node_s:.2f} frames/s); launches K1-K4 {counts}; the "
+        f"({n_run / node_s:.2f} frames/s); launches K1-K5 {counts}; the "
         f"flagship phase's keyframes {flag['kf_ids']}")
     scan_s = sum(loop.timing["scan"])
     log(f"{tag} (a) the loop handler's scan timer (Scan Context's numpy "
@@ -2104,7 +2209,7 @@ def loop_phase(torch, dev, card, kernels, flag):
     if rows.shape != (n_marg, 4) or not ate <= 0.15 * path + 0.03:
         raise AssertionError(f"poses.txt {rows.shape}: ATE {ate} over "
                              f"{path}")
-    for name, c in zip(("K1", "K2", "K3", "K4"), counts):
+    for (name, _, _), c in zip(kernel_counters(), counts):
         if c <= 0:
             raise AssertionError(f"{name} was not launched on the node path")
     g = fs.fused_graph
@@ -2290,8 +2395,7 @@ def multidevice_phase(torch, dev, card, kernels, md):
     ba_b, dI_b, settings_b, _ = DR.tiny_window(n_points=DR.P_BIG,
                                               n_slots=DR.P_BIG, device=dev)
     imm, ba_tr, tr = md["trace"]
-    wrappers = (IMG.pyramid_levels, WIN.template_levels, BP.fused_iteration,
-                BP.act_pass)
+    wrappers = counted_wrappers()
 
     # ---- (a) NCCL, world size 1: the sharded path with the launch
     # counters from 0, then the unsharded steps it is held to ----
@@ -2309,7 +2413,7 @@ def multidevice_phase(torch, dev, card, kernels, md):
                                            settings_v, DR.W, DR.H)
         traced = S.sharded_trace(mesh, *trace_in)
         counts_a = [w_.launches for w_ in wrappers]
-        if counts_a[2] != 3 or any(counts_a[k] for k in (0, 1, 3)):
+        if counts_a[2] != 3 or any(counts_a[k] for k in (0, 1, 3, 4)):
             raise AssertionError(f"{tag} (a) launches {counts_a} in three "
                                  "sharded steps and a trace: K3 once a "
                                  "step, no other kernel")
@@ -2505,14 +2609,14 @@ def replay_launched(fs) -> dict:
 
 
 class WarmUps:
-    """The K1-K4 launches of the capture warm-ups of one FullSystem's
+    """The K1-K5 launches of the capture warm-ups of one FullSystem's
     fused frame graphs (`FusedFrameGraph.capture`): a warm-up runs the
     body's plain twins (every loop to its bound, every branch, the chain
     too) and its launches count; the capture after it launches
     nothing."""
 
     def __init__(self, fs):
-        self.n = [0, 0, 0, 0]
+        self.n = [0] * len(kernel_counters())
         g = fs.fused_graph
         if g is not None:
             g.capture = self._wrap(g.capture)
@@ -2594,7 +2698,7 @@ def prewarm_phase(torch, card, fs, first, wrappers):
     third = timed_prewarm(torch, fs, wrappers)
     log(f"{tag} prewarm() wall ms: first {first['ms']:.1f} (the mono slice's, "
         f"frame {WARMUP}), second {second['ms']:.1f}, third "
-        f"{third['ms']:.1f}; launches K1-K4 a call {second['launches']}")
+        f"{third['ms']:.1f}; launches K1-K5 a call {second['launches']}")
     for name, i in (("5-wide track (min_level 0)", 0),
                     ("78-wide track (coarsest level)", 1)):
         log(f"{tag} {name}: first {first['tracks'][i]:.2f} ms, second "
@@ -2811,10 +2915,12 @@ def graph_phase(torch, dev, card, mono, flag):
     chains in them, the eager chains by reason (only `classic`, gated),
     the retries (run inside the graph: the eager step is never called,
     gated) and the LM trips of the primary track a frame;
-    K1-K4 launches of each run (the eager form's gated at
-    MONO_EAGER_LAUNCHES, the graph form's at the eager form's plus its
-    capture warm-ups), GN steps a keyframe, the selection keys' host ms;
-    the K2-K4 kernels the profiler sees held to the counters. Then one
+    K1-K5 launches of each run (the eager form's K1-K4 gated at
+    MONO_EAGER_LAUNCHES and its K5 at its tracker levels' held to K5's
+    rule, the graph form's at the eager form's plus its capture warm-ups,
+    K5 plus at least 2 a level for each frame dispatched again), GN steps
+    a keyframe, the selection keys' host ms; the K2-K5 kernels the
+    profiler sees held to the counters. Then one
     more run of each form counting the synchronising calls of every
     frame's dispatch apart from its completions (`synced_frames`: 0 in
     every graph-form dispatch, keyframe or not, gated; each call named),
@@ -2852,13 +2958,16 @@ def graph_phase(torch, dev, card, mono, flag):
             torch.cuda.synchronize()
             control.account()       # the runs before count before
             before = [fn.launches for _, fn, _ in counters]
+            held0, held_pw = K5_RULE.held(), 0
             frame_ms = []
             for i in range(PIPE_PROF_FROM):
                 if i == WARMUP:
                     # as bench.py and the slice do, outside the frame
                     # timers, its launches and its warm-ups' taken off
                     warm0 = list(warm.n)
+                    held_pw = K5_RULE.held()
                     timed_prewarm(torch, fs, [fn for _, fn, _ in counters])
+                    held_pw = K5_RULE.held() - held_pw
                     warm.n = warm0
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -2875,6 +2984,7 @@ def graph_phase(torch, dev, card, mono, flag):
             busy[graphs].append(dev_ms / wall)
             launched[graphs].append([fn.launches - b for (_, fn, _), b
                                      in zip(counters, before)])
+            held = K5_RULE.held() - held0 - held_pw
             ate, path = ate_of(fs, mono["poses"])
             same = (fs.kf_shell_ids == mono["kf_ids"]
                     and np.array_equal(fs.trajectory(), mono["traj"])
@@ -2899,7 +3009,7 @@ def graph_phase(torch, dev, card, mono, flag):
                          f"the graph) {g.retries}, eager frame steps "
                          f"{eager_steps.n_calls}, the state copied in "
                          f"{cg.copy_ins}, the capture warm-ups' launches "
-                         f"K1-K4 {warm.n}, K2-K4 kernels the profiler saw "
+                         f"K1-K5 {warm.n}, K2-K5 kernels the profiler saw "
                          f"{k1[2]} ((seen, counted, inside conditional "
                          f"nodes, shown by control.PROFILED's rule) "
                          f"{k1[4]}), the selection keys' host ms median "
@@ -2917,17 +3027,19 @@ def graph_phase(torch, dev, card, mono, flag):
                 f"frame, device {dev_ms:.2f} ms/frame in {ops:.0f} device "
                 f"ops, card busy {100 * busy[graphs][-1]:.1f}%; n_kf "
                 f"{len(fs.kf_shell_ids)}, ATE {ate:.4f} m over {path:.3f} "
-                f"m; launches K1-K4 {launched[graphs][-1]}; GN steps a "
+                f"m; launches K1-K5 {launched[graphs][-1]} (K5 held to "
+                f"its rule in eager levels: {held}); GN steps a "
                 f"keyframe (n_its), keyframes by count "
                 f"{dict(sorted(fs.kf_n_its.items()))}; bit for bit the mono "
                 f"slice: {same}" + extra)
             if not same:
                 raise AssertionError(f"mono in the {name[graphs]} form is "
                                      "not bit for bit the mono slice")
-            if not graphs and launched[False][-1] != MONO_EAGER_LAUNCHES:
+            if not graphs and launched[False][-1] != \
+                    MONO_EAGER_LAUNCHES + [held]:
                 raise AssertionError(
-                    f"the eager form launched K1-K4 {launched[False][-1]} "
-                    f"times, not {MONO_EAGER_LAUNCHES}")
+                    f"the eager form launched K1-K5 {launched[False][-1]} "
+                    f"times, not {MONO_EAGER_LAUNCHES + [held]}")
             # a rung change dispatches again every frame in flight in the
             # graph form, from the first keyframe among them on eagerly:
             # each frame more is one pyramid more (no chain)
@@ -2935,12 +3047,25 @@ def graph_phase(torch, dev, card, mono, flag):
             more = again[True] - again[False] if graphs else 0
             plus = [e + w_ + (more if c == 0 else 0) for c, (e, w_) in
                     enumerate(zip(MONO_EAGER_LAUNCHES, warm.n))]
-            if graphs and launched[True][-1] != plus:
+            if graphs and launched[True][-1][:4] != plus:
                 raise AssertionError(
                     f"the graph form launched K1-K4 {launched[True][-1]} "
                     f"times, not the eager form's plus its capture "
                     f"warm-ups' and the {more} frames it dispatched again "
                     f"more {plus}")
+            # K5: each frame dispatched again tracks again, at least its
+            # first pass and LM opening at each level (2 a level a replay)
+            k5_least = launched[False][0][4] + warm.n[4] \
+                + 2 * fs.n_levels * more
+            k5 = launched[True][-1][4] if graphs else k5_least
+            if k5 != k5_least if more == 0 else k5 < k5_least:
+                raise AssertionError(
+                    f"the graph form launched K5 {k5} times, not the eager "
+                    f"form's {launched[False][0][4]} plus its capture "
+                    f"warm-ups' {warm.n[4]}" + (
+                        f" and at least {2 * fs.n_levels} for each of the "
+                        f"{more} frames it dispatched again more"
+                        if more else ""))
             if graphs and eager_steps.n_calls:
                 raise AssertionError(
                     f"the graph form stepped {eager_steps.n_calls} frames "
@@ -3209,6 +3334,249 @@ def untrap_once(fs, first_id):
     return hit
 
 
+def k5_bytes(N, K):
+    """Bytes one K5 trip must move at N template points and K hypotheses:
+    each point once (u, v, idepth, color f32 and valid: 17 bytes), its four
+    bilinear taps of [I, dx, dy] f32 (48 bytes) for each hypothesis, and a
+    hypothesis' record, LM state and trial read and written once."""
+    from sos_slam_tpu_torch.ops import tracker as TK
+    return 17 * N + 48 * N * K + 4 * K * 2 * (TK.REC + TK.ST + TK.TRI)
+
+
+def k5_flops(N, K):
+    """Floating-point operations of one K5 trip, counted from
+    csrc/tracker.cu, per point and hypothesis: the projection 29 (the
+    normalized ray 4, R x 12, t * idepth 6, the division and the pixel 6,
+    the new idepth 1), the taps 35 (the weights 2, three channels of 11),
+    the residual, Huber weight and energy 10, the Jacobian 25, the
+    weighted row 8 and the 44 normal-sum entries 88: 195. The step's
+    solve and exponential (~1,500 a hypothesis) are left out."""
+    return 195 * N * K
+
+
+def k5_entry():
+    """The kernels line's K5 entry, before its phases fill it."""
+    return dict(name="K5 tracker_trip (track_res_kernel + "
+                     "track_step_kernel: one LM trip)", route="cuda",
+                source="sos_slam_tpu_torch/csrc/tracker.cu",
+                replaces="sos_slam_tpu/ops/tracker.py track_level's LM "
+                         "body (plain XLA; no Pallas kernel)",
+                library_ms=None, max_abs_err=0.0)
+
+
+def k5_close(what, got, want, tol=1e-4):
+    """(max |got - want|, the largest share of the tolerance used): `got`
+    within rtol `tol` and atol tol * max(1, max|got|) of `want`
+    (tests/test_torch_helpers.py's `close`), NaN where both are NaN;
+    raises otherwise."""
+    got = got.detach().double().cpu().numpy()
+    want = want.detach().double().cpu().numpy()
+    if (np.isnan(got) != np.isnan(want)).any():
+        raise AssertionError(f"[K5] {what}: the NaN pattern differs")
+    got, want = np.nan_to_num(got), np.nan_to_num(want)
+    lim = tol * np.abs(want) + tol * max(1.0, float(np.max(np.abs(got))))
+    err = np.abs(got - want)
+    if (err > lim).any():
+        raise AssertionError(f"[K5] {what}: off by up to {err.max():.3e} at "
+                             f"{int((err > lim).sum())} entries")
+    return float(err.max()), float((err / lim).max())
+
+
+def k5_exact(what, got, want):
+    """`got` the same values as `want` (NaN where both are NaN)."""
+    got, want = got.detach().cpu(), want.detach().cpu()
+    if not bool(((got == want) | (got.isnan() & want.isnan())).all()):
+        raise AssertionError(f"[K5] {what}: not the same values")
+
+
+def k5_records(TK, what, got, want):
+    """A K5 pass's (K, REC) record against the plain pass's, at the card
+    tests' tolerances (the order of the sums: tests/test_torch_cuda.py's
+    K5 note): the counts num_in and num_sat exact; E and the two flow
+    sums within 1e-4; H Gram-normalized and b by sqrt(H_ii) within 1e-4.
+    Returns the largest share of a tolerance used."""
+    K = want.shape[0]
+    for col, name in ((TK.R_IN, "num_in"), (TK.R_SAT, "num_sat")):
+        k5_exact(f"{what} {name}", got[:, col], want[:, col])
+    H = want[:, TK.R_H:TK.R_H + 64].reshape(K, 8, 8)
+    Hg = got[:, TK.R_H:TK.R_H + 64].reshape(K, 8, 8)
+    d = H.diagonal(dim1=-2, dim2=-1).abs().sqrt()
+    d = d.where(d > 0, d.new_ones(()))
+    parts = [k5_close(f"{what} E", got[:, TK.R_E], want[:, TK.R_E]),
+             k5_close(f"{what} flow", got[:, TK.R_FT:TK.R_FRT + 1],
+                      want[:, TK.R_FT:TK.R_FRT + 1]),
+             k5_close(f"{what} H", Hg / (d[:, :, None] * d[:, None, :]),
+                      H / (d[:, :, None] * d[:, None, :])),
+             k5_close(f"{what} b", got[:, TK.R_B:TK.R_B + 8] / d,
+                      want[:, TK.R_B:TK.R_B + 8] / d)]
+    return max(u for _, u in parts)
+
+
+def k5_states(TK, what, got, want, lockstep):
+    """The LM state, trial and condition of K5's step against the plain
+    step's. In lockstep (the same record and state in): the state exact
+    but its rms (a division and a square root: 1e-6), the condition
+    exact, the trial within 1e-4 and its increment's norm within 1e-3
+    (the card tests' rule). Running free, each side's passes lie at its
+    own trial poses, a few roundings apart, so the sums that move to
+    first order with the pose (E, b) differ by more than their rounding
+    and are held in lockstep only: the trip count, done, lambda, num_in
+    and the condition exact (the same decisions), the pose, the affine
+    parameters and the trial within 1e-4 and rms within 1e-3 (the
+    whole-track card test's tolerances). Returns (the trial pose's max
+    |difference|, the largest share of a tolerance used)."""
+    st, pst = got.st, want.st
+    k5_exact(f"{what} condition", got.go, want.go)
+    if lockstep:
+        rest = [c for c in range(TK.ST) if c != TK.S_RMS]
+        k5_exact(f"{what} state", st[:, rest], pst[:, rest])
+        parts = [k5_close(f"{what} rms", st[:, TK.S_RMS], pst[:, TK.S_RMS],
+                          1e-6),
+                 k5_close(f"{what} inc", got.tri[:, TK.X_INC],
+                          want.tri[:, TK.X_INC], 1e-3)]
+    else:
+        for c, name in ((TK.S_IT, "it"), (TK.S_DONE, "done"),
+                        (TK.S_LAM, "lambda"), (TK.S_NUM, "num_in")):
+            k5_exact(f"{what} {name}", st[:, c], pst[:, c])
+        parts = [k5_close(f"{what} rms", st[:, TK.S_RMS], pst[:, TK.S_RMS],
+                          1e-3)]
+        for c, n, name in ((TK.S_AFF, 2, "aff"), (TK.S_T, 16, "T")):
+            parts.append(k5_close(f"{what} {name}", st[:, c:c + n],
+                                  pst[:, c:c + n]))
+    pose = k5_close(f"{what} trial", got.tri[:, TK.X_T:TK.X_AFF + 2],
+                    want.tri[:, TK.X_T:TK.X_AFF + 2])
+    return pose[0], max([u for _, u in parts] + [pose[1]])
+
+
+def k5_phase(torch, dev, card, entry=None):
+    """Phase [K5]: the tracker's LM trip (csrc/tracker.cu: the pass and
+    the rest of the trip, two launches) at the cell's level 0 (640x480, a
+    template of 16384 points), K = 1 (the primary track) and K = 5 (the
+    retry). Checks, on the same card inputs against the plain twins
+    (`res_and_hb_plain`, the unfused step): the opening pass's whole
+    record (flow on) and each trip's (`k5_records`); the opening and
+    three trips in lockstep, each step fed the plain side's record and
+    state, the whole state after each (`k5_states`); the opening and
+    three trips running free, each side from its own first pass, the
+    decisions, pose and trial after them; a trip two
+    launches by kernel name (profiler). Times device ms a trip with the
+    queue full under CUDA events, the card's time under the profiler,
+    the bound from bytes and operations and the trip's share of it, and
+    the plain trip in device ms and device ops a trip. Fills `entry`
+    (`k5_entry()` where None) and returns it."""
+    from sos_slam_tpu_torch.ops import tracker as TK
+    from sos_slam_tpu_torch.parallel import dryrun
+    from sos_slam_tpu_torch.utils import lie
+    tag = f"[K5] ({card})"
+    # the plain pass itself (a K5Rule refuses it on card tensors)
+    plain_pass = getattr(TK.res_and_hb_plain, "__wrapped__",
+                         TK.res_and_hb_plain)
+    _, pyr, tmpls, intr, _ = dryrun.tiny_scene(W, H, 16384, device=dev)
+    N = tmpls[0].u.shape[0]
+    entry = k5_entry() if entry is None else entry
+    entry["points"] = N
+    used = 0.0
+    for K in (1, 5):
+        xi = torch.zeros(K, 6, device=dev)
+        xi[:, 0] = 0.01 * torch.arange(K, device=dev)
+        T0 = lie.se3_exp(xi)
+        aff0 = torch.zeros(K, 2, device=dev)
+        cut = torch.full((K,), 20.0, device=dev)
+        lv = TK.level(pyr[0], tmpls[0], torch.zeros(2, device=dev),
+                      torch.ones(2, device=dev), intr[0], 9.0, K)
+
+        def plain_rec(T, aff, flow=False, lv=lv, cut=cut):
+            ab = TK.aff_from_to(lv.exposures[0], lv.exposures[1],
+                                lv.ref_aff[:, None], aff.T).T
+            return TK._record(plain_pass(lv.dI, lv.tmpl, T, ab,
+                                         lv.ref_aff[1], lv.intr, cut,
+                                         lv.huber, flow))
+
+        def new_lm(K=K):
+            return TK.LM(torch.empty(K, TK.ST, device=dev),
+                         torch.empty(K, TK.TRI, device=dev),
+                         torch.empty(1, dtype=torch.bool, device=dev))
+
+        r0, p0 = TK.track_res(lv, T0, aff0, cut, True), plain_rec(T0, aff0,
+                                                                   True)
+        used = max(used, k5_records(TK, f"K={K} opening pass", r0, p0))
+        # lockstep: each step fed the plain side's record and state
+        lk, lp = new_lm(), new_lm()
+        TK.track_step(TK.OPEN, p0, lk, 10, False, False, T0, aff0)
+        TK._step_plain(TK.OPEN, p0, lp, 10, False, False, T0, aff0)
+        used = max(used, k5_states(TK, f"K={K} opening", lk, lp, True)[1])
+        for trip in range(3):
+            for a, b in zip(lk, lp):
+                a.copy_(b)
+            rec = TK.track_res(lv, *lp.trial(), cut)
+            prec = plain_rec(*lp.trial())
+            used = max(used, k5_records(TK, f"K={K} trip {trip} pass", rec,
+                                        prec))
+            TK.track_step(TK.TRIP, prec, lk, 10, False, False)
+            TK._step_plain(TK.TRIP, prec, lp, 10, False, False)
+            used = max(used, k5_states(TK, f"K={K} trip {trip}", lk, lp,
+                                       True)[1])
+        # running free: each side from its own first pass
+        lm, plain = new_lm(), new_lm()
+        TK.track_step(TK.OPEN, r0, lm, 10, False, False, T0, aff0)
+        TK._step_plain(TK.OPEN, p0, plain, 10, False, False, T0, aff0)
+
+        def trip(lm=lm, lv=lv, cut=cut):
+            TK.tracker_trip(lv, lm, cut, 10, False, False)
+
+        def plain_trip(lm=plain, plain_rec=plain_rec):
+            TK._step_plain(TK.TRIP, plain_rec(*lm.trial()), lm, 10, False,
+                           False)
+
+        for _ in range(3):
+            trip()
+            plain_trip()
+        err, u = k5_states(TK, f"K={K} three free trips", lm, plain, False)
+        used = max(used, u)
+        q, before, after = queued_ms(torch, trip)
+        ms = float(np.median(q))
+        prof_ms, wall = time_ms(torch, trip)
+        pms, pwall = time_ms(torch, plain_trip)
+        n_plain, _ = device_ops(torch, plain_trip)
+        ev = profiled(torch, trip)
+        b_ms, b_by = bound(k5_bytes(N, K), k5_flops(N, K))
+        log(f"{tag} K={K}: device ms a trip, {QUEUED} queued trips under "
+            "one pair of events, three times: "
+            + ", ".join(f"{x:.5f}" for x in q)
+            + f" (clocks sm, mem before {before}; after {after}); profiler "
+            f"{prof_ms:.5f}; wall ms of a single trip {wall:.4f}")
+        log(f"{tag} K={K}: bound {b_ms:.5f} ms ({b_by}: "
+            f"{k5_bytes(N, K) / 1e6:.3f} MB, {k5_flops(N, K) / 1e6:.2f} "
+            f"MFLOP), {100 * b_ms / ms:.2f}% of the bound; the plain trip "
+            f"{pms:.4f} ms of device work in {n_plain:.0f} device ops "
+            f"(wall {pwall:.4f}), {pms / ms:.1f}x the kernels'; against the "
+            "plain twins on the same card inputs: every pass's record "
+            "(counts exact, E, flow, H Gram-normalized and b within 1e-4), "
+            "the opening and 3 trips in lockstep (the state exact but rms) "
+            "and running free (the decisions exact, the pose and trial "
+            "within 1e-4, rms within 1e-3) "
+            f"at most {used:.3f} of a tolerance; the trial pose after "
+            f"three free trips within {err:.3e}")
+        log(f"{tag} K={K}: launches a trip by kernel name, device ms a "
+            "trip (launches a trip): " + "; ".join(
+                f"{e.key.split('(')[0][:40]} "
+                f"{e.self_device_time_total / 1e3 / REPS:.5f} "
+                f"({e.count / REPS:.0f})" for e in ev))
+        names = sorted(e.key.split("(")[0] for e in ev)
+        if names != ["track_res_kernel", "track_step_kernel"] \
+                or any(e.count != REPS for e in ev):
+            raise AssertionError(f"{tag} a trip is not its two launches: "
+                                 f"{[(e.key, e.count) for e in ev]}")
+        sfx = "" if K == 1 else "_k5"
+        entry.update({f"ms{sfx}": ms, f"plain_ms{sfx}": pms,
+                      f"plain_ops{sfx}": n_plain, f"bound_ms{sfx}": b_ms,
+                      f"max_abs_err{sfx}": err})
+        entry["bound_by"] = b_by
+    entry["max_abs_err"] = max(entry["max_abs_err"], entry["max_abs_err_k5"])
+    entry["tolerance_used"] = used
+    return entry
+
+
 def run(torch):
     from sos_slam_tpu_torch.models import full_system as FSM
     from sos_slam_tpu_torch.models import initializer as INIT
@@ -3221,9 +3589,11 @@ def run(torch):
     from sos_slam_tpu_torch.utils import evaluate as EV
     from sos_slam_tpu_torch.utils.config import default_settings
 
+    global K5_RULE
     dev = torch.device("cuda")
     card = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
+    K5_RULE = K5Rule(torch)
     log(f"[device] {card}")
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
         f"kind {kind} count {torch.cuda.device_count()}")
@@ -3231,11 +3601,17 @@ def run(torch):
         # the flagship scene's phases alone (a quicker check while the VIO
         # path changes; no result line)
         cuda_build.build_all()
-        kernels = [dict(max_abs_err=0.0) for _ in range(4)]
+        kernels = [dict(max_abs_err=0.0) for _ in range(5)]
         flag = flagship(torch, dev, card, kernels)
         phase_done("flagship scene")
         graph_flagship(torch, dev, card, flag)
         phase_done("[graph] flagship")
+        return
+    if "--k5" in sys.argv[1:]:
+        # the tracker's trip alone (no result line)
+        cuda_build.build_all()
+        log(json.dumps(k5_phase(torch, dev, card)))
+        phase_done("[K5] phase")
         return
 
     # ---- 2. build ----
@@ -3355,14 +3731,15 @@ def run(torch):
             wrapper_fn=lambda: BP.act_pass(*a4, **kw4))
     ragged = ragged_cases(torch, dev, settings)
     phase_done("capture and kernel checks")
+    # K5's entry: the runs below count its launches, k5_phase times it
+    kernels.append(k5_entry())
     kernels[2]["max_abs_err"] = max(kernels[2]["max_abs_err"], ragged[0][0])
     kernels[3]["max_abs_err"] = max(kernels[3]["max_abs_err"], ragged[1][0])
     del recs
     torch.cuda.synchronize()
 
     # ---- 4. the slice, every launch counter from 0 ----
-    wrappers = (IMG.pyramid_levels, WIN.template_levels, BP.fused_iteration,
-                BP.act_pass)
+    wrappers = counted_wrappers()
     # the callers of K1 and K2, counted: a call of theirs is one launch
     callers = [Recorder(FSM, "build_pyramid", 1),
                Recorder(INIT, "build_pyramid", 1),
@@ -3438,7 +3815,7 @@ def run(torch):
                              "prewarm")
     warm = sorted(fs._prewarmed_pots)
     log(f"[slice] prewarm() at frame {WARMUP} (outside the frame timers): "
-        f"{pw['ms']:.1f} ms wall, launches K1-K4 {pw['launches']} (not in "
+        f"{pw['ms']:.1f} ms wall, launches K1-K5 {pw['launches']} (not in "
         f"the slice's counts), rungs {warm}; the fused frame graphs "
         f"captured by then, ms each (warm-up and capture): "
         + ", ".join(f"rung {k}: {v:.1f}" for k, v in
@@ -3470,7 +3847,7 @@ def run(torch):
         f"{median(nonkf):.1f} ms")
     if not ate <= 0.05 * path + 0.02:
         raise AssertionError(f"ATE gate: {ate} > 0.05 * {path} + 0.02")
-    for (name, c) in zip(("K1", "K2", "K3", "K4"), counts):
+    for (name, _, _), c in zip(kernel_counters(), counts):
         if c <= 0:
             raise AssertionError(f"{name} was not launched on the main path")
     if counts[0] != n_pyramids or counts[1] != n_templates:
@@ -3531,6 +3908,17 @@ def run(torch):
     phase_done("[multidevice] phase")
     wrapper_stats = time_kernels(torch, kernels, timings)
     phase_done("kernel times")
+    k5 = k5_phase(torch, dev, card, kernels[4])
+    phase_done("[K5] phase")
+    k5["held"] = {f: [K5_RULE.calls[f], K5_RULE.launches[f]]
+                  for f in ("eager", "bounded", "captured")}
+    log("[K5] track_level calls on the card held to K5's rule, by form "
+        "(calls, launches): " + ", ".join(
+            f"{f} {c} ({n})" for f, (c, n) in k5["held"].items())
+        + "; no plain res_and_hb pass ran on a card tensor")
+    if not all(c for c, _ in k5["held"].values()):
+        raise AssertionError(f"[K5] a form of track_level never ran on the "
+                             f"card: {k5['held']}")
     log(f"[profiler] every window opened with launches of the spin kernel, "
         f"{PRELUDE[0]} in the last; the profiler dropped up to "
         f"{PROFILER_DROPPED[0]} of them and none of the measured events")
@@ -3563,7 +3951,7 @@ def run(torch):
         + "; the [multidevice] phase (K3: (a)'s calls and the ranks'): "
         + ", ".join(f"K{i + 1}={k['launches_multidevice']}"
                     for i, k in enumerate(kernels)))
-    log(json.dumps({"kernels": kernels + [graph_cond]}))
+    log(json.dumps({"kernels": kernels[:4] + [graph_cond, k5]}))
     log(f"{card}")
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

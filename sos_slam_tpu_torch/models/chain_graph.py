@@ -52,7 +52,7 @@ sample block and the keyframe's timestamp) and, on a card, one graph per
 selector rung (`pot` is static in the JAX chain as it is here), warmed up
 on a side stream and captured in "thread_local" mode into one private
 pool. A replay overwrites the outputs of the last one, so `step` returns
-clones, and adds the K1-K4 launches captured outside the conditional
+clones, and adds the K1-K5 launches captured outside the conditional
 nodes to the kernels' launch counters (those inside are credited from
 the nodes' run counts). A failed capture raises. On the CPU the bodies
 run as they are: that is how the tests hold them.

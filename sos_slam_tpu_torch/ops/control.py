@@ -17,7 +17,7 @@ slots are cleared and reused at the next capture or `account`); `read`
 counted kernels), `staged` + `credit_staged` (the same counts through a
 frame's readback) and `account` (all) bring those counts to the host and
 add the kernel launches captured in each body times its runs to the
-kernels' launch counters (K1-K4), which a replay can no longer add by
+kernels' launch counters (K1-K5), which a replay can no longer add by
 itself. `PROFILED` keeps the same launches as torch.profiler reports
 them: an IF body's at each run, a WHILE body's once each time the node is
 entered, whatever its trips (scripts/torch_graph_probe.py's profiler
@@ -109,8 +109,10 @@ def counters():
     from sos_slam_tpu_torch.models import window as WIN
     from sos_slam_tpu_torch.ops import ba_p as BP
     from sos_slam_tpu_torch.ops import image as IMG
+    from sos_slam_tpu_torch.ops import tracker as TK
     return (("K1", IMG.pyramid_levels), ("K2", WIN.template_levels),
-            ("K3", BP.fused_iteration), ("K4", BP.act_pass))
+            ("K3", BP.fused_iteration), ("K4", BP.act_pass),
+            ("K5", TK.tracker_trip))
 
 
 def _call(symbol: str, *args) -> None:

@@ -25,7 +25,8 @@ from typing import Dict, Iterable
 _PKG = Path(__file__).resolve().parents[1]
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("pyramid", "template", "ba_fused", "act_pass", "graph_cond")
+SOURCES = ("pyramid", "template", "ba_fused", "act_pass", "graph_cond",
+           "tracker")
 # the libraries a source links besides the CUDA runtime
 LINK = {"graph_cond": ("-lcuda",)}
 # -fmad=false: no contraction of a*b+c into one rounding, so a kernel

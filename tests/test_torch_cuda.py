@@ -1123,11 +1123,11 @@ def test_chain_graph_replays_bit_for_bit_on_the_card():
 
 
 def _warm_ups(fs):
-    """Count the K1-K4 launches of `fs`'s graphs' capture warm-ups (the
+    """Count the K1-K5 launches of `fs`'s graphs' capture warm-ups (the
     bodies' plain twins run once; the capture after them launches
     nothing) into the returned list."""
     from sos_slam_tpu_torch.ops import control
-    n = [0, 0, 0, 0]
+    n = [0] * len(control.counters())
     for g in (fs.fused_graph,):
         capture = g.capture
 
@@ -1143,7 +1143,7 @@ def _warm_ups(fs):
 
 
 def _launches(run):
-    """K1-K4 launches of `run()`, the counters credited with every
+    """K1-K5 launches of `run()`, the counters credited with every
     conditional node's runs."""
     from sos_slam_tpu_torch.ops import control
     control.account()
@@ -1155,11 +1155,12 @@ def _launches(run):
 
 
 def test_chain_graph_launch_counters_on_the_card():
-    """K1-K4 launches of the graph form equal the eager form's plus the
+    """K1-K5 launches of the graph form equal the eager form's plus the
     graphs' capture warm-ups' (a warm-up runs the bodies' plain twins:
     every loop to its bound, the chain too); a replay adds the launches
-    captured outside its conditional nodes (the frame's pyramid: the
-    chain's all lie in its IF node), and the nodes' runs, counted on the
+    captured outside its conditional nodes (the frame's pyramid, and the
+    primary track's first pass and LM opening at each level: the chain's
+    all lie in its IF node), and the nodes' runs, counted on the
     device and credited from each frame's readback, credit those in their
     bodies (the chain, the BA's GN steps, the frame step's loops)."""
     dev = _dev()
@@ -1178,7 +1179,7 @@ def test_chain_graph_launch_counters_on_the_card():
     assert graph == [e + w for e, w in zip(eager, warm[0])], (
         graph, eager, warm[0])
     for pot, per in fs.fused_graph.per_replay.items():
-        assert per == dict(K1=1, K2=0, K3=0, K4=0), per
+        assert per == dict(K1=1, K2=0, K3=0, K4=0, K5=2 * fs.n_levels), per
 
 
 def test_chain_graph_capture_error_raises_on_the_card():
@@ -1356,8 +1357,9 @@ def _vio_launch_windows():
     from sos_slam_tpu_torch.models import chain_graph as CG
     from sos_slam_tpu_torch.ops import control
     dev = _dev()
-    names = dict(K1="pyramid_kernel", K2="template_kernel",
-                 K3="ba_block_kernel", K4="act_pass_kernel")
+    names = dict(K1=("pyramid_kernel",), K2=("template_kernel",),
+                 K3=("ba_block_kernel",), K4=("act_pass_kernel",),
+                 K5=("track_res_kernel", "track_step_kernel"))
     seen = []
 
     def feed(fs, add, i):
@@ -1385,7 +1387,7 @@ def _vio_launch_windows():
         assert any("spin_kernel" in e.key for e in ev)
         seen.append((
             i, sum(g.chains.values()) - replays,
-            {c: sum(e.count for e in ev if names[c] in e.key)
+            {c: sum(e.count for e in ev if any(k in e.key for k in names[c]))
              for c in names},
             {c: fn.launches - before[c] for c, fn in CG.COUNTERS},
             {c: control.CREDITED[c] - inside.get(c, 0) for c in names},
@@ -1427,7 +1429,11 @@ def test_vio_chain_graph_launch_counters_on_the_card():
     line = [x for x in run.stdout.splitlines() if x.startswith("WINDOWS ")]
     assert run.returncode == 0 and line, run.stderr[-4000:]
     seen, per_replay = json.loads(line[-1][len("WINDOWS "):])
-    want = dict(K1=1, K2=0, K3=0, K4=0)
+    # the primary track's first pass and LM opening at each of the
+    # scene's levels lie outside the frame's conditional nodes
+    from sos_slam_tpu_torch.utils import synthetic
+    want = dict(K1=1, K2=0, K3=0, K4=0,
+                K5=2 * synthetic.default_calib(256, 192).levels)
     for pot, per in per_replay.items():
         assert per == want, (pot, per)
     assert any(n for _, n, _, _, _, _ in seen), seen
@@ -1828,3 +1834,303 @@ def test_fused_frame_stamps_on_the_card():
               for k, v in sorted(rep["timers_ms"].items())
               if k.startswith("dev."))
           + f"; idle by host span (ms): {rep['idle_by_host']}")
+
+
+# ---------------------------------------------------------------------------
+# K5: the tracker's LM trip (csrc/tracker.cu) against its plain twins
+# ---------------------------------------------------------------------------
+# The kernel sums a pass's points in another order than the plain form (a
+# blocked tree against the CPU's reduction and product), so each sum may
+# differ by a few float32 roundings of its partial sums: ~sqrt(N) eps of
+# the sum of |terms|, ~1e-5 of the scale at N = 16384; held at 1e-4 (the
+# Hessian Gram-normalized, the gradient by sqrt(H_ii)). A count needs no
+# rounding: exact. The selects of the trip are exact; its solve (LU
+# against LAPACK) within 1e-4 on the trial pose.
+
+@pytest.fixture(scope="module")
+def k5_scene():
+    """The port's dry-run scene at the cell's shapes (640x480, templates of
+    16384 / 4096 / 1024 points at levels 0-2), on the CPU."""
+    _dev()
+    from sos_slam_tpu_torch.parallel import dryrun
+    return dryrun.tiny_scene(640, 480, 16384, device="cpu")
+
+
+_K5_REF_AFF = (0.02, 1.5)
+_K5_EXPOSURES = (1.0, 1.1)
+
+
+def _k5_hyps(K: int, seed: int, edges: bool = True):
+    """K poses near the identity, affine parameters and cutoffs; with
+    `edges`, from 5 lanes on the edge cases: a NaN pose (1), every point
+    off the image (2: num_in 0), a cutoff that saturates every point (3),
+    a large rotation that moves part of the template off the image (4)."""
+    from sos_slam_tpu_torch.utils import lie
+    g = torch.Generator().manual_seed(seed)
+    xi = torch.randn(K, 6, generator=g) * torch.tensor(
+        [0.02, 0.02, 0.02, 0.004, 0.004, 0.004])
+    aff = torch.randn(K, 2, generator=g) * torch.tensor([0.05, 3.0])
+    cut = torch.full((K,), 20.0)
+    edges = edges and K >= 5
+    if edges:
+        xi[4, 3:] = torch.tensor([0.0, 0.25, 0.1])
+    T = lie.se3_exp(xi)
+    if edges:
+        T[1] = float("nan")
+        T[2, 0, 3] = 50.0
+        cut[3] = -1.0       # every |r| exceeds it
+    return T, aff, cut
+
+
+def _k5_level(scene, lvl: int, K: int, dev):
+    from sos_slam_tpu_torch.ops import tracker as TK
+    _, pyr, tmpls, intr, _ = scene
+    ref_aff, exposures = torch.tensor(_K5_REF_AFF), torch.tensor(_K5_EXPOSURES)
+    cpu = TK.level(pyr[lvl], tmpls[lvl], ref_aff, exposures, intr[lvl], 9.0,
+                   K)
+    tm = TK.LevelTemplate(*(t.to(dev) for t in tmpls[lvl]))
+    card = TK.level(pyr[lvl].to(dev), tm, ref_aff.to(dev),
+                    exposures.to(dev), intr[lvl], 9.0, K)
+    return cpu, card
+
+
+def _k5_records_close(TK, got, want):
+    """A card record against the plain one (the module note's tolerances)."""
+    got = got.cpu()
+    K = want.shape[0]
+    for col in (TK.R_IN, TK.R_SAT):
+        exact(got[:, col], want[:, col])
+    close(got[:, TK.R_E], want[:, TK.R_E], tol=1e-4)
+    close(got[:, TK.R_FT:TK.R_FRT + 1], want[:, TK.R_FT:TK.R_FRT + 1],
+          tol=1e-4)
+    H = want[:, TK.R_H:TK.R_H + 64].reshape(K, 8, 8)
+    gram_close(got[:, TK.R_H:TK.R_H + 64].reshape(K, 8, 8), H, tol=1e-4)
+    d = torch.sqrt(torch.diagonal(H, dim1=-2, dim2=-1))
+    d = torch.where(d > 0, d, torch.ones_like(d))
+    close(got[:, TK.R_B:TK.R_B + 8] / d, want[:, TK.R_B:TK.R_B + 8] / d,
+          tol=1e-4)
+
+
+@pytest.mark.parametrize("flow", [False, True])
+@pytest.mark.parametrize("K", [1, 5, 78])
+@pytest.mark.parametrize("lvl", [0, 1, 2])
+def test_k5_track_res_against_plain(k5_scene, lvl, K, flow):
+    """One K5 pass at the cell's level sizes against `res_and_hb` on the
+    CPU, with the edge lanes of `_k5_hyps`; one launch, and a second
+    launch repeats every bit."""
+    from sos_slam_tpu_torch.ops import tracker as TK
+    dev = _dev()
+    cpu, card = _k5_level(k5_scene, lvl, K, dev)
+    T, aff, cut = _k5_hyps(K, 100 * lvl + K)
+    want = TK.track_res(cpu, T, aff, cut, flow)
+    before = TK.tracker_trip.launches
+    got = TK.track_res(card, T.to(dev), aff.to(dev), cut.to(dev), flow)
+    assert TK.tracker_trip.launches - before == 1
+    _k5_records_close(TK, got, want)
+    if K >= 5:
+        r = got.cpu()
+        assert r[2, TK.R_IN] == 0 and r[3, TK.R_SAT] == r[3, TK.R_IN] > 0
+        # the pose rows of the NaN lane (its affine block sums zero
+        # weights times finite Jacobians, as the plain product does)
+        H1 = r[1, TK.R_H:TK.R_H + 64].reshape(8, 8)
+        assert torch.isnan(H1[:6]).all() and not torch.isnan(H1[6:, 6:]).any()
+    again = TK.track_res(card, T.to(dev), aff.to(dev), cut.to(dev), flow)
+    assert _same_bits(got, again)
+
+
+def test_k5_res_and_hb_on_the_card(k5_scene):
+    """`res_and_hb` on card tensors is one K5 pass (the transfer given),
+    its dict against the plain body's on the CPU."""
+    from sos_slam_tpu_torch.ops import tracker as TK
+    dev = _dev()
+    _, pyr, tmpls, intr, _ = k5_scene
+    T, aff, cut = _k5_hyps(5, 7)
+    ab = torch.stack([1.0 + aff[:, 0], aff[:, 1]], -1)
+    b0 = torch.tensor(1.5)
+    want = TK.res_and_hb(pyr[0], tmpls[0], T, ab, b0, intr[0], cut, 9.0,
+                         compute_flow=True)
+    before = TK.tracker_trip.launches
+    got = TK.res_and_hb(pyr[0].to(dev),
+                        TK.LevelTemplate(*(t.to(dev) for t in tmpls[0])),
+                        T.to(dev), ab.to(dev), b0.to(dev), intr[0],
+                        cut.to(dev), 9.0, compute_flow=True)
+    assert TK.tracker_trip.launches - before == 1
+    assert set(got) == set(want)
+    for k in ("num_in", "num_sat"):
+        assert got[k].dtype == want[k].dtype
+        exact(got[k].cpu(), want[k])
+    for k in ("E", "flow_t", "flow_rt"):
+        close(got[k].cpu(), want[k], tol=1e-4)
+    gram_close(got["H"].cpu(), want["H"], tol=1e-4)
+
+
+@pytest.mark.parametrize("fix", [(False, False), (True, False),
+                                 (False, True), (True, True)])
+def test_k5_track_step_against_plain(k5_scene, fix):
+    """`track_step`'s opening and trip against the plain twin on the same
+    buffers: the selects, lambda, `it`, `done`, rms and the condition
+    exact; the next trial (the damped solve, exp(step) @ T) within 1e-4;
+    the lane with no point in (a singular system) takes a zero step, and
+    the NaN lane too."""
+    from sos_slam_tpu_torch.ops import tracker as TK
+    dev = _dev()
+    fix_a, fix_b = fix
+    K = 8
+    cpu, _ = _k5_level(k5_scene, 1, K, dev)
+    T, aff, cut = _k5_hyps(K, 11)
+
+    def lm():
+        return TK.LM(torch.empty(K, TK.ST), torch.empty(K, TK.TRI),
+                     torch.empty(1, dtype=torch.bool))
+
+    def on_card(m):
+        return TK.LM(*(t.to(dev) for t in m))
+
+    r0 = TK.track_res(cpu, T, aff, cut, True)
+    plain = lm()
+    TK.track_step(TK.OPEN, r0, plain, 20, fix_a, fix_b, T, aff)
+    card = lm()
+    card = on_card(card)
+    before = TK.tracker_trip.launches
+    TK.track_step(TK.OPEN, r0.to(dev), card, 20, fix_a, fix_b, T.to(dev),
+                  aff.to(dev))
+    _k5_states_match(TK, card, plain)
+    for trip in range(3):
+        card = on_card(plain)       # the same inputs on both sides
+        rn = TK.track_res(cpu, *plain.trial(), cut)
+        TK.track_step(TK.TRIP, rn, plain, 20, fix_a, fix_b)
+        TK.track_step(TK.TRIP, rn.to(dev), card, 20, fix_a, fix_b)
+        _k5_states_match(TK, card, plain)
+    assert TK.tracker_trip.launches - before == 4
+    st = plain.st
+    assert st[2, TK.S_NUM] == 0 and st[2, TK.S_DONE] == 1
+    for lane in (1, 2):
+        exact(card.tri[lane, TK.X_INC].cpu(), torch.tensor(0.0))
+        exact(card.view("T")[lane].cpu(), plain.view("T")[lane])
+
+
+def _k5_states_match(TK, card, plain):
+    """The state exact but its rms (a division and a square root, which
+    the CPU's vector units and the card may round a last bit apart)."""
+    st, tri = card.st.cpu(), card.tri.cpu()
+    rest = [c for c in range(TK.ST) if c != TK.S_RMS]
+    exact(st[:, rest], plain.st[:, rest])
+    close(st[:, TK.S_RMS], plain.st[:, TK.S_RMS], tol=1e-6)
+    exact(card.go.cpu(), plain.go)
+    close(tri[:, TK.X_T:TK.X_T + 16], plain.tri[:, TK.X_T:TK.X_T + 16],
+          tol=1e-4)
+    close(tri[:, TK.X_AFF:TK.X_AFF + 2],
+          plain.tri[:, TK.X_AFF:TK.X_AFF + 2], tol=1e-4)
+    close(tri[:, TK.X_INC], plain.tri[:, TK.X_INC], tol=1e-3)
+
+
+def _k5_inputs(scene, dev, K):
+    """A whole track's arguments on `dev`: K hypotheses near the identity
+    (no edge lane), the scene's pyramid and templates."""
+    from sos_slam_tpu_torch.ops import tracker as TK
+    _, pyr, tmpls, intr, n_levels = scene
+    T, _, _ = _k5_hyps(K, 3, edges=False)
+    return dict(
+        pyramid_new=tuple(p.to(dev) for p in pyr),
+        templates=tuple(TK.LevelTemplate(*(t.to(dev) for t in tm))
+                        for tm in tmpls),
+        T_init=T.to(dev), aff_init=torch.zeros(2, device=dev),
+        ref_aff=torch.tensor(_K5_REF_AFF, device=dev),
+        exposures=torch.tensor(_K5_EXPOSURES, device=dev),
+        min_res_for_abort=torch.full((6,), float("nan"), device=dev),
+        intrinsics=intr, n_levels=n_levels)
+
+
+def _k5_track(args, bounded=False):
+    """`track_newest_coarse` on `_k5_inputs`, with the LM trips by level."""
+    from sos_slam_tpu_torch.ops import tracker as TK
+    iters = torch.zeros(args["T_init"].shape[0], args["n_levels"],
+                        dtype=torch.int32, device=args["T_init"].device)
+    out = TK.track_newest_coarse(**args, bounded=bounded, iters=iters)
+    out["iters"] = iters
+    return out
+
+
+@pytest.mark.parametrize("K", [1, 5])
+def test_k5_track_newest_coarse_against_plain(k5_scene, K, monkeypatch):
+    """A whole coarse-to-fine track on the card against the plain path on
+    the CPU within the tracker's 1e-4 on the pose; every pass a K5 launch
+    (no plain pass touches a card tensor), 2 a trip plus 2 a level (its
+    first pass and the loop's opening), the cutoff doublings and
+    re-passes; a second run repeats every bit."""
+    from sos_slam_tpu_torch.ops import tracker as TK
+    dev = _dev()
+    want = _k5_track(_k5_inputs(k5_scene, torch.device("cpu"), K))
+    args = _k5_inputs(k5_scene, dev, K)
+    interp = TK.interp_bilinear
+
+    def cpu_only(img, *a):
+        assert not img.is_cuda, "a plain pass on a card tensor"
+        return interp(img, *a)
+
+    monkeypatch.setattr(TK, "interp_bilinear", cpu_only)
+    calls = []
+    level = TK.track_level
+
+    def counted(*a, **kw):
+        res = level(*a, **kw)
+        calls.append(res)
+        return res
+
+    monkeypatch.setattr(TK, "track_level", counted)
+    before = TK.tracker_trip.launches
+    got = _k5_track(args)
+    launches = TK.tracker_trip.launches - before
+    outside = 0
+    for res in calls:
+        doublings = int(torch.log2(res[3].max()).round())
+        outside += 2 + doublings + (1 if doublings else 0)
+    trips = sum(int(res[6].max()) for res in calls)
+    assert launches == 2 * trips + outside
+    close(got["T"].cpu(), want["T"], tol=1e-4)
+    close(torch.nan_to_num(got["residuals"].cpu(), nan=-1),
+          torch.nan_to_num(want["residuals"], nan=-1), tol=1e-3)
+    exact(got["good"].cpu(), want["good"])
+    again = _k5_track(args)
+    for k in got:
+        assert _same_bits(got[k], again[k]), k
+
+
+@pytest.mark.parametrize("K", [1, 5])
+def test_k5_bounded_equals_eager_on_the_card(k5_scene, K):
+    """The bounded form outside a capture (control's card twins: every
+    loop to its cap, every branch) is the eager form bit for bit: a trip
+    after a lane is done changes none of its state."""
+    args = _k5_inputs(k5_scene, _dev(), K)
+    eager = _k5_track(args)
+    bounded = _k5_track(args, bounded=True)
+    for k in eager:
+        assert _same_bits(eager[k], bounded[k]), k
+
+
+def test_k5_captured_track_replays_bit_for_bit(k5_scene):
+    """The bounded track captured with its loops and branches as
+    conditional nodes: a replay gives the eager form's bits, and counts
+    its K5 launches through the nodes' run counters."""
+    from sos_slam_tpu_torch.ops import control
+    from sos_slam_tpu_torch.ops import tracker as TK
+    dev = _dev()
+    args = _k5_inputs(k5_scene, dev, 5)
+    eager = _k5_track(args)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        _k5_track(args, bounded=True)           # the warm-up
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with control.capture(graph, torch.cuda.graph_pool_handle(), side):
+        out = _k5_track(args, bounded=True)
+    torch.cuda.synchronize(dev)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize(dev)
+        for k in eager:
+            assert _same_bits(eager[k], out[k]), k
+    before = TK.tracker_trip.launches
+    control.account(dev)
+    assert TK.tracker_trip.launches > before

@@ -16,6 +16,7 @@ from sos_slam_tpu_torch.ops import ba as B
 from sos_slam_tpu_torch.ops import ba_p as BP
 from sos_slam_tpu_torch.ops import control
 from sos_slam_tpu_torch.ops import image as IMG
+from sos_slam_tpu_torch.ops import tracker as TK
 from sos_slam_tpu_torch.utils import convert, cuda_build, synthetic
 
 # every extern "C" entry point of csrc/ and the argtypes its wrapper sets
@@ -25,6 +26,8 @@ ARGTYPES = {
     "launch_ba_fused": BP._BA_ARGS,
     "ba_fused_part_floats": BP._BA_PART_ARGS,
     "launch_act_pass": BP._ACT_ARGS,
+    "launch_track_res": TK._RES_ARGS,
+    "launch_track_step": TK._STEP_ARGS,
     **control.ARGTYPES,
 }
 # the tables a launcher takes by value and their ctypes mirrors
@@ -108,6 +111,46 @@ def test_by_value_tables_hold_the_port_s_levels():
     assert WIN.K2_MAX_LEVELS >= PYR_LEVELS
     assert IMG.PyramidOut.dI.size == IMG.K1_MAX_LEVELS * ctypes.sizeof(
         ctypes.c_void_p)
+
+
+# K5's buffers: the wrapper's column constants against csrc/tracker.cu's
+K5_LAYOUT = {"K5_REC": TK.REC, "K5_R_E": TK.R_E, "K5_R_IN": TK.R_IN,
+             "K5_R_SAT": TK.R_SAT, "K5_R_FT": TK.R_FT, "K5_R_FRT": TK.R_FRT,
+             "K5_R_B": TK.R_B, "K5_R_H": TK.R_H, "K5_ST": TK.ST,
+             "K5_S_IT": TK.S_IT, "K5_S_DONE": TK.S_DONE,
+             "K5_S_LAM": TK.S_LAM, "K5_S_E": TK.S_E, "K5_S_NUM": TK.S_NUM,
+             "K5_S_RMS": TK.S_RMS, "K5_S_AFF": TK.S_AFF, "K5_S_T": TK.S_T,
+             "K5_S_B": TK.S_B, "K5_S_H": TK.S_H, "K5_TRI": TK.TRI,
+             "K5_X_T": TK.X_T, "K5_X_AFF": TK.X_AFF, "K5_X_INC": TK.X_INC,
+             "K5_PART": TK.K5_PART}
+
+
+@pytest.mark.parametrize("name", sorted(K5_LAYOUT))
+def test_k5_layout_matches_c_defines(name):
+    """A column of K5's record, LM state or trial, or a partials row's
+    width: the kernel and its wrapper (and the plain twin, which uses the
+    same buffers) must agree, or a field is read from its neighbour."""
+    src = (cuda_build.SRC_DIR / "tracker.cu").read_text()
+    consts = {k: int(v) for k, v in _DEFINE.findall(src)}
+    assert consts[name] == K5_LAYOUT[name]
+
+
+def test_k5_buffers_hold_their_fields():
+    """The record, the state and the trial hold every field without
+    overlap, and a block's points are its threads times points a thread."""
+    src = (cuda_build.SRC_DIR / "tracker.cu").read_text()
+    consts = {k: int(v) for k, v in _DEFINE.findall(src)}
+    assert consts["K5_THREADS"] * consts["K5_PPT"] == TK.K5_POINTS
+    rec = [(TK.R_E, 1), (TK.R_IN, 1), (TK.R_SAT, 1), (TK.R_FT, 1),
+           (TK.R_FRT, 1), (TK.R_B, 8), (TK.R_H, 64)]
+    st = [(c, n or 1) for c, n, _ in TK._FIELDS.values()]
+    tri = [(TK.X_T, 16), (TK.X_AFF, 2), (TK.X_INC, 1)]
+    for fields, width in ((rec, TK.REC), (st, TK.ST), (tri, TK.TRI)):
+        cols = [c + i for c, n in fields for i in range(n)]
+        assert len(cols) == len(set(cols)) and max(cols) < width
+    # E, num_in, num_sat, active, 44 normal-sum entries, 3 flow sums
+    assert consts["K5_P_M"] == 4 and consts["K5_P_FLOW"] == 4 + 44
+    assert TK.K5_PART == consts["K5_P_FLOW"] + 3
 
 
 def test_empty_views_are_contiguous_and_16_byte_aligned():
